@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+  python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. device: a CUDA card is required; prints its name and power limit;
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+3. kernels: each kernel against its plain torch version on the card, at the
+   serving path's shapes (gemma-2b, bf16, batch 4, prompt 512, cache 544)
+   plus ragged / window / ring / float32 cases; each timed with CUDA events
+   beside its plain version, its bound and one PyTorch library call;
+4. serve: gemma-2b at full width (random weights from a seed) through
+   ``repro_torch.launch.serve``: 4 requests, prompt 512, 32 new tokens.
+   Checks the kernel launch counts, finite logits and the first decode
+   steps against the plain versions on the same weights, and profiles a
+   prefill and a few decode steps; then gemma-2b at full width in float32,
+   kernel path against plain path, and a reduced float32 model on the card
+   against the same weights on the CPU;
+5. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM data sheet (dense): memory rate and peak rates by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_kernels.py tolerances
+DECODE_TOL_F32 = 3e-5
+# Greedy tokens of the kernel path and the plain path must agree; where they
+# differ, the plain path must rank the kernel's token within this distance of
+# its top logit (two bf16 steps for logits in [4, 8)): a near-tie, not an error.
+TOKEN_TIE_TOL = 0.0625
+LOGITS_TOL_F32 = 1e-4  # reduced float32 model, card kernels vs CPU plain versions
+LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain versions
+
+ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(name: str, got, want, tol: float) -> float:
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
+             f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{name}: non-finite kernel output")
+    err = (g - w).abs()
+    worst = float((err - tol * w.abs()).max())
+    max_err = float(err.max())
+    if worst > tol:
+        fail(f"{name}: max |kernel - plain| {max_err:.3g} exceeds atol=rtol={tol}")
+    print(f"  {name}: max_abs_err {max_err:.3g} (tol {tol})")
+    return max_err
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ring_kpos(B: int, W: int, pos: int, device):
+    """kpos of a ring of W slots after positions 0..pos were written at
+    slot p % W (the latest write wins); never-written slots are -1."""
+    import torch
+
+    s = torch.arange(W, device=device)
+    latest = s + W * torch.div(pos - s, W, rounding_mode="floor")
+    kp = torch.where(s <= pos, latest, torch.full_like(s, -1))
+    return kp.to(torch.int32).expand(B, W).contiguous()
+
+
+def kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    cfg = get_arch(ARCH)
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S, W = BATCH, PROMPT, PROMPT + NEW
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    rows = []
+
+    # -- rmsnorm: (B*S, d) rows, as in every prefill norm --------------------
+    print("kernel rmsnorm")
+    x, scale = randn(B * S, d), randn(d, dtype=torch.float32)
+    err = compare("rmsnorm bf16 (2048, 2048)", rn.rmsnorm(x, scale), rn.rmsnorm_ref(x, scale),
+                  TOL["bfloat16"])
+    xf, sf = randn(37, 100, dtype=torch.float32), randn(100, dtype=torch.float32)
+    compare("rmsnorm f32 (37, 100) unvectorised", rn.rmsnorm(xf, sf), rn.rmsnorm_ref(xf, sf),
+            TOL["float32"])
+    xd = randn(B, 1, d)
+    compare("rmsnorm bf16 decode (4, 1, 2048)", rn.rmsnorm(xd, scale), rn.rmsnorm_ref(xd, scale),
+            TOL["bfloat16"])
+    b_ms, b_by = bound(2 * nbytes(x) + nbytes(scale), 4 * x.numel(), "float32")
+    w16 = scale.to(bf)
+    rows.append(dict(
+        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm.py:27", max_abs_err=err,
+        ms=time_ms(lambda: rn.rmsnorm(x, scale)),
+        plain_ms=time_ms(lambda: rn.rmsnorm_ref(x, scale)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=w16, eps=1e-6)),
+    ))
+
+    # -- flash_attention: prefill, q/k/v as transposed (B, S, h, hd) views ---
+    print("kernel flash_attention")
+
+    def qkv(B_, S_, H_, K_, hd_, dtype=bf):
+        q5, k5, v5 = randn(B_, S_, H_, hd_, dtype=dtype), randn(B_, S_, K_, hd_, dtype=dtype), \
+            randn(B_, S_, K_, hd_, dtype=dtype)
+        return q5.transpose(1, 2), k5.transpose(1, 2), v5.transpose(1, 2)
+
+    q, k, v = qkv(B, S, H, K, hd)
+    err = compare("flash_attention bf16 causal (4,8,512,256)/(4,1,512,256)",
+                  fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v), TOL["bfloat16"])
+    qr, kr, vr = qkv(2, 300, H, K, hd)
+    compare("flash_attention bf16 causal ragged S=300", fa.flash_attention(qr, kr, vr),
+            fa.flash_attention_ref(qr, kr, vr), TOL["bfloat16"])
+    compare("flash_attention bf16 window 128", fa.flash_attention(q, k, v, window=128),
+            fa.flash_attention_ref(q, k, v, window=128), TOL["bfloat16"])
+    qf, kf, vf = qkv(1, 200, 4, 2, 64, dtype=torch.float32)
+    compare("flash_attention f32 causal GQA (1,4,200,64)/(1,2,200,64)",
+            fa.flash_attention(qf, kf, vf), fa.flash_attention_ref(qf, kf, vf), TOL["float32"])
+    compare("flash_attention f32 window 48", fa.flash_attention(qf, kf, vf, window=48),
+            fa.flash_attention_ref(qf, kf, vf, window=48), TOL["float32"])
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
+    b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
+    rows.append(dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75", max_abs_err=err,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+    ))
+
+    # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
+    print("kernel flash_decode")
+    pos = S + 3  # the 4th decode step: slots 0..pos valid, the rest empty
+    ck, cv = randn(B, W, K, hd), randn(B, W, K, hd)
+    kc, vc = ck.transpose(1, 2), cv.transpose(1, 2)
+    kpos = ring_kpos(B, W, pos, dev)
+    qd = randn(B, 1, H, hd)[:, 0]
+    err = compare("flash_decode bf16 cache 544, empty slots",
+                  da.flash_decode(qd, kc, vc, kpos, pos), da.flash_decode_ref(qd, kc, vc, kpos, pos),
+                  TOL["bfloat16"])
+    compare("flash_decode bf16 window 128", da.flash_decode(qd, kc, vc, kpos, pos, window=128),
+            da.flash_decode_ref(qd, kc, vc, kpos, pos, window=128), TOL["bfloat16"])
+    kring = ring_kpos(B, 128, 700, dev)  # wrapped ring of 128 slots
+    compare("flash_decode bf16 wrapped ring W=128",
+            da.flash_decode(qd, kc[:, :, :128], vc[:, :, :128], kring, 700),
+            da.flash_decode_ref(qd, kc[:, :, :128], vc[:, :, :128], kring, 700), TOL["bfloat16"])
+    qf = randn(2, 4, 64, dtype=torch.float32)
+    kf, vf = randn(2, 200, 2, 64, dtype=torch.float32), randn(2, 200, 2, 64, dtype=torch.float32)
+    kpf = ring_kpos(2, 200, 150, dev)
+    compare("flash_decode f32 GQA (2,4,64) cache 200",
+            da.flash_decode(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
+            da.flash_decode_ref(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
+            DECODE_TOL_F32)
+    valid = int(((kpos >= 0) & (kpos <= pos)).sum())  # (row, slot) pairs the data needs
+    row_bytes = K * hd * ck.element_size()
+    b_ms, b_by = bound(2 * nbytes(qd) + 2 * valid * row_bytes + nbytes(kpos),
+                       4 * hd * (H // K) * K * valid, "bfloat16")
+    mask = ((kpos >= 0) & (kpos <= pos))[:, None, None, :]
+    q4 = qd[:, :, None]
+    rows.append(dict(
+        name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:60", max_abs_err=err,
+        ms=time_ms(lambda: da.flash_decode(qd, kc, vc, kpos, pos)),
+        plain_ms=time_ms(lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask, enable_gqa=True)),
+    ))
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
+    return rows
+
+
+def plain_replay(model, params, prompt, tokens, n_steps: int):
+    """The same weights through the plain versions on the card, fed the
+    kernel run's greedy tokens: logits of the prefill and n_steps decodes."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    S = prompt.shape[1]
+    with torch.inference_mode(), ops.plain_versions():
+        ref, caches = model.prefill(params, prompt, cache_len=S + NEW)
+        steps = [ref]
+        for i in range(n_steps):
+            ref, caches = model.decode(params, tokens[:, i:i + 1], S + i, caches)
+            steps.append(ref)
+    return steps
+
+
+def serve_phase(dev, card: str):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    model, params, prompt = serve.setup(ARCH, full=True, batch=BATCH, prompt_len=PROMPT,
+                                        device="cuda", seed=0)
+    cfg = model.cfg
+    serve.generate(model, params, prompt, 3)  # warm-up (cuBLAS, allocator)
+
+    ops.reset_launch_counts()
+    gen = serve.generate(model, params, prompt, NEW)
+    counts = ops.launch_counts()
+    per_forward = 2 * cfg.n_layers + 1
+    want = {"rmsnorm": per_forward * NEW, "flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * (NEW - 1)}
+    print(f"serve launches {counts} (want {want})")
+    if counts != want:
+        fail(f"kernel launch counts {counts} != {want}")
+    logits = torch.stack(gen.logits)
+    if logits.shape != (NEW, BATCH, cfg.vocab) or not torch.isfinite(logits).all():
+        fail(f"serve logits: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+
+    steps = plain_replay(model, params, prompt, gen.tokens, 4)
+    for i, ref in enumerate(steps):
+        got_tok = gen.tokens[:, i]
+        ref_f = ref.float()
+        top = ref_f.max(dim=-1).values
+        at_tok = ref_f.gather(1, got_tok[:, None])[:, 0]
+        exact = int((ref_f.argmax(dim=-1) == got_tok).sum())
+        diff = float((gen.logits[i].float() - ref_f).abs().max())
+        print(f"  step {i}: tokens equal {exact}/{BATCH}, max |logits kernel - plain| {diff:.4g}")
+        if bool((at_tok < top - TOKEN_TIE_TOL).any()):
+            fail(f"step {i}: greedy token {got_tok.tolist()} vs plain "
+                 f"{ref_f.argmax(dim=-1).tolist()} beyond a near-tie")
+
+    res = serve.summary(ARCH, gen)
+    print(f"serve {ARCH} full width, batch {BATCH}, prompt {PROMPT}, {NEW} new tokens on "
+          f"{card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
+          f"decode_p99_s {res['decode_p99_s']} tokens_per_s {res['tokens_per_s']}")
+    print(json.dumps({"serve": res, "card": card}))
+    profile_serve(model, params, prompt, res)
+    del model, params, gen, logits, steps
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_serve(model, params, prompt, res) -> None:
+    """Where a prefill and a decode step spend their time: device time per
+    step (torch.profiler), its share of the unprofiled wall time of the
+    serve run (prefill_s, decode_p50_s), and the kernels with the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S = prompt.shape
+    with torch.inference_mode():
+        _, caches = model.prefill(params, prompt, cache_len=S + NEW)
+        tok = prompt[:, -1:]
+
+        def prefill():
+            model.prefill(params, prompt, cache_len=S + NEW)
+
+        def decode_steps(n=8):
+            for i in range(n):
+                model.decode(params, tok, S + i, caches)
+
+        for name, fn, n_steps, unprofiled_s in (("prefill", prefill, 1, res["prefill_s"]),
+                                                ("decode", decode_steps, 8, res["decode_p50_s"])):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0_s = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0_s
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            device_us = sum(e.self_device_time_total for e in events)
+            if device_us <= 0:
+                print(f"profile {name}: no device time in the trace (not measured)")
+                continue
+            top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+            busy_s = device_us / 1e6 / n_steps
+            print(f"profile {name} ({n_steps} step(s)): device busy {busy_s * 1e3:.3f} ms/step = "
+                  f"{100 * busy_s / unprofiled_s:.1f}% of the unprofiled {unprofiled_s * 1e3:.3f} "
+                  f"ms (profiled wall {wall_s * 1e3 / n_steps:.3f} ms/step)")
+            for e in top:
+                print(f"    {e.self_device_time_total / 1e3 / n_steps:9.3f} ms/step "
+                      f"{e.count // n_steps:5d}x/step  {e.key[:90]}")
+
+
+def full_width_f32_phase(dev):
+    """gemma-2b at full width in float32: the kernel path against the plain
+    path on the same weights. Every kernel is exact to ~1e-6 here, so the
+    two must give the same greedy tokens and logits within 1e-3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(ARCH), dtype="float32")
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = model.init(g, dev)
+    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=g, device=dev,
+                           dtype=torch.int64)
+    gen = serve.generate(model, params, prompt, 5)
+    steps = plain_replay(model, params, prompt, gen.tokens, 4)
+    worst = 0.0
+    for i, ref in enumerate(steps):
+        worst = max(worst, float((gen.logits[i] - ref).abs().max()))
+        if not torch.equal(gen.tokens[:, i], ref.argmax(dim=-1)):
+            fail(f"full-width f32 step {i}: tokens {gen.tokens[:, i].tolist()} vs plain "
+                 f"{ref.argmax(dim=-1).tolist()}")
+    if not worst <= LOGITS_TOL_FULL_F32:
+        fail(f"full-width f32: max |logits kernel - plain| {worst:.3g} > {LOGITS_TOL_FULL_F32}")
+    print(f"full-width f32 gemma: kernel path == plain path, tokens equal over 5 steps, "
+          f"max |logits diff| {worst:.3g} (tol {LOGITS_TOL_FULL_F32})")
+    del model, params, gen, steps
+    torch.cuda.empty_cache()
+
+
+def reduced_reference_phase(dev):
+    """A reduced float32 gemma on the card (kernels) against the same
+    weights on the CPU (plain versions)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    model, params, prompt = serve.setup(ARCH, full=False, batch=2, prompt_len=40,
+                                        device="cuda", seed=5)
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.cpu()
+
+    got = serve.generate(model, params, prompt, 6)
+    want = serve.generate(model, to_cpu(params), prompt.cpu(), 6)
+    for i, (a, b) in enumerate(zip(got.logits, want.logits)):
+        err = float((a.cpu() - b).abs().max())
+        if not err <= LOGITS_TOL_F32:
+            fail(f"reduced f32 model, step {i}: max |card - cpu| {err:.3g} > {LOGITS_TOL_F32}")
+    if not torch.equal(got.tokens.cpu(), want.tokens):
+        fail("reduced f32 model: greedy tokens differ between card and CPU")
+    print(f"reduced f32 gemma: card kernels == CPU plain versions within {LOGITS_TOL_F32}, "
+          f"tokens equal")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch/csrc beside {Path(__file__).name}: run it from the repository")
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}")
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0_s = time.perf_counter()
+    _build.lib()  # compiles the sources on first use, then loads the library
+    build_s = time.perf_counter() - t0_s
+    print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
+
+    rows = kernel_phase(dev)
+    counts = serve_phase(dev, card)
+    full_width_f32_phase(dev)
+    reduced_reference_phase(dev)
+
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(card)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,111 @@
+"""Architecture and input-shape configuration (counterpart of
+``repro/configs/base.py``).
+
+The port registers only the architectures it runs. ``get_arch`` of any
+other name raises ``KeyError`` that says so, rather than handing back a
+config the port's model cannot build.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Architecture config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None  # default: d_model // n_heads
+    mlp: str = "swiglu"  # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    norm: str = "rms"  # rms | layer
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # --- features of the reference's other families; the port's
+    # build_model refuses a config that sets any of them ---
+    moe: bool = False
+    attn_free: bool = False  # rwkv6
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rec","rec","attn") for griffin
+    window: int = 0  # sliding-window size for local attention (0 = full)
+    encoder_layers: int = 0  # whisper
+    num_img_tokens: int = 0  # phi-3-vision
+    kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8"
+    # --- numerics ---
+    dtype: str = "bfloat16"  # activation dtype
+    source: str = ""  # provenance note
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def reduced(self) -> "ArchConfig":
+        """A tiny same-family variant for CPU tests; the same changes as
+        ``repro.configs.base.ArchConfig.reduced`` for a dense architecture."""
+        changes = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else self.n_kv_heads,
+            d_ff=128,
+            vocab=512,
+            head_dim=16,
+            dtype="float32",
+        )
+        if self.window:
+            changes["window"] = 16
+        return dataclasses.replace(self, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"arch {name!r} is not ported to repro_torch yet; the port runs "
+            f"{sorted(_REGISTRY)} (the other families are later slices in ROADMAP.md)"
+        )
+    return _REGISTRY[name]
+
+
+def all_archs() -> Dict[str, ArchConfig]:
+    _ensure_loaded()
+    return dict(_REGISTRY)
+
+
+def _ensure_loaded():
+    from repro_torch.configs import gemma_2b  # noqa: F401  (registers on import)

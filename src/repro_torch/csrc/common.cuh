@@ -1,0 +1,45 @@
+// Shared helpers for the repro_torch CUDA kernels (sm_90a).
+//
+// Every kernel reads float32 or bfloat16 tensors, computes in float32 and
+// writes the input's type. The C entry points take raw pointers, element
+// strides and a cudaStream_t from the Python wrapper (ctypes), launch on
+// that stream without synchronising, and return cudaGetLastError().
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Running max before any valid score has been seen (the Pallas kernels'
+// NEG_INF). Masked scores never enter a sum: their weight is set to 0.
+constexpr float kNegInit = -1.0e30f;
+
+}  // namespace rt
