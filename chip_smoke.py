@@ -7,17 +7,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. kernels: each kernel against its plain torch version on the card, at the
-   serving path's shapes (gemma-2b, bf16, batch 4, prompt 512, cache 544)
-   plus ragged / window / ring / float32 cases; each timed with CUDA events
-   beside its plain version, its bound and one PyTorch library call;
-4. serve: gemma-2b at full width (random weights from a seed) through
-   ``repro_torch.launch.serve``: 4 requests, prompt 512, 32 new tokens.
-   Checks the kernel launch counts, finite logits and the first decode
-   steps against the plain versions on the same weights, and profiles a
-   prefill and a few decode steps; then gemma-2b at full width in float32,
-   kernel path against plain path, and a reduced float32 model on the card
-   against the same weights on the CPU;
+3. kernels: each of the five kernels against its plain torch version on
+   the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
+   512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
+   rglru at (4, 2048, 4096)) plus ragged / window / ring / strong-decay /
+   float32 cases; each timed with CUDA events beside its plain version, its
+   bound and, where one exists, one PyTorch library call;
+4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512) and
+   recurrentgemma-9b (prompt 2048, its window) at full width, random
+   weights from a seed, through ``repro_torch.launch.serve``: 4 requests,
+   32 new tokens each. For each: the exact kernel launch counts of the run
+   (counts set to 0 just before it), finite logits, the prefill and the
+   first decode steps against the plain versions on the same weights, and
+   a profile of a prefill and a few decode steps. Then each of the three at
+   full width in float32, kernel path against plain path (5 tokens), and a
+   reduced float32 model of each family (recurrentgemma with 5 layers, so
+   that its remainder stack runs) on the card against the same weights on
+   the CPU;
 5. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -38,13 +44,28 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_kernels.py tolerances
 DECODE_TOL_F32 = 3e-5
 # Greedy tokens of the kernel path and the plain path must agree; where they
-# differ, the plain path must rank the kernel's token within this distance of
-# its top logit (two bf16 steps for logits in [4, 8)): a near-tie, not an error.
-TOKEN_TIE_TOL = 0.0625
+# differ, the plain path must rank the kernel's token within TOKEN_TIE_TOL
+# of its top logit: a near-tie, not an error. In bf16 the two paths' logits
+# drift apart with depth as one-step roundings compound. Both limits are
+# about twice the largest reading over the prefill and 4 decode steps of
+# the seed-0 serve runs on an NVIDIA H100 80GB HBM3 (700 W):
+#   arch               largest gap   max |kernel - plain|
+#   gemma-2b           0.03125       0.1133
+#   rwkv6-1.6b         0.04688       0.1904
+#   recurrentgemma-9b  0.09375       0.2812
+# gemma-2b's and rwkv6-1.6b's near-tie is the tighter 0.0625, two bf16
+# steps for logits in [4, 8). The float32 full-width phase shows that the kernels
+# themselves agree (tokens equal, logits within 1e-3) at the same shapes.
+TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875}
+BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55}
 LOGITS_TOL_F32 = 1e-4  # reduced float32 model, card kernels vs CPU plain versions
 LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain versions
 
 ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
+# the serve runs: (arch, prompt length); recurrentgemma's prompt is its window
+SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048))
+WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
+WKV6_TOL_STRONG_DECAY = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -178,6 +199,15 @@ def kernel_phase(dev):
             fa.flash_attention(qf, kf, vf), fa.flash_attention_ref(qf, kf, vf), TOL["float32"])
     compare("flash_attention f32 window 48", fa.flash_attention(qf, kf, vf, window=48),
             fa.flash_attention_ref(qf, kf, vf, window=48), TOL["float32"])
+    # recurrentgemma-9b's attn_local layers: 16 query heads on one KV head
+    rg = get_arch("recurrentgemma-9b")
+    qg, kg, vg = qkv(B, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim)
+    compare(f"flash_attention bf16 window {rg.window} (4,16,2048,256)/(4,1,2048,256)",
+            fa.flash_attention(qg, kg, vg, window=rg.window),
+            fa.flash_attention_ref(qg, kg, vg, window=rg.window), TOL["bfloat16"])
+    print(f"  flash_attention at recurrentgemma-9b's prefill shape: "
+          f"{time_ms(lambda: fa.flash_attention(qg, kg, vg, window=rg.window), iters=5):.4f} ms")
+    del qg, kg, vg
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
     rows.append(dict(
@@ -213,6 +243,18 @@ def kernel_phase(dev):
             da.flash_decode(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
             da.flash_decode_ref(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
             DECODE_TOL_F32)
+    # recurrentgemma-9b: a full ring of 2048 slots (the window), 16 query heads
+    rg_pos = rg.window + 3
+    ckg = randn(B, rg.window, rg.n_kv_heads, rg.resolved_head_dim).transpose(1, 2)
+    cvg = randn(B, rg.window, rg.n_kv_heads, rg.resolved_head_dim).transpose(1, 2)
+    qdg = randn(B, rg.n_heads, rg.resolved_head_dim)
+    kpg = ring_kpos(B, rg.window, rg_pos, dev)
+    compare(f"flash_decode bf16 (4,16,256) ring {rg.window}, window {rg.window}",
+            da.flash_decode(qdg, ckg, cvg, kpg, rg_pos, window=rg.window),
+            da.flash_decode_ref(qdg, ckg, cvg, kpg, rg_pos, window=rg.window), TOL["bfloat16"])
+    print(f"  flash_decode at recurrentgemma-9b's decode shape: "
+          f"{time_ms(lambda: da.flash_decode(qdg, ckg, cvg, kpg, rg_pos, window=rg.window)):.4f}"
+          f" ms")
     valid = int(((kpos >= 0) & (kpos <= pos)).sum())  # (row, slot) pairs the data needs
     row_bytes = K * hd * ck.element_size()
     b_ms, b_by = bound(2 * nbytes(qd) + 2 * valid * row_bytes + nbytes(kpos),
@@ -228,10 +270,100 @@ def kernel_phase(dev):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask, enable_gqa=True)),
     ))
+    rows.append(wkv6_row(randn, dev))
+    rows.append(rglru_row(randn))
     for r in rows:
+        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
+              f"{lib_ms}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
     return rows
+
+
+def wkv6_row(randn, dev):
+    """wkv6 at rwkv6-1.6b's prefill shape, r/k/v/wlog as the (B, S, H, N)
+    views the model passes; no single PyTorch call computes it."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rwkv6
+
+    print("kernel wkv6")
+    cfg = get_arch("rwkv6-1.6b")
+    H, N = cfg.n_heads, cfg.resolved_head_dim
+
+    def inputs(B_, S_, H_, N_, dtype, strong_decay=False):
+        """tests/test_kernels.py's distributions, as (B, H, S, N) views."""
+        r, k, v = (0.5 * randn(B_, S_, H_, N_, dtype=torch.float32) for _ in range(3))
+        if strong_decay:
+            wlog = torch.full((B_, S_, H_, N_), -8.0, dtype=torch.float32, device=dev)
+            u = torch.zeros((H_, N_), dtype=torch.float32, device=dev)
+            st = torch.zeros((B_, H_, N_, N_), dtype=torch.float32, device=dev)
+        else:
+            wlog = -torch.exp(0.5 * randn(B_, S_, H_, N_, dtype=torch.float32) - 1)
+            u = 0.3 * randn(H_, N_, dtype=torch.float32)
+            st = 0.1 * randn(B_, H_, N_, N_, dtype=torch.float32)
+        r, k, v = (t.to(dtype).transpose(1, 2) for t in (r, k, v))
+        return r, k, v, wlog.transpose(1, 2), u, st
+
+    def check(name, args, tol_y, tol_state):
+        y, st = rwkv6.wkv6(*args)
+        y_ref, st_ref = rwkv6.wkv6_ref(*args)
+        return max(compare(f"{name} y", y, y_ref, tol_y),
+                   compare(f"{name} state", st, st_ref, tol_state))
+
+    args = inputs(BATCH, PROMPT, H, N, torch.bfloat16)
+    err = check(f"wkv6 bf16 r/k/v ({BATCH},{H},{PROMPT},{N})", args, TOL["bfloat16"],
+                WKV6_TOL_F32)
+    check("wkv6 f32 ragged S=300 (2,8,300,64)", inputs(2, 300, 8, N, torch.float32),
+          WKV6_TOL_F32, WKV6_TOL_F32)
+    strong = inputs(1, 256, 2, N, torch.float32, strong_decay=True)
+    check("wkv6 f32 wlog=-8 (1,2,256,64)", strong, WKV6_TOL_STRONG_DECAY, WKV6_TOL_STRONG_DECAY)
+    r, k, v, wlog, u, st = args
+    n_elem = r.numel()  # (b, h, t, n)
+    b_ms, b_by = bound(nbytes(r, k, v, wlog, u) + 2 * nbytes(st) + nbytes(r),
+                       4 * n_elem * N, "float32")
+    return dict(
+        name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6.py:73", max_abs_err=err,
+        ms=time_ms(lambda: rwkv6.wkv6(*args)), plain_ms=time_ms(lambda: rwkv6.wkv6_ref(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+
+
+def rglru_row(randn):
+    """rglru at recurrentgemma-9b's prefill shape (batch 4, prompt 2048, lru
+    4096); no single PyTorch call computes it."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rglru as lru
+
+    print("kernel rglru")
+    W = get_arch("recurrentgemma-9b").lru_width
+
+    def inputs(B_, S_, W_):
+        """tests/test_kernels.py's distributions."""
+        f32 = torch.float32
+        return (-torch.exp(0.5 * randn(B_, S_, W_, dtype=f32)), randn(B_, S_, W_, dtype=f32),
+                randn(B_, W_, dtype=f32))
+
+    def check(name, args):
+        (h_seq, h_final), (r_seq, r_final) = lru.rglru(*args), lru.rglru_ref(*args)
+        return max(compare(f"{name} h_seq", h_seq, r_seq, TOL["float32"]),
+                   compare(f"{name} h_final", h_final, r_final, TOL["float32"]))
+
+    args = inputs(BATCH, 2048, W)
+    err = check(f"rglru f32 ({BATCH},2048,{W})", args)
+    check("rglru f32 ragged (2,300,96)", inputs(2, 300, 96))
+    log_a, m, h0 = args
+    b_ms, b_by = bound(nbytes(log_a, m, h0) + nbytes(log_a) + nbytes(h0), 3 * log_a.numel(),
+                       "float32")
+    return dict(
+        name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru.py:46", max_abs_err=err,
+        ms=time_ms(lambda: lru.rglru(*args)), plain_ms=time_ms(lambda: lru.rglru_ref(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
 
 
 def plain_replay(model, params, prompt, tokens, n_steps: int):
@@ -251,13 +383,26 @@ def plain_replay(model, params, prompt, tokens, n_steps: int):
     return steps
 
 
-def serve_phase(dev, card: str):
+def want_launches(model) -> dict:
+    """The exact launches of one prefill and NEW - 1 decode steps: two norms
+    per layer and the final one per forward; per attention layer one
+    flash_attention in the prefill and one flash_decode per step; one wkv6
+    per rwkv layer and one rglru per rec layer, in the prefill only (their
+    decode steps are plain torch, as in the reference)."""
+    kinds = model.kinds
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
+    return {"rmsnorm": (2 * len(kinds) + 1) * NEW, "flash_attention": n_attn,
+            "flash_decode": n_attn * (NEW - 1), "wkv6": kinds.count("rwkv"),
+            "rglru": kinds.count("rec")}
+
+
+def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    model, params, prompt = serve.setup(ARCH, full=True, batch=BATCH, prompt_len=PROMPT,
+    model, params, prompt = serve.setup(arch, full=True, batch=BATCH, prompt_len=prompt_len,
                                         device="cuda", seed=0)
     cfg = model.cfg
     serve.generate(model, params, prompt, 3)  # warm-up (cuBLAS, allocator)
@@ -265,15 +410,13 @@ def serve_phase(dev, card: str):
     ops.reset_launch_counts()
     gen = serve.generate(model, params, prompt, NEW)
     counts = ops.launch_counts()
-    per_forward = 2 * cfg.n_layers + 1
-    want = {"rmsnorm": per_forward * NEW, "flash_attention": cfg.n_layers,
-            "flash_decode": cfg.n_layers * (NEW - 1)}
-    print(f"serve launches {counts} (want {want})")
+    want = want_launches(model)
+    print(f"serve {arch} launches {counts} (want {want})")
     if counts != want:
-        fail(f"kernel launch counts {counts} != {want}")
+        fail(f"{arch}: kernel launch counts {counts} != {want}")
     logits = torch.stack(gen.logits)
     if logits.shape != (NEW, BATCH, cfg.vocab) or not torch.isfinite(logits).all():
-        fail(f"serve logits: shape {tuple(logits.shape)}, finite "
+        fail(f"{arch} serve logits: shape {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
 
     steps = plain_replay(model, params, prompt, gen.tokens, 4)
@@ -284,16 +427,22 @@ def serve_phase(dev, card: str):
         at_tok = ref_f.gather(1, got_tok[:, None])[:, 0]
         exact = int((ref_f.argmax(dim=-1) == got_tok).sum())
         diff = float((gen.logits[i].float() - ref_f).abs().max())
-        print(f"  step {i}: tokens equal {exact}/{BATCH}, max |logits kernel - plain| {diff:.4g}")
-        if bool((at_tok < top - TOKEN_TIE_TOL).any()):
-            fail(f"step {i}: greedy token {got_tok.tolist()} vs plain "
-                 f"{ref_f.argmax(dim=-1).tolist()} beyond a near-tie")
+        gap = float((top - at_tok).max())
+        print(f"  step {i}: tokens equal {exact}/{BATCH}, max |logits kernel - plain| {diff:.4g}, "
+              f"largest plain-logit gap to the kernel's token {gap:.4g}")
+        if gap > TOKEN_TIE_TOL[arch]:
+            fail(f"{arch} step {i}: greedy token {got_tok.tolist()} vs plain "
+                 f"{ref_f.argmax(dim=-1).tolist()} beyond a near-tie ({gap:.4g} > "
+                 f"{TOKEN_TIE_TOL[arch]})")
+        if diff > BF16_LOGITS_DRIFT[arch]:
+            fail(f"{arch} step {i}: max |logits kernel - plain| {diff:.4g} > "
+                 f"{BF16_LOGITS_DRIFT[arch]}")
 
-    res = serve.summary(ARCH, gen)
-    print(f"serve {ARCH} full width, batch {BATCH}, prompt {PROMPT}, {NEW} new tokens on "
+    res = serve.summary(arch, gen)
+    print(f"serve {arch} full width, batch {BATCH}, prompt {prompt_len}, {NEW} new tokens on "
           f"{card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
           f"decode_p99_s {res['decode_p99_s']} tokens_per_s {res['tokens_per_s']}")
-    print(json.dumps({"serve": res, "card": card}))
+    print(json.dumps({"serve": res, "prompt": prompt_len, "launches": counts, "card": card}))
     profile_serve(model, params, prompt, res)
     del model, params, gen, logits, steps
     torch.cuda.empty_cache()
@@ -343,10 +492,10 @@ def profile_serve(model, params, prompt, res) -> None:
                       f"{e.count // n_steps:5d}x/step  {e.key[:90]}")
 
 
-def full_width_f32_phase(dev):
-    """gemma-2b at full width in float32: the kernel path against the plain
-    path on the same weights. Every kernel is exact to ~1e-6 here, so the
-    two must give the same greedy tokens and logits within 1e-3."""
+def full_width_f32_phase(dev, arch: str, prompt_len: int):
+    """A model at full width in float32: the kernel path against the plain
+    path on the same weights. Every kernel is exact to ~1e-6 in float32, so
+    the two must give the same greedy tokens and logits within 1e-3."""
     import dataclasses
 
     import torch
@@ -355,12 +504,12 @@ def full_width_f32_phase(dev):
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_arch(ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), dtype="float32")
     model = build_model(cfg)
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     params = model.init(g, dev)
-    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=g, device=dev,
+    prompt = torch.randint(0, cfg.vocab, (BATCH, prompt_len), generator=g, device=dev,
                            dtype=torch.int64)
     gen = serve.generate(model, params, prompt, 5)
     steps = plain_replay(model, params, prompt, gen.tokens, 4)
@@ -368,25 +517,29 @@ def full_width_f32_phase(dev):
     for i, ref in enumerate(steps):
         worst = max(worst, float((gen.logits[i] - ref).abs().max()))
         if not torch.equal(gen.tokens[:, i], ref.argmax(dim=-1)):
-            fail(f"full-width f32 step {i}: tokens {gen.tokens[:, i].tolist()} vs plain "
+            fail(f"full-width f32 {arch} step {i}: tokens {gen.tokens[:, i].tolist()} vs plain "
                  f"{ref.argmax(dim=-1).tolist()}")
     if not worst <= LOGITS_TOL_FULL_F32:
-        fail(f"full-width f32: max |logits kernel - plain| {worst:.3g} > {LOGITS_TOL_FULL_F32}")
-    print(f"full-width f32 gemma: kernel path == plain path, tokens equal over 5 steps, "
+        fail(f"full-width f32 {arch}: max |logits kernel - plain| {worst:.3g} > "
+             f"{LOGITS_TOL_FULL_F32}")
+    print(f"full-width f32 {arch}: kernel path == plain path, tokens equal over 5 steps, "
           f"max |logits diff| {worst:.3g} (tol {LOGITS_TOL_FULL_F32})")
     del model, params, gen, steps
     torch.cuda.empty_cache()
 
 
 def reduced_reference_phase(dev):
-    """A reduced float32 gemma on the card (kernels) against the same
-    weights on the CPU (plain versions)."""
+    """A reduced float32 model of each family on the card (kernels) against
+    the same weights on the CPU (plain versions): gemma, rwkv6, and
+    recurrentgemma with 5 layers (its pattern group plus the remainder
+    stack) and a prompt of three windows."""
+    import dataclasses
+
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-
-    model, params, prompt = serve.setup(ARCH, full=False, batch=2, prompt_len=40,
-                                        device="cuda", seed=5)
+    from repro_torch.models import build_model
 
     def to_cpu(t):
         if isinstance(t, dict):
@@ -395,16 +548,26 @@ def reduced_reference_phase(dev):
             return [to_cpu(v) for v in t]
         return t.cpu()
 
-    got = serve.generate(model, params, prompt, 6)
-    want = serve.generate(model, to_cpu(params), prompt.cpu(), 6)
-    for i, (a, b) in enumerate(zip(got.logits, want.logits)):
-        err = float((a.cpu() - b).abs().max())
-        if not err <= LOGITS_TOL_F32:
-            fail(f"reduced f32 model, step {i}: max |card - cpu| {err:.3g} > {LOGITS_TOL_F32}")
-    if not torch.equal(got.tokens.cpu(), want.tokens):
-        fail("reduced f32 model: greedy tokens differ between card and CPU")
-    print(f"reduced f32 gemma: card kernels == CPU plain versions within {LOGITS_TOL_F32}, "
-          f"tokens equal")
+    for arch, n_layers, prompt_len in (("gemma-2b", 2, 40), ("rwkv6-1.6b", 2, 40),
+                                       ("recurrentgemma-9b", 5, 48)):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers)
+        model = build_model(cfg)
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+        params = model.init(g, dev)
+        prompt = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device=dev,
+                               dtype=torch.int64)
+        got = serve.generate(model, params, prompt, 6)
+        want = serve.generate(model, to_cpu(params), prompt.cpu(), 6)
+        for i, (a, b) in enumerate(zip(got.logits, want.logits)):
+            err = float((a.cpu() - b).abs().max())
+            if not err <= LOGITS_TOL_F32:
+                fail(f"reduced f32 {arch}, step {i}: max |card - cpu| {err:.3g} > "
+                     f"{LOGITS_TOL_F32}")
+        if not torch.equal(got.tokens.cpu(), want.tokens):
+            fail(f"reduced f32 {arch}: greedy tokens differ between card and CPU")
+        print(f"reduced f32 {arch} ({n_layers} layers {model.kinds}): card kernels == CPU "
+              f"plain versions within {LOGITS_TOL_F32}, tokens equal")
 
 
 def main() -> int:
@@ -429,12 +592,18 @@ def main() -> int:
     print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
 
     rows = kernel_phase(dev)
-    counts = serve_phase(dev, card)
-    full_width_f32_phase(dev)
+    launches = {r["name"]: 0 for r in rows}  # summed over the serve runs
+    for arch, prompt_len in SERVES:
+        for name, n in serve_phase(arch, prompt_len, card).items():
+            launches[name] += n
+    for arch, prompt_len in SERVES:
+        full_width_f32_phase(dev, arch, prompt_len)
     reduced_reference_phase(dev)
 
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = launches[r["name"]]
+        if r["launches"] == 0:
+            fail(f"{r['name']}: no launch on any serve path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -32,12 +32,15 @@ class ArchConfig:
     norm: str = "rms"  # rms | layer
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    # --- recurrent / hybrid ---
+    attn_free: bool = False  # rwkv6: no attention at all
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rec","rec","attn") for griffin
+    window: int = 0  # sliding-window size for local attention (0 = full)
+    lru_width: Optional[int] = None
+    conv_width: int = 4
     # --- features of the reference's other families; the port's
     # build_model refuses a config that sets any of them ---
     moe: bool = False
-    attn_free: bool = False  # rwkv6
-    block_pattern: Tuple[str, ...] = ()  # e.g. ("rec","rec","attn") for griffin
-    window: int = 0  # sliding-window size for local attention (0 = full)
     encoder_layers: int = 0  # whisper
     num_img_tokens: int = 0  # phi-3-vision
     kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8"
@@ -51,7 +54,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """A tiny same-family variant for CPU tests; the same changes as
-        ``repro.configs.base.ArchConfig.reduced`` for a dense architecture."""
+        ``repro.configs.base.ArchConfig.reduced`` for the families the port
+        runs (dense, rwkv, block pattern)."""
         changes = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -62,8 +66,17 @@ class ArchConfig:
             head_dim=16,
             dtype="float32",
         )
-        if self.window:
+        if self.block_pattern:
+            changes["block_pattern"] = self.block_pattern  # keep the pattern unit
+            changes["n_layers"] = len(self.block_pattern)  # one pattern group
+            changes["window"] = min(self.window, 16) if self.window else 0
+        if self.window and not self.block_pattern:
             changes["window"] = 16
+        if self.lru_width:
+            changes["lru_width"] = 64
+        if self.attn_free:
+            changes["n_heads"] = 4
+            changes["head_dim"] = 16
         return dataclasses.replace(self, **changes)
 
 
@@ -108,4 +121,8 @@ def all_archs() -> Dict[str, ArchConfig]:
 
 
 def _ensure_loaded():
-    from repro_torch.configs import gemma_2b  # noqa: F401  (registers on import)
+    from repro_torch.configs import (  # noqa: F401  (each registers on import)
+        gemma_2b,
+        recurrentgemma_9b,
+        rwkv6_1b6,
+    )

@@ -1,6 +1,6 @@
 """Dispatch between the CUDA kernels and their plain versions.
 
-The model layer calls these three functions. A CUDA tensor runs the
+The model layer calls these five functions. A CUDA tensor runs the
 hand-written kernel, which raises if it cannot build or launch; a CPU
 tensor runs the plain torch version. There is no fallback from one to the
 other. :func:`plain_versions` forces the plain versions for tensors on the
@@ -15,7 +15,8 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention as fa, rmsnorm as rn
+from repro_torch.kernels import decode_attention, flash_attention as fa, rglru as lru
+from repro_torch.kernels import rmsnorm as rn, rwkv6
 
 _FORCE_PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
 
@@ -56,7 +57,20 @@ def flash_decode(q, k, v, kpos, pos: int, *, window: int = 0):
     return decode_attention.flash_decode_ref(q, k, v, kpos, pos, window=window)
 
 
-_MODULES = {"rmsnorm": rn, "flash_attention": fa, "flash_decode": decode_attention}
+def wkv6(r, k, v, wlog, u, state):
+    if _use_kernel(r):
+        return rwkv6.wkv6(r, k, v, wlog, u, state)
+    return rwkv6.wkv6_ref(r, k, v, wlog, u, state)
+
+
+def rglru(log_a, m, h0):
+    if _use_kernel(log_a):
+        return lru.rglru(log_a, m, h0)
+    return lru.rglru_ref(log_a, m, h0)
+
+
+_MODULES = {"rmsnorm": rn, "flash_attention": fa, "flash_decode": decode_attention,
+            "wkv6": rwkv6, "rglru": lru}
 
 
 def launch_counts() -> Dict[str, int]:

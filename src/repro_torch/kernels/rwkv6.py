@@ -1,0 +1,101 @@
+"""WKV6 (RWKV-6 / Finch): the CUDA kernel ``csrc/wkv6.cu`` and its plain
+version.
+
+Replaces ``src/repro/kernels/rwkv6.py::wkv6`` (the Pallas kernel); the
+plain version is the chunked form of ``repro/models/rwkv6.py::wkv6_chunked``
+in torch. Both compute the recurrence of ``repro/kernels/ref.py::wkv6_ref``
+
+    y_t = S_t^T r_t + (r_t . (u * k_t)) v_t,   S_{t+1} = diag(exp(w_t)) S_t + k_t v_t^T
+
+over r/k/v/wlog (B, H, S, N), u (H, N) and the float32 state (B, H, N, N),
+and return y in r's dtype with the final float32 state. The kernel is
+bound by bytes (see the note in the source); it reads r/k/v/wlog through
+their strides, so the model passes its (B, S, H, N) projections as views.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
+launches = 0
+
+#: head sizes csrc/wkv6.cu instantiates: the reduced and the full rwkv6-1.6b
+HEAD_SIZES = (16, 64)
+_CHUNK = 64  # tokens per chunk of the plain version
+
+
+def _check(r, k, v, wlog, u, state):
+    B, H, S, N = r.shape
+    if k.shape != r.shape or v.shape != r.shape or wlog.shape != r.shape:
+        raise ValueError(f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"wlog {tuple(wlog.shape)} must all be (B, H, S, N)")
+    if u.shape != (H, N) or state.shape != (B, H, N, N):
+        raise ValueError(f"wkv6: u {tuple(u.shape)} must be {(H, N)} and state "
+                         f"{tuple(state.shape)} must be {(B, H, N, N)}")
+    if not (r.dtype == k.dtype == v.dtype):
+        raise TypeError("wkv6: r, k and v must share a dtype")
+    return B, H, S, N
+
+
+def wkv6(r, k, v, wlog, u, state):
+    """CUDA kernel. r/k/v: (B, H, S, N) float32 or bfloat16 (any strides with
+    a contiguous N axis); wlog: the same shape in float32 (log decay <= 0);
+    u: (H, N) and state: (B, H, N, N) float32. Returns (y, final state):
+    y (B, H, S, N) in r's dtype, as a view of a (B, S, H, N) buffer, which
+    the model's group norm reads without a copy; the state (B, H, N, N)."""
+    global launches
+    dev = r.device
+    if not (r.is_cuda and all(t.device == dev for t in (k, v, wlog, u, state))):
+        raise ValueError("wkv6: the CUDA kernel takes CUDA tensors on one device")
+    B, H, S, N = _check(r, k, v, wlog, u, state)
+    if N not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {N} not in {HEAD_SIZES}")
+    if not (wlog.dtype == u.dtype == state.dtype == torch.float32):
+        raise TypeError("wkv6: wlog, u and state must be float32")
+    for name, t in (("r", r), ("k", k), ("v", v), ("wlog", wlog)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"wkv6: {name}'s head axis must have stride 1")
+    u, state = u.contiguous(), state.contiguous()
+    y = torch.empty((B, S, H, N), dtype=r.dtype, device=dev).transpose(1, 2)
+    state_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    strides = _build.strides_arg(*r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                 *wlog.stride()[:3], *y.stride()[:3])
+    err = _build.lib().rt_wkv6(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), wlog.data_ptr(), u.data_ptr(),
+        state.data_ptr(), y.data_ptr(), state_out.data_ptr(), B, H, S, N, strides,
+        _build.dtype_code(r), _build.stream_arg(dev),
+    )
+    _build.check(err, "wkv6")
+    launches += 1
+    return y, state_out
+
+
+def wkv6_ref(r, k, v, wlog, u, state):
+    """Plain version: the chunked form. Within a chunk of L <= _CHUNK tokens
+    the decay from token s to token t > s is exp(ld[t-1] - ld[s]) with ld the
+    inclusive cumulative log decay, masked to s < t before the exp (every
+    exponent taken is <= 0); the state carries from chunk to chunk. The
+    last chunk may be short, so any S works."""
+    B, H, S, N = _check(r, k, v, wlog, u, state)
+    f32 = torch.float32
+    s_state = state.to(f32)
+    uf = u.to(f32)[None, :, None, :]  # (1, H, 1, N)
+    tri = torch.tril(torch.ones((_CHUNK, _CHUNK), dtype=torch.bool, device=r.device), -1)
+    ys = []
+    for t0 in range(0, S, _CHUNK):
+        L = min(_CHUNK, S - t0)
+        rb, kb, vb, wb = (t[:, :, t0:t0 + L].to(f32) for t in (r, k, v, wlog))  # (B,H,L,N)
+        ld = torch.cumsum(wb, dim=2)
+        ldm1 = ld - wb  # exclusive cumulative log decay
+        pair = ldm1[:, :, :, None, :] - ld[:, :, None, :, :]  # (B, H, Lt, Ls, N)
+        A = torch.exp(pair.masked_fill(~tri[:L, :L, None], float("-inf")))
+        w_ts = (rb[:, :, :, None, :] * kb[:, :, None, :, :] * A).sum(-1)  # (B, H, Lt, Ls)
+        y = w_ts @ vb
+        y = y + (rb * kb * uf).sum(-1, keepdim=True) * vb  # the diagonal bonus u
+        y = y + (rb * torch.exp(ldm1)) @ s_state  # the carried state
+        kscale = kb * torch.exp(ld[:, :, -1:] - ld)
+        s_state = s_state * torch.exp(ld[:, :, -1])[..., None] + kscale.transpose(-1, -2) @ vb
+        ys.append(y)
+    return torch.cat(ys, dim=2).to(r.dtype), s_state

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -52,6 +53,20 @@ def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev,
                            dtype=torch.int64)
     return model, params, prompt
+
+
+def ring_warning(model, prompt_len: int) -> Optional[str]:
+    """The warning for a prompt the windowed cache does not wrap exactly.
+    An ``attn_local`` layer keeps the reference's ring of min(S, window)
+    slots, and decode overwrites a position still inside the window unless
+    S is a multiple of the window (ROADMAP Queue 3, item 6). The port
+    matches the reference there, so it warns and does not refuse."""
+    window = model.cfg.window
+    if "attn_local" not in model.kinds or prompt_len % window == 0:
+        return None
+    return (f"warning: prompt length {prompt_len} is not a multiple of the window {window}: "
+            f"decode overwrites cached positions still inside the window, as the reference "
+            f"does (ROADMAP Queue 3, item 6); pass --prompt-len {window} for an exact ring")
 
 
 @dataclass
@@ -123,6 +138,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     model, params, prompt = setup(args.arch, full=args.full, batch=args.batch,
                                   prompt_len=args.prompt_len, device=args.device)
+    warning = ring_warning(model, args.prompt_len)
+    if warning:
+        print(warning, file=sys.stderr)
     gen = generate(model, params, prompt, args.new_tokens)
     res = summary(args.arch, gen)
     if args.as_json:

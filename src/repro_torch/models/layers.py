@@ -1,6 +1,7 @@
 """Shared layers (counterpart of ``repro/models/layers.py``): RMS norm,
-rotary embeddings, GQA attention for prefill and for decode against a
-ring-buffer KV cache, and the MLP variants (swiglu / geglu / gelu).
+rotary embeddings, causal or sliding-window GQA attention for prefill and
+for decode against a ring-buffer KV cache, and the MLP variants (swiglu /
+geglu / gelu).
 
 Parameters are plain dicts of tensors with the reference's shapes and
 names. Matrix weights are stored in the activation dtype (the reference
@@ -90,21 +91,25 @@ def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
 
 
-def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
-    """Causal self-attention over a prompt whose positions are 0..S-1.
+def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                      window: int = 0):
+    """Causal self-attention over a prompt whose positions are 0..S-1, each
+    query seeing the last ``window`` positions when ``window`` > 0.
 
     Returns (y, k, v); k (roped) and v are (B, S, n, hd), the numbers the
     reference's ``_kv_from_prefill`` recomputes for the cache."""
     q, k, v = _qkv(p, x, cfg, positions)
     out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
     )  # (B, H, S, hd)
     return _out_proj(p, out.transpose(1, 2)), k, v
 
 
-def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int):
+def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
+                     window: int = 0):
     """One new token per row at position ``pos`` against the layer's cache
-    {"k", "v": (B, W, n, hd), "kpos": (B, W) int32}.
+    {"k", "v": (B, W, n, hd), "kpos": (B, W) int32}, seeing the last
+    ``window`` positions when ``window`` > 0.
 
     The reference returns a new cache from ``dynamic_update_slice``; here
     the token's k/v and position are written into slot ``pos % W`` in
@@ -117,7 +122,8 @@ def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int):
     cache["v"][:, slot] = v[:, 0]
     cache["kpos"][:, slot] = pos
     out = ops.flash_decode(
-        q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), cache["kpos"], pos
+        q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), cache["kpos"], pos,
+        window=window,
     )  # (B, H, hd)
     return _out_proj(p, out[:, None])
 
@@ -135,7 +141,7 @@ def attention_cache_init(cfg, batch: int, length: int, dtype, device) -> Params:
 # MLPs
 # ---------------------------------------------------------------------------
 
-_gelu = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu's default
+gelu = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu's default
 
 
 def mlp_init(gen, cfg, device, dtype) -> Params:
@@ -156,6 +162,6 @@ def mlp_init(gen, cfg, device, dtype) -> Params:
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if "wg" in p:
-        act = F.silu if cfg.mlp == "swiglu" else _gelu
+        act = F.silu if cfg.mlp == "swiglu" else gelu
         return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
-    return _gelu(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
+    return gelu(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]

@@ -1,31 +1,42 @@
-"""The dense decoder-only model (counterpart of ``repro/models/model_api.py``
-for the ``("attn",)`` stack): embedding, the blocks, ``final_ln``, the tied
-or untied head, ``prefill``, ``decode`` and ``init_cache``.
+"""The decoder-only model (counterpart of ``repro/models/model_api.py``):
+embedding, the blocks, ``final_ln``, the tied or untied head, ``prefill``,
+``decode`` and ``init_cache``.
 
-Parameters are a dict ``{"embed", ["lm_head"], "final_ln", "layers": [per
-layer {"ln1", "attn", "ln2", "ffn"}]}``; the reference stacks the layers
-along a leading axis for ``lax.scan``, the port keeps one dict per layer
-(:mod:`repro_torch.convert` unstacks). The cache is a list with one
-``{"k", "v", "kpos"}`` dict per layer, updated in place by ``decode``.
+A model is a list of *stacks*, each a (pattern unit, repeats) pair, as in
+the reference: (("attn",), 18) for gemma, (("rwkv",), 24) for rwkv6,
+(("rec", "rec", "attn_local"), 12) + (("rec", "rec"), 1) for
+recurrentgemma. The reference stacks each block's weights along a leading
+axis for ``lax.scan``; the port keeps one dict per layer in model order
+(:mod:`repro_torch.convert` unstacks), with ``ModelDef.kinds`` naming each
+layer's block kind. Parameters are ``{"embed", ["lm_head"], "final_ln",
+"layers": [...]}``; the cache is a list with one dict per layer, updated
+in place by ``decode``.
+
+Block kinds and their caches:
+  attn        full causal attention + FFN          {"k", "v", "kpos"}
+  attn_local  sliding-window attention + FFN       {"k", "v", "kpos"}, min(S, window) slots
+  rec         RG-LRU temporal block + FFN          {"h" float32, "conv"}
+  rwkv        RWKV6 time-mix + channel-mix         {"wkv" float32, "shift_t", "shift_c"}
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as R
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
+_PATTERN_KINDS = ("rec", "attn")
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
-    if cfg.attn_free:
-        return "the rwkv block"
-    if cfg.block_pattern:
-        return f"the {'/'.join(cfg.block_pattern)} block pattern (attn_local, rec)"
+    if set(cfg.block_pattern) - set(_PATTERN_KINDS):
+        return f"the {'/'.join(cfg.block_pattern)} block pattern (only {_PATTERN_KINDS})"
     if cfg.encoder_layers:
         return "the encoder-decoder blocks (enc, xattn)"
     if cfg.moe:
@@ -36,24 +47,58 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
         return "attention with qkv bias"
     if cfg.kv_cache_dtype:
         return f"the {cfg.kv_cache_dtype} KV cache"
-    if cfg.window:
-        return "sliding-window attention"
     if cfg.norm != "rms":
         return f"the {cfg.norm} norm"
     return None
+
+
+def _stacks_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    if cfg.attn_free:
+        return [(("rwkv",), cfg.n_layers)]
+    if cfg.block_pattern:
+        unit = tuple("attn_local" if b == "attn" else b for b in cfg.block_pattern)
+        reps = cfg.n_layers // len(unit)
+        rem = cfg.n_layers - reps * len(unit)
+        stacks = [(unit, reps)]
+        if rem:
+            stacks.append((unit[:rem], 1))
+        return stacks
+    return [(("attn",), cfg.n_layers)]
 
 
 def activation_dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window if kind == "attn_local" else 0
+
+
 @dataclass
 class ModelDef:
     cfg: ArchConfig
+    kinds: List[str] = field(init=False)
+
+    def __post_init__(self):
+        # each layer's block kind in model order: the stacks' units, repeated
+        self.kinds = [kind for unit, reps in _stacks_for(self.cfg) for _ in range(reps)
+                      for kind in unit]
 
     # -- init ---------------------------------------------------------------
+    def _block_init(self, kind: str, gen, device, dt) -> Dict[str, Any]:
+        cfg, d = self.cfg, self.cfg.d_model
+        if kind == "rwkv":
+            return {"ln1": L.norm_init(d, device), "tm": R.timemix_init(gen, cfg, device, dt),
+                    "ln2": L.norm_init(d, device), "cm": R.channelmix_init(gen, cfg, device, dt)}
+        mixer = ({"rec": G.rglru_block_init(gen, cfg, device, dt)} if kind == "rec"
+                 else {"attn": L.attention_init(gen, cfg, device, dt)})
+        return {"ln1": L.norm_init(d, device), **mixer, "ln2": L.norm_init(d, device),
+                "ffn": L.mlp_init(gen, cfg, device, dt)}
+
     def init(self, gen: torch.Generator, device) -> Dict[str, Any]:
-        """Random parameters (normal, std 0.02; norm scales 1) from ``gen``."""
+        """Random parameters from ``gen``: matrices normal (std 0.02, the
+        decay LoRA 0.01), norm scales 1, and the reference's constant
+        initialisers for the rwkv and RG-LRU parameters."""
         cfg = self.cfg
         dt = activation_dtype(cfg)
         params: Dict[str, Any] = {
@@ -62,15 +107,7 @@ class ModelDef:
         if not cfg.tie_embeddings:
             params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab), L.INIT_STD, device, dt)
         params["final_ln"] = L.norm_init(cfg.d_model, device)
-        params["layers"] = [
-            {
-                "ln1": L.norm_init(cfg.d_model, device),
-                "attn": L.attention_init(gen, cfg, device, dt),
-                "ln2": L.norm_init(cfg.d_model, device),
-                "ffn": L.mlp_init(gen, cfg, device, dt),
-            }
-            for _ in range(cfg.n_layers)
-        ]
+        params["layers"] = [self._block_init(kind, gen, device, dt) for kind in self.kinds]
         return params
 
     # -- forward ------------------------------------------------------------
@@ -81,23 +118,68 @@ class ModelDef:
         h = L.norm_apply(lp["ln2"], x)
         return x + L.mlp_apply(lp["ffn"], h, self.cfg)
 
+    def _kv_cache(self, k, v, positions, window: int, cache_len: int) -> Dict[str, torch.Tensor]:
+        """The decode cache of an attention layer after the prefill. As the
+        reference's ``_kv_from_prefill``: a windowed layer keeps exactly the
+        last min(S, window) positions, in order; a full layer gets
+        ``max(cache_len, S)`` slots, positions 0..S-1 then empty ones
+        (kpos = -1), so decode appends without wrapping."""
+        B, S = positions.shape
+        kpos = positions.to(torch.int32)
+        if window:
+            W = min(S, window)
+            return {"k": k[:, -W:].contiguous(), "v": v[:, -W:].contiguous(),
+                    "kpos": kpos[:, -W:].contiguous()}
+        cache = self._block_cache("attn", B, max(cache_len, S), k.dtype, k.device)
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["kpos"][:, :S] = kpos
+        return cache
+
+    def _block_prefill(self, kind: str, lp, x, positions, cache_len: int):
+        cfg = self.cfg
+        h = L.norm_apply(lp["ln1"], x)
+        if kind == "rwkv":
+            t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg)
+            x = x + t
+            c, shift_c = R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))
+            return x + c, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
+        if kind == "rec":
+            r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg)
+            return self._ffn_half(lp, x + r), {"h": h_state, "conv": conv}
+        window = _window(cfg, kind)
+        a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window)
+        return self._ffn_half(lp, x + a), self._kv_cache(k, v, positions, window, cache_len)
+
+    def _block_decode(self, kind: str, lp, x, cache, pos: int):
+        cfg = self.cfg
+        h = L.norm_apply(lp["ln1"], x)
+        if kind == "rwkv":
+            t, cache["shift_t"], cache["wkv"] = R.timemix_apply(
+                lp["tm"], h, cfg, cache["shift_t"], cache["wkv"], decode=True)
+            x = x + t
+            c, cache["shift_c"] = R.channelmix_apply(
+                lp["cm"], L.norm_apply(lp["ln2"], x), cache["shift_c"])
+            return x + c
+        if kind == "rec":
+            r, cache["h"], cache["conv"] = G.rglru_block_apply(
+                lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True)
+            return self._ffn_half(lp, x + r)
+        a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind))
+        return self._ffn_half(lp, x + a)
+
     def prefill(self, params, tokens: torch.Tensor,
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, S) int. Returns the last position's logits (B, vocab)
-        and a cache of ``max(cache_len, S)`` slots holding positions 0..S-1
-        (the rest empty, kpos = -1), so decode appends without wrapping."""
-        cfg = self.cfg
+        and the per-layer caches (see ``_kv_cache`` for the attention
+        layers; the recurrent layers keep their final states)."""
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        caches = self.init_cache(B, max(cache_len or S, S), tokens.device)
         x = params["embed"][tokens]
-        for lp, cache in zip(params["layers"], caches):
-            h = L.norm_apply(lp["ln1"], x)
-            a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions)
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-            cache["kpos"][:, :S] = positions
-            x = self._ffn_half(lp, x + a)
+        caches = []
+        for kind, lp in zip(self.kinds, params["layers"]):
+            x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S)
+            caches.append(cache)
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
         x = L.norm_apply(params["final_ln"], x[:, -1:])
@@ -106,21 +188,33 @@ class ModelDef:
     def decode(self, params, tokens: torch.Tensor, pos: int,
                caches: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, 1) int; pos: the position of every row (Python int).
-        Writes the new token into each layer's cache in place and returns
-        (logits (B, vocab), caches)."""
-        cfg = self.cfg
+        Updates each layer's cache in place and returns (logits (B, vocab),
+        caches)."""
         x = params["embed"][tokens]
-        for lp, cache in zip(params["layers"], caches):
-            h = L.norm_apply(lp["ln1"], x)
-            x = self._ffn_half(lp, x + L.attention_decode(lp["attn"], h, cfg, cache, pos))
+        for kind, lp, cache in zip(self.kinds, params["layers"], caches):
+            x = self._block_decode(kind, lp, x, cache, pos)
         x = L.norm_apply(params["final_ln"], x)
         return x[:, 0] @ self._head(params), caches
 
     # -- caches ---------------------------------------------------------------
+    def _block_cache(self, kind: str, B: int, seq_len: int, dt, device) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        if kind == "rwkv":
+            H, N = cfg.n_heads, cfg.resolved_head_dim
+            return {"wkv": torch.zeros((B, H, N, N), dtype=torch.float32, device=device),
+                    "shift_t": torch.zeros((B, cfg.d_model), dtype=dt, device=device),
+                    "shift_c": torch.zeros((B, cfg.d_model), dtype=dt, device=device)}
+        if kind == "rec":
+            w = G.lru_width(cfg)
+            return {"h": torch.zeros((B, w), dtype=torch.float32, device=device),
+                    "conv": torch.zeros((B, cfg.conv_width - 1, w), dtype=dt, device=device)}
+        length = min(cfg.window or seq_len, seq_len) if kind == "attn_local" else seq_len
+        return L.attention_cache_init(cfg, B, length, dt, device)
+
     def init_cache(self, B: int, seq_len: int, device) -> List[Dict]:
+        """Empty caches for a fresh sequence of up to ``seq_len`` positions."""
         dt = activation_dtype(self.cfg)
-        return [L.attention_cache_init(self.cfg, B, seq_len, dt, device)
-                for _ in range(self.cfg.n_layers)]
+        return [self._block_cache(kind, B, seq_len, dt, device) for kind in self.kinds]
 
 
 def build_model(cfg: ArchConfig) -> ModelDef:

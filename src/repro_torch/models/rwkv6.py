@@ -1,0 +1,138 @@
+"""RWKV-6 (Finch) time-mix and channel-mix layers (counterpart of
+``repro/models/rwkv6.py``).
+
+The prefill's WKV6 recurrence goes through :func:`repro_torch.kernels.ops.wkv6`
+(the CUDA kernel on the card); the one-token decode step is plain torch,
+as the reference's ``wkv6_step`` is plain jnp. As in the reference, the
+ddlerp token-shift LoRAs for r/k/v/g are static per-channel lerp weights
+and the decay LoRA (w0 + tanh(x A) B) is kept.
+
+Parameter dtypes follow the reference's use: ``w0``, ``u``, ``ln_scale``
+and ``ln_bias`` enter float32 arithmetic uncast, so they stay float32;
+every other weight is stored in the activation dtype (the reference casts
+it with ``.astype(x.dtype)`` at use).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+DECAY_LORA = 64
+GROUP_NORM_EPS = 1e-5
+
+#: the time-mix leaves kept in float32, by ``timemix_init`` and by ``convert``
+F32_KEYS = ("w0", "u", "ln_scale", "ln_bias")
+
+Params = Dict[str, torch.Tensor]
+
+
+def _const(shape, value: float, device, dtype) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def timemix_init(gen, cfg, device, dtype) -> Params:
+    d, H, N = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+
+    def dt(name):
+        return torch.float32 if name in F32_KEYS else dtype
+
+    p = {f"mu_{c}": _const((d,), 0.5, device, dtype) for c in "rkvgw"}
+    p.update({
+        "w0": _const((d,), -6.0, device, dt("w0")),  # exp(-exp(-6)) ~ 0.9975
+        "wA": L._normal(gen, (d, DECAY_LORA), 0.01, device, dt("wA")),
+        "wB": L._normal(gen, (DECAY_LORA, d), 0.01, device, dt("wB")),
+        "u": _const((H, N), 0.0, device, dt("u")),
+        **{w: L._normal(gen, (d, H, N), L.INIT_STD, device, dt(w))
+           for w in ("wr", "wk", "wv", "wg")},
+        "ln_scale": _const((d,), 1.0, device, dt("ln_scale")),
+        "ln_bias": _const((d,), 0.0, device, dt("ln_bias")),
+        "wo": L._normal(gen, (d, d), L.INIT_STD, device, dt("wo")),
+    })
+    return p
+
+
+def channelmix_init(gen, cfg, device, dtype) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": _const((d,), 0.5, device, dtype),
+        "mu_r": _const((d,), 0.5, device, dtype),
+        "wk": L._normal(gen, (d, f), L.INIT_STD, device, dtype),
+        "wv": L._normal(gen, (f, d), L.INIT_STD, device, dtype),
+        "wr": L._normal(gen, (d, d), L.INIT_STD, device, dtype),
+    }
+
+
+def _shifted(x: torch.Tensor, shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """The previous token of every position: ``shift`` (B, d), the last
+    token of the previous call (zeros for a fresh sequence), then x[:, :-1]."""
+    if shift is None:
+        shift = torch.zeros_like(x[:, 0])
+    return torch.cat([shift[:, None], x[:, :-1]], dim=1)
+
+
+def _lerp(x, xprev, mu):
+    return x + (xprev - x) * mu
+
+
+def wkv6_step(r, k, v, wlog, u, state):
+    """Single-token decode. r/k/v/wlog: (B, H, N); state: (B, H, N, N) float32.
+    Returns (y (B, H, N) in r's dtype, the new state)."""
+    rf, kf, vf, wf = (t.to(torch.float32) for t in (r, k, v, wlog))
+    uk = u.to(torch.float32)[None] * kf
+    y = torch.einsum("bhn,bhnm->bhm", rf, state) + (rf * uk).sum(-1, keepdim=True) * vf
+    state = state * torch.exp(wf)[..., None] + kf[..., None] * vf[..., None, :]
+    return y.to(r.dtype), state
+
+
+def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor] = None,
+                  wkv_state: Optional[torch.Tensor] = None,
+                  decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d). Returns (out (B, S, d), x[:, -1] as the next shift, the
+    wkv state (B, H, N, N) float32)."""
+    B, S, d = x.shape
+    H, N = cfg.n_heads, cfg.resolved_head_dim
+    if wkv_state is None:
+        wkv_state = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+    xprev = _shifted(x, shift)
+
+    def proj(w, xm):
+        return (xm @ w.reshape(d, H * N)).view(B, S, H, N)
+
+    xr, xk = _lerp(x, xprev, p["mu_r"]), _lerp(x, xprev, p["mu_k"])
+    xv, xg = _lerp(x, xprev, p["mu_v"]), _lerp(x, xprev, p["mu_g"])
+    xw = _lerp(x, xprev, p["mu_w"])
+    r, k, v = proj(p["wr"], xr), proj(p["wk"], xk), proj(p["wv"], xv)
+    g = F.silu(proj(p["wg"], xg))
+    lora = torch.tanh(xw @ p["wA"]) @ p["wB"]
+    wlog = -torch.exp(p["w0"] + lora.to(torch.float32)).view(B, S, H, N)
+
+    if decode:
+        y, wkv_state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], wlog[:, 0], p["u"], wkv_state)
+        y = y[:, None]
+    else:
+        y, wkv_state = ops.wkv6(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                wlog.transpose(1, 2), p["u"], wkv_state)
+        y = y.transpose(1, 2)  # (B, S, H, N)
+
+    # per-head group norm in float32
+    yf = y.to(torch.float32)
+    mu = yf.mean(-1, keepdim=True)
+    var = ((yf - mu) ** 2).mean(-1, keepdim=True)
+    yn = ((yf - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, S, d)
+    yn = yn * p["ln_scale"] + p["ln_bias"]
+    out = (yn.to(x.dtype) * g.reshape(B, S, d)) @ p["wo"]
+    return out, x[:, -1].contiguous(), wkv_state
+
+
+def channelmix_apply(p: Params, x: torch.Tensor,
+                     shift: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    xprev = _shifted(x, shift)
+    xk, xr = _lerp(x, xprev, p["mu_k"]), _lerp(x, xprev, p["mu_r"])
+    k = torch.square(torch.relu(xk @ p["wk"]))
+    r = torch.sigmoid(xr @ p["wr"])
+    return r * (k @ p["wv"]), x[:, -1].contiguous()

@@ -62,7 +62,7 @@ def test_serve_without_cuda_and_without_device_cpu_raises(monkeypatch):
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never run their plain version themselves."""
-    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    from repro_torch.kernels import decode_attention, flash_attention, rglru, rmsnorm, rwkv6
 
     x = torch.zeros((2, 16), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -73,6 +73,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention.flash_decode(q[:, :, 0], q[:, :1], q[:, :1],
                                       torch.zeros((1, 8), dtype=torch.int32), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6.wkv6(q, q, q, q, torch.zeros((2, 16)), torch.zeros((1, 2, 16, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru.rglru(q[0], q[0], q[0, :, 0])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -91,9 +95,9 @@ def test_unported_configs_raise():
     from repro_torch.models import build_model
 
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("rwkv6-1.6b")
+        get_arch("olmoe-1b-7b")
     cfg = get_arch("gemma-2b")
-    for change in (dict(moe=True), dict(attn_free=True), dict(block_pattern=("rec", "attn")),
-                   dict(encoder_layers=1)):
+    for change in (dict(moe=True), dict(encoder_layers=1), dict(num_img_tokens=4),
+                   dict(block_pattern=("rec", "full"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change))

@@ -13,16 +13,25 @@ import torch
 
 from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.ref import rglru_ref as jax_rglru_ref
+from repro.kernels.ref import wkv6_ref as jax_wkv6_ref
+from repro.kernels.rglru import rglru_scan as jax_rglru_scan
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro.kernels.rwkv6 import wkv6 as jax_wkv6
 from repro.models.layers import _sdpa
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import rwkv6
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_TOL = 3e-5
+WKV6_TOL = 3e-5  # tests/test_kernels.py: chunked float32 sums against the sequential oracle
+WKV6_STRONG_DECAY_TOL = 1e-4
+RGLRU_TOL = 2e-5
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -126,3 +135,94 @@ def test_flash_attention_plain_is_the_reference_oracle():
     got = fa.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                  window=8)
     _close(got, want, TOL["float32"])
+
+
+def _wkv6_inputs(B, H, S, N, seed, strong_decay=False):
+    """The distributions of tests/test_kernels.py's wkv6 cases, from numpy."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, S, N)).astype(np.float32) for _ in range(3))
+    if strong_decay:  # decay ~ e^-8 per step, u = 0, zero state
+        wlog = np.full((B, H, S, N), -8.0, dtype=np.float32)
+        u = np.zeros((H, N), dtype=np.float32)
+        st = np.zeros((B, H, N, N), dtype=np.float32)
+        return r, k, v, wlog, u, st
+    r, k, v = r * 0.5, k * 0.5, v * 0.5
+    wlog = -np.exp(rng.standard_normal((B, H, S, N)).astype(np.float32) * 0.5 - 1)
+    u = (rng.standard_normal((H, N)) * 0.3).astype(np.float32)
+    st = (rng.standard_normal((B, H, N, N)) * 0.1).astype(np.float32)
+    return r, k, v, wlog, u, st
+
+
+def _wkv6_both(inputs, chunk):
+    jax_args = [jnp.asarray(a) for a in inputs]
+    pallas = jax_wkv6(*jax_args, chunk=chunk, interpret=True)
+    oracle = jax_wkv6_ref(*jax_args)
+    return pallas, oracle
+
+
+@pytest.mark.parametrize("B,H,S,N", [(1, 1, 32, 8), (2, 4, 128, 16), (1, 2, 96, 32)])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_wkv6_plain_matches_pallas_and_oracle(B, H, S, N, chunk):
+    inputs = _wkv6_inputs(B, H, S, N, seed=S + N + chunk)
+    ops.reset_launch_counts()
+    y, st = ops.wkv6(*(torch.from_numpy(a) for a in inputs))
+    assert y.shape == (B, H, S, N) and y.dtype == torch.float32 and st.dtype == torch.float32
+    for want_y, want_st in _wkv6_both(inputs, chunk):
+        _close(y, want_y, WKV6_TOL)
+        _close(st, want_st, WKV6_TOL)
+    assert ops.launch_counts()["wkv6"] == 0
+
+
+def test_wkv6_plain_strong_decay_is_finite():
+    """wlog = -8 over 256 tokens: every exponent the plain version takes is
+    <= 0, so nothing overflows."""
+    inputs = _wkv6_inputs(1, 2, 256, 16, seed=0, strong_decay=True)
+    y, st = rwkv6.wkv6_ref(*(torch.from_numpy(a) for a in inputs))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    for want_y, want_st in _wkv6_both(inputs, chunk=128):
+        _close(y, want_y, WKV6_STRONG_DECAY_TOL)
+        _close(st, want_st, WKV6_STRONG_DECAY_TOL)
+
+
+def test_wkv6_plain_bf16_rkv_with_f32_decay():
+    """The model's types: r/k/v bfloat16, wlog/u/state float32; y comes back
+    in bfloat16, the state in float32."""
+    r, k, v, wlog, u, st = _wkv6_inputs(2, 4, 128, 16, seed=11)
+    (rj, rt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (r, k, v))
+    f32 = [torch.from_numpy(a) for a in (wlog, u, st)]
+    y, st_out = ops.wkv6(rt, kt, vt, *f32)
+    assert y.dtype == torch.bfloat16 and st_out.dtype == torch.float32
+    jf32 = [jnp.asarray(a) for a in (wlog, u, st)]
+    for want_y, want_st in (jax_wkv6(rj, kj, vj, *jf32, chunk=64, interpret=True),
+                            jax_wkv6_ref(rj, kj, vj, *jf32)):
+        _close(y, want_y, TOL["bfloat16"])
+        _close(st_out, want_st, TOL["bfloat16"])
+
+
+def test_wkv6_plain_ragged_length_and_strided_views():
+    """S = 300 (no power-of-two chunk divides it) on (B, S, H, N) buffers
+    passed as (B, H, S, N) views, as the model passes them."""
+    inputs = _wkv6_inputs(1, 2, 300, 16, seed=5)
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))).transpose(1, 2)
+             for a in inputs[:4]]
+    y, st = rwkv6.wkv6_ref(*views, *(torch.from_numpy(a) for a in inputs[4:]))
+    want_y, want_st = jax_wkv6_ref(*(jnp.asarray(a) for a in inputs))
+    _close(y, want_y, WKV6_TOL)
+    _close(st, want_st, WKV6_TOL)
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 64, 32), (2, 128, 64), (2, 192, 128), (2, 300, 96)])
+def test_rglru_plain_matches_pallas_and_oracle(B, S, W):
+    rng = np.random.default_rng(S + W)
+    log_a = -np.exp(rng.standard_normal((B, S, W)).astype(np.float32) * 0.5)
+    m = rng.standard_normal((B, S, W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    ops.reset_launch_counts()
+    h_seq, h_final = ops.rglru(*(torch.from_numpy(a) for a in (log_a, m, h0)))
+    assert h_seq.shape == (B, S, W) and h_final.shape == (B, W)
+    jax_args = [jnp.asarray(a) for a in (log_a, m, h0)]
+    for want_seq, want_final in (jax_rglru_scan(*jax_args, chunk=32, block_w=32, interpret=True),
+                                 jax_rglru_ref(*jax_args)):
+        _close(h_seq, want_seq, RGLRU_TOL)
+        _close(h_final, want_final, RGLRU_TOL)
+    assert ops.launch_counts()["rglru"] == 0

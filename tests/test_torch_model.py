@@ -57,7 +57,8 @@ def test_reduced_gemma_f32_matches_jax(cache_len):
         assert got.shape == want.shape == (B, 512)
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4, err_msg=f"step {step}")
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1), err_msg=f"step {step}")
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_decode": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
+                                   "wkv6": 0, "rglru": 0}
 
 
 def test_reduced_gemma_bf16_matches_jax():
@@ -68,9 +69,10 @@ def test_reduced_gemma_bf16_matches_jax():
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-def test_gemma_config_matches_reference(reduced):
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b", "recurrentgemma-9b"])
+def test_config_matches_reference(arch, reduced):
     """Every field the port's ArchConfig keeps has the reference's value."""
-    ours, ref = get_arch("gemma-2b"), jax_get_arch("gemma-2b")
+    ours, ref = get_arch(arch), jax_get_arch(arch)
     if reduced:
         ours, ref = ours.reduced(), ref.reduced()
     fields = [f.name for f in dataclasses.fields(ours)]
