@@ -6,13 +6,17 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, and
+   checks in the SASS (cuobjdump) that the bf16 flash_attention kernel
+   runs on the tensor cores (HGMMA);
 3. kernels: each of the five kernels against its plain torch version on
    the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
-   rglru at (4, 2048, 4096)) plus ragged / window / ring / strong-decay /
-   float32 cases; each timed with CUDA events beside its plain version, its
-   bound and, where one exists, one PyTorch library call;
+   flash_attention at (4, 16, 2048, 256), rmsnorm at width 4096, rglru at
+   (4, 2048, 4096)) plus ragged / window / ring / strong-decay / float32 /
+   head-dim cases; each timed per call with CUDA events and on the device
+   alone with torch.profiler, beside its plain version, its bound and,
+   where one exists, one PyTorch library call;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512) and
    recurrentgemma-9b (prompt 2048, its window) at full width, random
    weights from a seed, through ``repro_torch.launch.serve``: 4 requests,
@@ -97,6 +101,85 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Device time per call: the kernels' own time in a torch.profiler trace
+    of ``iters`` calls, summed and divided by ``iters``. Unlike time_ms it
+    leaves out the host's launch gaps. A trace now and then records no
+    device activity at all: up to three traces are taken, and None is
+    returned when none of them shows device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA")
+        if us > 0:
+            return us / 1e3 / iters
+    return None
+
+
+def timings(kernel, plain, library=None, iters: int = 20) -> dict:
+    """A row's times: per call (CUDA events over back-to-back calls) and on
+    the device alone (profiler), for the kernel and the library call, and
+    per call for the plain version."""
+    return dict(ms=time_ms(kernel, iters), device_ms=device_ms(kernel, iters),
+                plain_ms=time_ms(plain, iters),
+                library_ms=None if library is None else time_ms(library, iters),
+                library_device_ms=None if library is None else device_ms(library, iters))
+
+
+def sass_check(lib_path: Path) -> None:
+    """The bf16 flash_attention kernel must run on the tensor cores: count
+    HGMMA / HMMA instructions in the SASS of each flash_tc_kernel
+    instantiation (cuobjdump on the built library)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if "flash_tc_kernel" in name else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[name][op] += 1
+    print(f"sass: {len(counts)} flash_tc_kernel instantiation(s)")
+    for fn, c in counts.items():
+        print(f"  {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+    if not counts or not all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()):
+        fail("the bf16 flash_attention kernel has no tensor-core instruction in its SASS")
+
+
+def ptxas_report(lib_path: Path, kernel: str) -> None:
+    """Registers and spill bytes of each instantiation of ``kernel``, from
+    the ptxas output the build keeps beside the library."""
+    name = None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+            name = name if kernel in name else None
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            print(f"ptxas: {name[:100]}: {regs} registers; {spills}")
+            name = None
+
+
 def compare(name: str, got, want, tol: float) -> float:
     import torch
 
@@ -167,15 +250,18 @@ def kernel_phase(dev):
     xd = randn(B, 1, d)
     compare("rmsnorm bf16 decode (4, 1, 2048)", rn.rmsnorm(xd, scale), rn.rmsnorm_ref(xd, scale),
             TOL["bfloat16"])
+    for shape in ((B * S, 4096), (16, 4096), (B, 1, 4096)):  # recurrentgemma-9b's width
+        xr_, sr_ = randn(*shape), randn(4096, dtype=torch.float32)
+        compare(f"rmsnorm bf16 {shape}", rn.rmsnorm(xr_, sr_), rn.rmsnorm_ref(xr_, sr_),
+                TOL["bfloat16"])
     b_ms, b_by = bound(2 * nbytes(x) + nbytes(scale), 4 * x.numel(), "float32")
     w16 = scale.to(bf)
     rows.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:27", max_abs_err=err,
-        ms=time_ms(lambda: rn.rmsnorm(x, scale)),
-        plain_ms=time_ms(lambda: rn.rmsnorm_ref(x, scale)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=w16, eps=1e-6)),
+        replaces="src/repro/kernels/rmsnorm.py:27", shape="x (2048, 2048) bf16",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: rn.rmsnorm(x, scale), lambda: rn.rmsnorm_ref(x, scale),
+                  lambda: F.rms_norm(x, (d,), weight=w16, eps=1e-6)),
     ))
 
     # -- flash_attention: prefill, q/k/v as transposed (B, S, h, hd) views ---
@@ -199,26 +285,44 @@ def kernel_phase(dev):
             fa.flash_attention(qf, kf, vf), fa.flash_attention_ref(qf, kf, vf), TOL["float32"])
     compare("flash_attention f32 window 48", fa.flash_attention(qf, kf, vf, window=48),
             fa.flash_attention_ref(qf, kf, vf, window=48), TOL["float32"])
-    # recurrentgemma-9b's attn_local layers: 16 query heads on one KV head
-    rg = get_arch("recurrentgemma-9b")
-    qg, kg, vg = qkv(B, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim)
-    compare(f"flash_attention bf16 window {rg.window} (4,16,2048,256)/(4,1,2048,256)",
-            fa.flash_attention(qg, kg, vg, window=rg.window),
-            fa.flash_attention_ref(qg, kg, vg, window=rg.window), TOL["bfloat16"])
-    print(f"  flash_attention at recurrentgemma-9b's prefill shape: "
-          f"{time_ms(lambda: fa.flash_attention(qg, kg, vg, window=rg.window), iters=5):.4f} ms")
-    del qg, kg, vg
+    for hd_ in fa.HEAD_DIMS[:-1]:  # the other bf16 instantiations, ragged S = 200
+        qh, kh, vh = qkv(1, 200, 4, 2, hd_)
+        compare(f"flash_attention bf16 GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
+                fa.flash_attention(qh, kh, vh, window=80),
+                fa.flash_attention_ref(qh, kh, vh, window=80), TOL["bfloat16"])
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
     rows.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:75", max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention(q, k, v)),
-        plain_ms=time_ms(lambda: fa.flash_attention_ref(q, k, v)),
+        replaces="src/repro/kernels/flash_attention.py:75",
+        shape="q (4,8,512,256), k/v (4,1,512,256) bf16, causal", max_abs_err=err,
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+        **timings(lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_ref(q, k, v),
+                  lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True)),
     ))
+    # recurrentgemma-9b's attn_local layers: 16 query heads on one KV head,
+    # window 2048 = S, so every causal pair is in the window
+    rg = get_arch("recurrentgemma-9b")
+    Sg, Hg = rg.window, rg.n_heads
+    qg, kg, vg = qkv(B, Sg, Hg, rg.n_kv_heads, rg.resolved_head_dim)
+    err = compare(f"flash_attention bf16 window {Sg} (4,16,2048,256)/(4,1,2048,256)",
+                  fa.flash_attention(qg, kg, vg, window=Sg),
+                  fa.flash_attention_ref(qg, kg, vg, window=Sg), TOL["bfloat16"])
+    pairs = Sg * (Sg + 1) // 2
+    b_ms, b_by = bound(2 * nbytes(qg) + nbytes(kg, vg),
+                       4 * rg.resolved_head_dim * pairs * B * Hg, "bfloat16")
+    rows.append(dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75",
+        shape="q (4,16,2048,256), k/v (4,1,2048,256) bf16, causal, window 2048",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: fa.flash_attention(qg, kg, vg, window=Sg),
+                  lambda: fa.flash_attention_ref(qg, kg, vg, window=Sg),
+                  lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                         enable_gqa=True), iters=5),
+    ))
+    del qg, kg, vg
 
     # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
     print("kernel flash_decode")
@@ -263,19 +367,24 @@ def kernel_phase(dev):
     q4 = qd[:, :, None]
     rows.append(dict(
         name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:60", max_abs_err=err,
-        ms=time_ms(lambda: da.flash_decode(qd, kc, vc, kpos, pos)),
-        plain_ms=time_ms(lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos)),
+        replaces="src/repro/kernels/decode_attention.py:60",
+        shape="q (4,8,256) bf16, cache 544 slots, 516 valid", max_abs_err=err,
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, attn_mask=mask, enable_gqa=True)),
+        **timings(lambda: da.flash_decode(qd, kc, vc, kpos, pos),
+                  lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos),
+                  lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                         enable_gqa=True)),
     ))
     rows.append(wkv6_row(randn, dev))
     rows.append(rglru_row(randn))
+    def fmt(t):
+        return "none" if t is None else f"{t:.5f}"
+
     for r in rows:
-        lib_ms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-              f"{lib_ms}, bound {r['bound_ms']:.5f} by {r['bound_by']})")
+        print(f"  {r['name']} {r['shape']}: {r['ms']:.5f} ms per call, {fmt(r['device_ms'])} on "
+              f"the device (plain {r['plain_ms']:.4f}; library {fmt(r['library_ms'])} per call, "
+              f"{fmt(r['library_device_ms'])} on the device; bound {r['bound_ms']:.5f} by "
+              f"{r['bound_by']})")
     return rows
 
 
@@ -324,9 +433,10 @@ def wkv6_row(randn, dev):
                        4 * n_elem * N, "float32")
     return dict(
         name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
-        replaces="src/repro/kernels/rwkv6.py:73", max_abs_err=err,
-        ms=time_ms(lambda: rwkv6.wkv6(*args)), plain_ms=time_ms(lambda: rwkv6.wkv6_ref(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        replaces="src/repro/kernels/rwkv6.py:73",
+        shape=f"r/k/v ({BATCH},{H},{PROMPT},{N}) bf16, wlog/u/state f32", max_abs_err=err,
+        bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: rwkv6.wkv6(*args), lambda: rwkv6.wkv6_ref(*args)),
     )
 
 
@@ -360,9 +470,9 @@ def rglru_row(randn):
                        "float32")
     return dict(
         name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
-        replaces="src/repro/kernels/rglru.py:46", max_abs_err=err,
-        ms=time_ms(lambda: lru.rglru(*args)), plain_ms=time_ms(lambda: lru.rglru_ref(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        replaces="src/repro/kernels/rglru.py:46", shape=f"log_a/m ({BATCH},2048,{W}) f32",
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: lru.rglru(*args), lambda: lru.rglru_ref(*args)),
     )
 
 
@@ -590,6 +700,8 @@ def main() -> int:
     _build.lib()  # compiles the sources on first use, then loads the library
     build_s = time.perf_counter() - t0_s
     print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
+    ptxas_report(_build.library_path(), "flash_tc_kernel")
+    sass_check(_build.library_path())
 
     rows = kernel_phase(dev)
     launches = {r["name"]: 0 for r in rows}  # summed over the serve runs
@@ -604,8 +716,8 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
             fail(f"{r['name']}: no launch on any serve path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,7 +23,9 @@ from typing import Optional
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# the library's .log beside it
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -83,13 +85,15 @@ def build() -> Path:
             cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        errors = []
+        errors, logs = [], []
         for src, _, proc in procs:
             log, _ = proc.communicate()
+            logs.append(f"--- {src.name}\n{log}")
             if proc.returncode != 0:
                 errors.append(f"--- {src.name} (rc {proc.returncode})\n{log}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        out.with_suffix(".log").write_text("\n".join(logs))
         staged = Path(tmp) / out.name
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged), *(str(o) for _, o, _ in procs)]
         res = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -126,9 +130,11 @@ def strides_arg(*strides: int):
 
 
 def stream_arg(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    device with an index), without building a ``torch.cuda.Stream``."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

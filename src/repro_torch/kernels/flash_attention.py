@@ -4,9 +4,11 @@ its plain version.
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas kernel); the plain version is ``repro/kernels/ref.py::attention_ref``
 in torch. Causal / sliding-window GQA attention over positions 0..S-1,
-forward only, with float32 probabilities and accumulator. The kernel reads
-q, k and v through their strides (the head_dim axis must be contiguous),
-so callers may pass transposed views.
+forward only, with a float32 running max, sum and accumulator. bfloat16
+runs on the tensor cores (wgmma), with the probabilities rounded to
+bfloat16 for P·V as SDPA does; float32 runs on FMA and keeps them in
+float32. The kernel reads q, k and v through their strides (the head_dim
+axis must be contiguous), so callers may pass transposed views.
 """
 from __future__ import annotations
 
@@ -48,6 +50,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
+        # the bfloat16 kernel copies 16-byte chunks of each row
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"flash_attention: bfloat16 {name} needs a 16-byte aligned base "
+                             f"and batch/head/sequence strides that are multiples of 8, got "
+                             f"strides {t.stride()}")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                  *out.stride()[:3])

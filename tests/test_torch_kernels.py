@@ -51,7 +51,8 @@ def _ring_kpos(B, W, pos):
     return np.broadcast_to(kp, (B, W)).copy()
 
 
-@pytest.mark.parametrize("shape", [(4, 64), (2, 8, 128), (3, 100)])
+@pytest.mark.parametrize("shape", [(4, 64), (2, 8, 128), (3, 100),
+                                   (8, 2048), (4, 1, 4096), (16, 4096)])  # the served widths
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_matches_pallas(shape, dtype):
     rng = np.random.default_rng(sum(shape))
@@ -71,6 +72,8 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
     (2, 4, 2, 64, 16, 0),     # GQA
     (1, 8, 1, 128, 32, 0),    # MQA, gemma-style
     (2, 4, 2, 64, 16, 16),    # sliding window
+    (1, 8, 1, 128, 256, 0),   # gemma-2b's heads: MQA at hd 256
+    (1, 16, 1, 128, 256, 64),  # recurrentgemma-9b's: 16 heads on one KV head, window
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_pallas(B, H, K, S, hd, window, dtype):
@@ -82,6 +85,56 @@ def test_flash_attention_plain_matches_pallas(B, H, K, S, hd, window, dtype):
     want = jax_flash_attention(qj, kj, vj, window=window, block_q=32, block_k=32,
                                interpret=True)
     _close(ops.flash_attention(qt, kt, vt, window=window), want, TOL[dtype])
+
+
+def _tensor_core_flash_emulation(q, k, v, window):
+    """The bf16 CUDA kernel's arithmetic in float32 torch: 64-key tiles, an
+    online softmax in base 2 with the scale folded in, P rounded to bf16
+    before P·V, float32 accumulation, the output rounded to bf16.
+    q: (B, H, S, hd), k/v: (B, K, S, hd), all bf16."""
+    B, H, S, hd = q.shape
+    g = H // k.shape[1]
+    qf = q.float()
+    kf = torch.repeat_interleave(k, g, dim=1).float()
+    vf = torch.repeat_interleave(v, g, dim=1).float()
+    scale_log2 = (1.0 / np.sqrt(hd)) * np.log2(np.e)
+    m = torch.full((B, H, S), -1.0e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    qpos = torch.arange(S)[:, None]
+    for k0 in range(0, S, 64):
+        kpos = torch.arange(k0, min(k0 + 64, S))[None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + 64]) * scale_log2
+        ok = kpos <= qpos
+        if window:
+            ok = ok & (kpos > qpos - window)
+        s = torch.where(ok, s, torch.tensor(float("-inf")))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vf[:, :, k0:k0 + 64])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_attention_bf16_probabilities_within_tolerance(window):
+    """Rounding P to bf16 for the tensor-core P·V (the CUDA kernel's bf16
+    route) keeps the output within the bf16 tolerance of the Pallas kernel,
+    which keeps P in float32: hd 256, S 256, causal, 16 heads on one KV
+    head."""
+    B, H, K, S, hd = 1, 16, 1, 256, 256
+    rng = np.random.default_rng(256 + window)
+    q = rng.standard_normal((B, H, S, hd)).astype(np.float32)
+    k = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
+    want = jax_flash_attention(qj, kj, vj, window=window, interpret=True)
+    got = _tensor_core_flash_emulation(qt, kt, vt, window)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, hd)
+    _close(got, want, TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("case", ["empty_slots", "window", "wrapped_ring"])
