@@ -12,11 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: each of the five kernels against its plain torch version on
    the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
-   flash_attention at (4, 16, 2048, 256), rmsnorm at width 4096, rglru at
-   (4, 2048, 4096)) plus ragged / window / ring / strong-decay / float32 /
-   head-dim cases; each timed per call with CUDA events and on the device
-   alone with torch.profiler, beside its plain version, its bound and,
-   where one exists, one PyTorch library call;
+   flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
+   ring, rmsnorm at width 4096, rglru at (4, 2048, 4096)) plus ragged /
+   window / ring / empty-row / strong-decay / float32 / head-dim cases;
+   each timed per call with CUDA events and on the device alone with
+   torch.profiler, beside its plain version, its bound and, where one
+   exists, one PyTorch library call;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512) and
    recurrentgemma-9b (prompt 2048, its window) at full width, random
    weights from a seed, through ``repro_torch.launch.serve``: 4 requests,
@@ -47,6 +48,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_kernels.py tolerances
 DECODE_TOL_F32 = 3e-5
+# flash_decode bf16 against its plain version: absolute 4e-3 (the readings
+# are <= 1e-3 at the decode shapes) plus one bf16 step (2^-7) of the value,
+# the most that rounding the same float32 result two ways can differ by.
+# At recurrentgemma-9b's shape the outputs are ~0.03: a dropped chunk of
+# the cache reads well above this limit (the decode rows check that).
+DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 # Greedy tokens of the kernel path and the plain path must agree; where they
 # differ, the plain path must rank the kernel's token within TOKEN_TIE_TOL
 # of its top logit: a near-tie, not an error. In bf16 the two paths' logits
@@ -180,8 +187,12 @@ def ptxas_report(lib_path: Path, kernel: str) -> None:
             name = None
 
 
-def compare(name: str, got, want, tol: float) -> float:
+def compare(name: str, got, want, tol) -> float:
+    """max |got - want|; fails beyond atol + rtol * |want|, where ``tol`` is
+    (atol, rtol) or one number for both."""
     import torch
+
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
 
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, plain "
@@ -190,12 +201,18 @@ def compare(name: str, got, want, tol: float) -> float:
     if not torch.isfinite(g).all():
         fail(f"{name}: non-finite kernel output")
     err = (g - w).abs()
-    worst = float((err - tol * w.abs()).max())
+    worst = float((err - rtol * w.abs()).max())
     max_err = float(err.max())
-    if worst > tol:
-        fail(f"{name}: max |kernel - plain| {max_err:.3g} exceeds atol=rtol={tol}")
+    if worst > atol:
+        fail(f"{name}: max |kernel - plain| {max_err:.3g} exceeds atol {atol}, rtol {rtol}")
     print(f"  {name}: max_abs_err {max_err:.3g} (tol {tol})")
     return max_err
+
+
+def exceeds(got, want, tol) -> bool:
+    """Whether ``compare`` would fail ``got`` against ``want``."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+    return float(((got.float() - want.float()).abs() - rtol * want.float().abs()).max()) > atol
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -229,7 +246,7 @@ def kernel_phase(dev):
 
     cfg = get_arch(ARCH)
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    B, S, W = BATCH, PROMPT, PROMPT + NEW
+    B, S = BATCH, PROMPT
     bf = torch.bfloat16
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
@@ -325,56 +342,8 @@ def kernel_phase(dev):
     del qg, kg, vg
 
     # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
-    print("kernel flash_decode")
-    pos = S + 3  # the 4th decode step: slots 0..pos valid, the rest empty
-    ck, cv = randn(B, W, K, hd), randn(B, W, K, hd)
-    kc, vc = ck.transpose(1, 2), cv.transpose(1, 2)
-    kpos = ring_kpos(B, W, pos, dev)
-    qd = randn(B, 1, H, hd)[:, 0]
-    err = compare("flash_decode bf16 cache 544, empty slots",
-                  da.flash_decode(qd, kc, vc, kpos, pos), da.flash_decode_ref(qd, kc, vc, kpos, pos),
-                  TOL["bfloat16"])
-    compare("flash_decode bf16 window 128", da.flash_decode(qd, kc, vc, kpos, pos, window=128),
-            da.flash_decode_ref(qd, kc, vc, kpos, pos, window=128), TOL["bfloat16"])
-    kring = ring_kpos(B, 128, 700, dev)  # wrapped ring of 128 slots
-    compare("flash_decode bf16 wrapped ring W=128",
-            da.flash_decode(qd, kc[:, :, :128], vc[:, :, :128], kring, 700),
-            da.flash_decode_ref(qd, kc[:, :, :128], vc[:, :, :128], kring, 700), TOL["bfloat16"])
-    qf = randn(2, 4, 64, dtype=torch.float32)
-    kf, vf = randn(2, 200, 2, 64, dtype=torch.float32), randn(2, 200, 2, 64, dtype=torch.float32)
-    kpf = ring_kpos(2, 200, 150, dev)
-    compare("flash_decode f32 GQA (2,4,64) cache 200",
-            da.flash_decode(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
-            da.flash_decode_ref(qf, kf.transpose(1, 2), vf.transpose(1, 2), kpf, 150),
-            DECODE_TOL_F32)
-    # recurrentgemma-9b: a full ring of 2048 slots (the window), 16 query heads
-    rg_pos = rg.window + 3
-    ckg = randn(B, rg.window, rg.n_kv_heads, rg.resolved_head_dim).transpose(1, 2)
-    cvg = randn(B, rg.window, rg.n_kv_heads, rg.resolved_head_dim).transpose(1, 2)
-    qdg = randn(B, rg.n_heads, rg.resolved_head_dim)
-    kpg = ring_kpos(B, rg.window, rg_pos, dev)
-    compare(f"flash_decode bf16 (4,16,256) ring {rg.window}, window {rg.window}",
-            da.flash_decode(qdg, ckg, cvg, kpg, rg_pos, window=rg.window),
-            da.flash_decode_ref(qdg, ckg, cvg, kpg, rg_pos, window=rg.window), TOL["bfloat16"])
-    print(f"  flash_decode at recurrentgemma-9b's decode shape: "
-          f"{time_ms(lambda: da.flash_decode(qdg, ckg, cvg, kpg, rg_pos, window=rg.window)):.4f}"
-          f" ms")
-    valid = int(((kpos >= 0) & (kpos <= pos)).sum())  # (row, slot) pairs the data needs
-    row_bytes = K * hd * ck.element_size()
-    b_ms, b_by = bound(2 * nbytes(qd) + 2 * valid * row_bytes + nbytes(kpos),
-                       4 * hd * (H // K) * K * valid, "bfloat16")
-    mask = ((kpos >= 0) & (kpos <= pos))[:, None, None, :]
-    q4 = qd[:, :, None]
-    rows.append(dict(
-        name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:60",
-        shape="q (4,8,256) bf16, cache 544 slots, 516 valid", max_abs_err=err,
-        bound_ms=b_ms, bound_by=b_by,
-        **timings(lambda: da.flash_decode(qd, kc, vc, kpos, pos),
-                  lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos),
-                  lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
-                                                         enable_gqa=True)),
-    ))
+    decode_cases(dev, randn)
+    rows += decode_rows(dev, randn)
     rows.append(wkv6_row(randn, dev))
     rows.append(rglru_row(randn))
     def fmt(t):
@@ -385,6 +354,152 @@ def kernel_phase(dev):
               f"the device (plain {r['plain_ms']:.4f}; library {fmt(r['library_ms'])} per call, "
               f"{fmt(r['library_device_ms'])} on the device; bound {r['bound_ms']:.5f} by "
               f"{r['bound_by']})")
+    return rows
+
+
+def decode_cases(dev, randn):
+    """flash_decode against its plain version off the two timed shapes:
+    ragged, windowed, wrapped, empty and float32 caches; and the grid at
+    gemma-2b's shape fills the card."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+
+    print("kernel flash_decode")
+    cfg = get_arch(ARCH)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, W = BATCH, PROMPT + NEW
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n_chunks = da.decode_plan(W, B * K, sms)
+    grid = -(-n_chunks // da.CLUSTER) * da.CLUSTER * B * K
+    print(f"  flash_decode grid at gemma-2b's shape: {n_chunks} chunks of {chunk} slots x "
+          f"{B * K} rows = {n_chunks * B * K} blocks ({grid} with the cluster padding) on "
+          f"{sms} SMs")
+    if n_chunks * B * K < sms:
+        fail(f"flash_decode: {n_chunks * B * K} blocks at gemma-2b's shape, fewer than {sms} SMs")
+    pos = PROMPT + 3
+    kc, vc = randn(B, W, K, hd).transpose(1, 2), randn(B, W, K, hd).transpose(1, 2)
+    kpos = ring_kpos(B, W, pos, dev)
+    qd = randn(B, 1, H, hd)[:, 0]
+
+    def check(name, q, k, v, kp, p, tol=DECODE_TOL_BF16, window=0, calls=1):
+        """``calls`` back-to-back calls, each held against the plain version:
+        every call reuses the counters and scratch of the one before."""
+        want = da.flash_decode_ref(q, k, v, kp, p, window=window)
+        got = [da.flash_decode(q, k, v, kp, p, window=window) for _ in range(calls)]
+        bad = [o for o in got if exceeds(o, want, tol)]
+        compare(f"flash_decode {name}" + (f", {calls} calls" if calls > 1 else ""),
+                (bad or got)[0], want, tol)
+
+    check("bf16 window 128", qd, kc, vc, kpos, pos, window=128)
+    check("bf16 window 40 (whole chunks empty)", qd, kc, vc, kpos, pos, window=40)
+    kring = ring_kpos(B, 128, 700, dev)  # wrapped ring of 128 slots
+    check("bf16 wrapped ring W=128", qd, kc[:, :, :128], vc[:, :, :128], kring, 700)
+    check("bf16 wrapped ring W=128 window 24", qd, kc[:, :, :128], vc[:, :, :128], kring, 700,
+          window=24)
+    check("bf16 ragged cache 300", qd, kc[:, :, :300], vc[:, :, :300], kpos[:, :300], 299)
+    empty_row = kpos.clone()
+    empty_row[1] = -1  # batch row 1 has no valid slot: the mean of V
+    check("bf16 batch row 1 with no valid slot", qd, kc, vc, empty_row, pos)
+    qf = randn(2, 4, 64, dtype=torch.float32)
+    kf = randn(2, 200, 2, 64, dtype=torch.float32).transpose(1, 2)
+    vf = randn(2, 200, 2, 64, dtype=torch.float32).transpose(1, 2)
+    kpf = ring_kpos(2, 200, 150, dev)
+    check("f32 GQA (2,4,64) cache 200", qf, kf, vf, kpf, 150, DECODE_TOL_F32)
+    check("f32 no valid slot in any row", qf, kf, vf, torch.full_like(kpf, -1), 150,
+          DECODE_TOL_F32)
+    for hd_ in da.HEAD_DIMS[:-1]:  # the other bf16 head dims, 16 heads on one KV head
+        qh, kh, vh = randn(2, 16, hd_), randn(2, 1, 100, hd_), randn(2, 1, 100, hd_)
+        check(f"bf16 (2,16,{hd_}) cache 100 window 50", qh, kh, vh, ring_kpos(2, 100, 130, dev),
+              130, window=50)
+    # groups that are not a multiple of the cluster size, over several
+    # clusters: a rank's column slice then starts inside a head
+    for B_, H_, K_, S_, hd_, dt in ((4, 4, 4, 600, 64, torch.bfloat16),
+                                    (2, 4, 2, 1000, 128, torch.bfloat16),
+                                    (2, 4, 2, 1000, 128, torch.float32),
+                                    (4, 4, 1, 300, 16, torch.bfloat16)):
+        _, n_ = da.decode_plan(S_, B_ * K_, sms)
+        qg = randn(B_, H_, hd_, dtype=dt)
+        kg_, vg_ = (randn(B_, S_, K_, hd_, dtype=dt).transpose(1, 2) for _ in range(2))
+        check(f"{'bf16' if dt == torch.bfloat16 else 'f32'} g {H_ // K_} ({B_},{H_},{hd_}) "
+              f"cache {S_}, {-(-n_ // da.CLUSTER)} clusters", qg, kg_, vg_,
+              ring_kpos(B_, S_, S_ + 7, dev), S_ + 7,
+              DECODE_TOL_BF16 if dt == torch.bfloat16 else DECODE_TOL_F32, calls=20)
+    # two streams at once: each has its own counters and scratch
+    side = torch.cuda.Stream(dev)
+    want = da.flash_decode_ref(qd, kc, vc, kpos, pos)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(10):
+        outs.append(da.flash_decode(qd, kc, vc, kpos, pos))
+        with torch.cuda.stream(side):
+            outs.append(da.flash_decode(qd, kc, vc, kpos, pos))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    worst = max(float((o.float() - want.float()).abs().max()) for o in outs)
+    if any(exceeds(o, want, DECODE_TOL_BF16) for o in outs):
+        fail(f"flash_decode on two streams at once: max |kernel - plain| {worst:.3g}")
+    print(f"  flash_decode bf16 on two streams at once, 20 calls: max_abs_err {worst:.3g} "
+          f"(tol {DECODE_TOL_BF16})")
+
+
+def decode_rows(dev, randn):
+    """flash_decode at the two decode shapes of the serve runs, against its
+    plain version, timed beside masked SDPA: gemma-2b (8 heads on one KV
+    head, cache 544, 516 valid) and recurrentgemma-9b (16 heads on one KV
+    head, a full 2048-slot ring, window 2048)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+
+    rows = []
+    for arch, W, pos, window in ((ARCH, PROMPT + NEW, PROMPT + 3, 0),
+                                 ("recurrentgemma-9b", 2048, 2048 + 3, 2048)):
+        cfg = get_arch(arch)
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        assert not window or window == cfg.window
+        kc, vc = randn(BATCH, W, K, hd).transpose(1, 2), randn(BATCH, W, K, hd).transpose(1, 2)
+        kpos = ring_kpos(BATCH, W, pos, dev)
+        qd = randn(BATCH, H, hd)
+        valid = (kpos >= 0) & (kpos <= pos)
+        if window:
+            valid &= kpos > pos - window
+        n_valid = int(valid.sum())  # (row, slot) pairs the data needs
+        shape = f"q ({BATCH},{H},{hd}) bf16, cache {W} slots, {n_valid // BATCH} valid" + (
+            f", window {window}" if window else "")
+        want = da.flash_decode_ref(qd, kc, vc, kpos, pos, window=window)
+        err = compare(f"flash_decode {shape}",
+                      da.flash_decode(qd, kc, vc, kpos, pos, window=window), want,
+                      DECODE_TOL_BF16)
+        # what the limit would see: the plain version with one chunk of valid
+        # slots dropped (the rule's chunk at this shape, the first one)
+        chunk, _ = da.decode_plan(W, BATCH * K, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
+        s0 = 0
+        if not bool(valid[:, s0:s0 + chunk].all()):
+            fail(f"flash_decode {shape}: the chunk at slot {s0} is not all valid")
+        dropped = kpos.clone()
+        dropped[:, s0:s0 + chunk] = -1
+        drop = da.flash_decode_ref(qd, kc, vc, dropped, pos, window=window)
+        drop_err = float((drop.float() - want.float()).abs().max())
+        print(f"  a dropped chunk of {chunk} slots ({s0}..{s0 + chunk - 1}) reads max_abs_err "
+              f"{drop_err:.3g} against the limit {DECODE_TOL_BF16}")
+        if not exceeds(drop, want, DECODE_TOL_BF16):
+            fail(f"flash_decode {shape}: a dropped chunk stays inside {DECODE_TOL_BF16}")
+        b_ms, b_by = bound(2 * nbytes(qd) + 2 * n_valid * K * hd * kc.element_size()
+                           + nbytes(kpos), 4 * hd * H * n_valid, "bfloat16")
+        mask, q4 = valid[:, None, None, :], qd[:, :, None]
+        rows.append(dict(
+            name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:60", shape=shape, max_abs_err=err,
+            bound_ms=b_ms, bound_by=b_by,
+            **timings(lambda: da.flash_decode(qd, kc, vc, kpos, pos, window=window),
+                      lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos, window=window),
+                      lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                             enable_gqa=True)),
+        ))
     return rows
 
 
@@ -701,6 +816,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0_s
     print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
     ptxas_report(_build.library_path(), "flash_tc_kernel")
+    ptxas_report(_build.library_path(), "decode_kernel")
     sass_check(_build.library_path())
 
     rows = kernel_phase(dev)

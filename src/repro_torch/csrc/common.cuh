@@ -38,6 +38,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Devices a kernel's per-device launch settings are kept for.
+constexpr int kMaxDevices = 64;
+
+// Raises a kernel's dynamic shared memory limit to `bytes` on the current
+// device, the first time a launch site runs there (the attribute is per
+// device). `site` is that launch site's own table, one entry per device:
+// 0 until set, then the cudaError_t + 1.
+inline cudaError_t max_dynamic_smem(const void* kernel, int bytes, int (&site)[kMaxDevices]) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (site[dev] == 0)
+    site[dev] = 1 + (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              bytes);
+  return (cudaError_t)(site[dev] - 1);
+}
+
 // Running max before any valid score has been seen (the Pallas kernels'
 // NEG_INF). Masked scores never enter a sum: their weight is set to 0.
 constexpr float kNegInit = -1.0e30f;

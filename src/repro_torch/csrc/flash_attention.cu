@@ -199,8 +199,9 @@ template <int HD>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int S,
                const Strides& st, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int smem_set[rt::kMaxDevices];
+  const cudaError_t attr = rt::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_kernel<float, HD>), (int)smem, smem_set);
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
@@ -587,8 +588,9 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int S,
               const Strides& st, int causal, int window, float scale, cudaStream_t stream) {
   constexpr int smem = TcShape<HD>::SMEM;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int smem_set[rt::kMaxDevices];
+  const cudaError_t attr = rt::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_tc_kernel<HD>), smem, smem_set);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)((S + TC_BQ - 1) / TC_BQ) * B * H;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;

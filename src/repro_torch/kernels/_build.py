@@ -39,9 +39,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "rt_rmsnorm": [_P, _P, _P, _LL, _LL, _F, _I, _I, _P],
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _I, _I, _F, _I, _P],
-    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+    "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES,
                         _I, _I, _F, _I, _P],
-    "rt_flash_decode_splits": [_I],
     "rt_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P],
     "rt_rglru": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -137,7 +137,8 @@ def test_flash_attention_bf16_probabilities_within_tolerance(window):
     _close(got, want, TOL["bfloat16"])
 
 
-@pytest.mark.parametrize("case", ["empty_slots", "window", "wrapped_ring"])
+@pytest.mark.parametrize("case", ["empty_slots", "window", "wrapped_ring", "no_valid_slot",
+                                  "window_excludes_whole_chunks"])
 def test_flash_decode_plain_matches_pallas(case):
     B, H, K, S, hd = 2, 4, 2, 128, 32
     rng = np.random.default_rng(len(case))
@@ -145,13 +146,173 @@ def test_flash_decode_plain_matches_pallas(case):
     k = rng.standard_normal((B, K, S, hd)).astype(np.float32)
     v = rng.standard_normal((B, K, S, hd)).astype(np.float32)
     pos, window = {"empty_slots": (S - 10, 0), "window": (S - 10, 32),
-                   "wrapped_ring": (3 * S + 17, 0)}[case]
+                   "wrapped_ring": (3 * S + 17, 0), "no_valid_slot": (S - 10, 0),
+                   "window_excludes_whole_chunks": (3 * S + 17, 20)}[case]
     kpos = _ring_kpos(B, S, pos)
+    if case == "no_valid_slot":  # every slot empty: both give the mean of V
+        kpos[:] = -1
     want = jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kpos),
                             jnp.int32(pos), window=window, block_k=32, interpret=True)
     got = ops.flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                            torch.from_numpy(kpos), pos, window=window)
     _close(got, want, DECODE_TOL)
+
+
+def _decode_kernel_emulation(q, k, v, kpos, pos, window=0, split_p=False):
+    """The CUDA kernel's arithmetic in float32 torch: the cache cut by the
+    wrapper's own rule (``decode_plan`` for a 132-SM card), per chunk a
+    partial (max, sum, unnormalised accumulator) over its valid slots or an
+    empty one (sum 0), the chunks of each cluster combined in rank order.
+    Each rank of a cluster writes its slice of the (head, column pair) items
+    to scratch, and the (max, sum) of each head at the slice's first item of
+    it, into its own rank's entry; the last block of each rank then combines
+    its slice across the clusters in cluster order, or takes the mean of V
+    over all slots when the row has no valid slot. The ranks run in reverse
+    order, each to its final combine before the next writes, and the scratch
+    starts as NaN: a rank that read what only another rank writes would
+    fail here.
+    ``split_p``: the weights enter P·V as their bf16 high part plus the bf16
+    rounding of the rest, as the bf16 kernel's tensor cores take them (the
+    sum stays float32).
+    q: (B, H, hd), k/v: (B, K, S, hd), kpos: (B, S), all torch."""
+    B, H, hd = q.shape
+    K, S = k.shape[1], k.shape[2]
+    g, npair = H // K, hd // 2
+    chunk, n_chunks = da.decode_plan(S, B * K, 132)
+    n_blocks = -(-n_chunks // da.CLUSTER) * da.CLUSTER  # padded with empty blocks
+    n_clusters = n_blocks // da.CLUSTER
+    per = -(-g * npair // da.CLUSTER)  # items per rank
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid = valid & (kpos > pos - window)
+
+    def combine(parts):
+        """(max, sum, acc) partials in order; an empty one (sum 0) is skipped."""
+        used = [p for p in parts if float(p[1].max()) > 0]
+        if not used:
+            return torch.full((g,), -1.0e30), torch.zeros(g), torch.zeros((g, hd))
+        M = torch.stack([p[0] for p in used]).max(dim=0).values
+        L, acc = torch.zeros(g), torch.zeros((g, hd))
+        for m, l, a in used:
+            L = L + torch.exp(m - M) * l
+            acc = acc + torch.exp(m - M)[:, None] * a
+        return M, L, acc
+
+    out = torch.full((B, H, hd), float("nan"))
+    for b in range(B):
+        for kvh in range(K):
+            qs = q[b, kvh * g:(kvh + 1) * g].float()  # (g, hd)
+            chunks = []
+            for split in range(n_blocks):
+                sl = torch.arange(min(S, split * chunk), min(S, (split + 1) * chunk))
+                sl = sl[valid[b, sl]]
+                if len(sl) == 0:
+                    chunks.append((torch.full((g,), -1.0e30), torch.zeros(g), None))
+                    continue
+                s = qs @ k[b, kvh, sl].float().T / np.sqrt(hd)  # (g, n)
+                m = s.max(dim=1).values
+                w = torch.exp(s - m[:, None])
+                if split_p:
+                    hi = w.to(torch.bfloat16).float()
+                    wv = hi + (w - hi).to(torch.bfloat16).float()
+                else:
+                    wv = w
+                chunks.append((m, w.sum(dim=1), wv @ v[b, kvh, sl].float()))
+            clusters = [combine(chunks[c:c + da.CLUSTER])
+                        for c in range(0, n_blocks, da.CLUSTER)]
+            part_acc = torch.full((n_clusters, g * npair, 2), float("nan"))
+            part_ml = torch.full((n_clusters, da.CLUSTER, g, 2), float("nan"))
+            for rank in reversed(range(da.CLUSTER)):
+                items = torch.arange(rank * per, min(g * npair, (rank + 1) * per))
+                if len(items) == 0:
+                    continue
+                heads, d = items // npair, items % npair * 2
+                first = heads[(d == 0) | (items == items[0])]
+                for c, (M, L, acc) in enumerate(clusters):
+                    part_acc[c, items] = acc.reshape(-1, 2)[items]
+                    part_ml[c, rank, first] = torch.stack([M[first], L[first]], dim=-1)
+                ml, x = part_ml[:, rank, heads], part_acc[:, items]  # (n_clusters, n, 2)
+                assert not (ml.isnan().any() or x.isnan().any()), "scratch read before written"
+                used = ml[..., 1] > 0
+                top = torch.where(used, ml[..., 0], -torch.inf).max(dim=0).values
+                w = torch.where(used, torch.exp(ml[..., 0] - top), 0.0)
+                L = (w * ml[..., 1]).sum(dim=0)
+                acc = (w[..., None] * x).sum(dim=0)  # (n, 2)
+                cols = torch.stack([d, d + 1], dim=-1)
+                mean = v[b, kvh].float().mean(dim=0)[cols]  # no valid slot in the row
+                res = torch.where((L > 0)[:, None], acc / L[:, None], mean)
+                out[b, kvh * g + heads[:, None], cols] = res
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, K, S, hd, pos, window, empty_rows)
+    ("ragged_last_chunk", 1, 8, 1, 100, 32, 99, 0, 0),
+    ("chunks_with_no_valid_slot", 2, 4, 2, 128, 32, 3 * 128 + 17, 20, 0),
+    ("wrapped_ring", 2, 4, 2, 96, 64, 5 * 96 + 40, 0, 0),
+    ("g16_hd256", 1, 16, 1, 160, 256, 120, 0, 0),
+    ("hd16", 2, 4, 1, 64, 16, 40, 0, 0),
+    ("no_valid_slot", 2, 4, 2, 64, 32, 40, 0, 1),
+    # groups of 1, 2 and 4 over several clusters: a rank's slice starts inside a head
+    ("g1_clusters", 4, 4, 4, 640, 64, 647, 0, 0),
+    ("g2_clusters", 2, 4, 2, 1024, 128, 1031, 0, 1),
+    ("g4_hd16_clusters", 4, 4, 1, 320, 16, 327, 100, 0),
+], ids=lambda c: c[0])
+def test_decode_kernel_emulation_matches_pallas(case):
+    """The chunked partials, the split-order combine, the per-rank slices of
+    the last combine and the empty-row branch of the CUDA kernel give the
+    Pallas kernel's result in float32."""
+    _, B, H, K, S, hd, pos, window, empty_rows = case
+    rng = np.random.default_rng(S + hd)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    kpos = _ring_kpos(B, S, pos)
+    kpos[:empty_rows] = -1
+    want = jax_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kpos),
+                            jnp.int32(pos), window=window, block_k=32, interpret=True)
+    got = _decode_kernel_emulation(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                   torch.from_numpy(kpos), pos, window)
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_decode_kernel_bf16_probabilities_within_tolerance(window):
+    """P as a bf16 high part and a bf16 low part for the tensor-core P·V
+    (the bf16 kernel) keeps the output within the bf16 tolerance of the
+    Pallas kernel, which keeps P in float32: recurrentgemma-9b's 16 heads
+    on one KV head at hd 256."""
+    B, H, K, S, hd, pos = 2, 16, 1, 192, 256, 250
+    rng = np.random.default_rng(192 + window)
+    q = rng.standard_normal((B, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    v = rng.standard_normal((B, K, S, hd)).astype(np.float32)
+    kpos = _ring_kpos(B, S, pos)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (q, k, v))
+    want = jax_flash_decode(qj, kj, vj, jnp.asarray(kpos), jnp.int32(pos), window=window,
+                            interpret=True)
+    got = _decode_kernel_emulation(qt, kt, vt, torch.from_numpy(kpos), pos, window,
+                                   split_p=True).to(torch.bfloat16)
+    _close(got, want, TOL["bfloat16"])
+
+
+def test_decode_plan_fills_the_card():
+    """The chunk rule: a block per SM where S allows, chunks of MIN_CHUNK to
+    MAX_CHUNK slots, never more chunks than slots; at gemma-2b's decode
+    shape (4 rows, 544 slots) 156 blocks with a chunk (160 with the
+    cluster padding) where 64-slot chunks gave 36."""
+    sms = 132
+    assert da.decode_plan(544, 4, sms) == (14, 39)
+    assert -(-544 // 64) * 4 == 36
+    chunk, n_chunks = da.decode_plan(2048, 4, sms)  # recurrentgemma-9b
+    assert 32 <= chunk <= 64 and 4 * n_chunks >= sms
+    for S in (1, 7, 16, 40, 100, 544, 2048, 4096, 100_000):
+        for rows in (1, 4, 8, 33, 132, 256):
+            chunk, n_chunks = da.decode_plan(S, rows, sms)
+            assert da.MIN_CHUNK <= chunk <= da.MAX_CHUNK
+            assert n_chunks == -(-S // chunk) and n_chunks <= S
+            if S >= da.MIN_CHUNK * -(-sms // rows):
+                assert rows * n_chunks >= sms
 
 
 def test_flash_decode_on_port_cache_layout_matches_model_path():
