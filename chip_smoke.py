@@ -13,8 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
-   ring, rmsnorm at width 4096, rglru at (4, 2048, 4096)) plus ragged /
-   window / ring / empty-row / strong-decay / float32 / head-dim cases;
+   ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
+   with bf16 inputs) plus ragged / window / ring / empty-row /
+   strong-decay / float32 / head-dim cases, the reference's own test
+   shapes of wkv6 (head sizes 8, 16, 32) and rglru, and rglru's S = 1,
+   short-tile, unaligned-row, long-sequence and extreme-decay cases;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call;
@@ -345,7 +348,7 @@ def kernel_phase(dev):
     decode_cases(dev, randn)
     rows += decode_rows(dev, randn)
     rows.append(wkv6_row(randn, dev))
-    rows.append(rglru_row(randn))
+    rows += rglru_row(randn, dev)
     def fmt(t):
         return "none" if t is None else f"{t:.5f}"
 
@@ -542,6 +545,11 @@ def wkv6_row(randn, dev):
           WKV6_TOL_F32, WKV6_TOL_F32)
     strong = inputs(1, 256, 2, N, torch.float32, strong_decay=True)
     check("wkv6 f32 wlog=-8 (1,2,256,64)", strong, WKV6_TOL_STRONG_DECAY, WKV6_TOL_STRONG_DECAY)
+    for B_, H_, S_, N_ in ((1, 1, 32, 8), (2, 4, 128, 16), (1, 2, 96, 32)):  # tests/test_kernels.py
+        check(f"wkv6 f32 ({B_},{H_},{S_},{N_})", inputs(B_, S_, H_, N_, torch.float32),
+              WKV6_TOL_F32, WKV6_TOL_F32)
+        check(f"wkv6 bf16 r/k/v ({B_},{H_},{S_},{N_})", inputs(B_, S_, H_, N_, torch.bfloat16),
+              TOL["bfloat16"], WKV6_TOL_F32)
     r, k, v, wlog, u, st = args
     n_elem = r.numel()  # (b, h, t, n)
     b_ms, b_by = bound(nbytes(r, k, v, wlog, u) + 2 * nbytes(st) + nbytes(r),
@@ -555,9 +563,14 @@ def wkv6_row(randn, dev):
     )
 
 
-def rglru_row(randn):
+def rglru_row(randn, dev):
     """rglru at recurrentgemma-9b's prefill shape (batch 4, prompt 2048, lru
-    4096); no single PyTorch call computes it."""
+    4096) with float32 and with bf16 log_a/m, each timed beside its bound;
+    then the reference's test shapes and the edge cases of the kernel's
+    ring (S = 1, a short last tile, partial slabs, rows that are not
+    16-byte aligned, a long sequence on two slabs, no decay and full
+    decay), each against the plain version within the float32 tolerance.
+    No single PyTorch call computes the recurrence."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -565,30 +578,60 @@ def rglru_row(randn):
 
     print("kernel rglru")
     W = get_arch("recurrentgemma-9b").lru_width
+    f32, bf = torch.float32, torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def inputs(B_, S_, W_):
-        """tests/test_kernels.py's distributions."""
-        f32 = torch.float32
-        return (-torch.exp(0.5 * randn(B_, S_, W_, dtype=f32)), randn(B_, S_, W_, dtype=f32),
-                randn(B_, W_, dtype=f32))
+    def inputs(B_, S_, W_, dtype=f32):
+        """tests/test_kernels.py's distributions; log_a and m in ``dtype``."""
+        return ((-torch.exp(0.5 * randn(B_, S_, W_, dtype=f32))).to(dtype),
+                randn(B_, S_, W_, dtype=dtype), randn(B_, W_, dtype=f32))
 
     def check(name, args):
+        log_a, m, _ = lru.kernel_inputs(*args)  # as the wrapper passes them on
+        vec = lru.copy_bytes(log_a.shape[-1], log_a.element_size(), log_a.data_ptr(),
+                             m.data_ptr())
+        name = f"rglru {'bf16' if log_a.dtype == bf else 'f32'} {name}, {vec}-byte copies"
         (h_seq, h_final), (r_seq, r_final) = lru.rglru(*args), lru.rglru_ref(*args)
         return max(compare(f"{name} h_seq", h_seq, r_seq, TOL["float32"]),
                    compare(f"{name} h_final", h_final, r_final, TOL["float32"]))
 
-    args = inputs(BATCH, 2048, W)
-    err = check(f"rglru f32 ({BATCH},2048,{W})", args)
-    check("rglru f32 ragged (2,300,96)", inputs(2, 300, 96))
-    log_a, m, h0 = args
-    b_ms, b_by = bound(nbytes(log_a, m, h0) + nbytes(log_a) + nbytes(h0), 3 * log_a.numel(),
-                       "float32")
-    return dict(
-        name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
-        replaces="src/repro/kernels/rglru.py:46", shape=f"log_a/m ({BATCH},2048,{W}) f32",
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **timings(lambda: lru.rglru(*args), lambda: lru.rglru_ref(*args)),
-    )
+    rows = []
+    for dtype in (f32, bf):
+        blocks, per_sm = BATCH * -(-W // lru.SLAB), lru.blocks_per_sm(dtype, 16)
+        print(f"  rglru grid at ({BATCH},2048,{W}) {dtype}: {blocks} blocks, {per_sm} resident "
+              f"per SM x {sms} SMs = {per_sm * sms}")
+        if blocks > per_sm * sms:
+            fail(f"rglru {dtype}: {blocks} blocks do not fit one wave ({per_sm} per SM)")
+        args = inputs(BATCH, 2048, W, dtype)
+        err = check(f"({BATCH},2048,{W})", args)
+        log_a, m, h0 = args
+        b_ms, b_by = bound(nbytes(log_a, m, h0) + 4 * log_a.numel() + nbytes(h0),
+                           3 * log_a.numel(), "float32")
+        tag = "f32" if dtype == f32 else "bf16"
+        rows.append(dict(
+            name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
+            replaces="src/repro/kernels/rglru.py:46",
+            shape=f"log_a/m ({BATCH},2048,{W}) {tag}, h0 f32", max_abs_err=err,
+            bound_ms=b_ms, bound_by=b_by,
+            **timings(lambda: lru.rglru(*args), lambda: lru.rglru_ref(*args)),
+        ))
+        del args, log_a, m, h0
+    for dtype in (f32, bf):
+        for shape in ((1, 64, 32), (2, 128, 64), (2, 192, 128),  # tests/test_kernels.py
+                      (2, 300, 96), (2, 1, 64), (2, 200, 48)):  # ragged, S = 1, short tile
+            check(f"{shape}", inputs(*shape, dtype))
+        for W_ in (98, 99, 100):  # rows not 16-byte aligned; bf16 99: odd rows
+            check(f"unaligned rows (2,130,{W_})", inputs(2, 130, W_, dtype))
+        flat = randn(2 * 130 * 64 + 1, dtype=dtype)  # bases one element off alignment
+        log_a, m, h0 = inputs(2, 130, 64, dtype)
+        log_a = flat[1:].copy_(log_a.flatten()).view(2, 130, 64)
+        check("(2,130,64) on bases one element off", (log_a, m, h0))
+        extreme = inputs(2, 256, 160, dtype)
+        extreme[0][..., 0::3] = -30.0  # decay to 0 in one step
+        extreme[0][..., 1::3] = 0.0  # no decay: h sums m
+        check("log_a -30 and 0 (2,256,160)", extreme)
+    check("long (1,16384,64) on two slabs", inputs(1, 16384, 64))
+    return rows
 
 
 def plain_replay(model, params, prompt, tokens, n_steps: int):
@@ -817,6 +860,7 @@ def main() -> int:
     print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
     ptxas_report(_build.library_path(), "flash_tc_kernel")
     ptxas_report(_build.library_path(), "decode_kernel")
+    ptxas_report(_build.library_path(), "rglru_kernel")
     sass_check(_build.library_path())
 
     rows = kernel_phase(dev)

@@ -41,20 +41,24 @@ __device__ __forceinline__ float warp_max(float v) {
 // Devices a kernel's per-device launch settings are kept for.
 constexpr int kMaxDevices = 64;
 
-// Raises a kernel's dynamic shared memory limit to `bytes` on the current
-// device, the first time a launch site runs there (the attribute is per
-// device). `site` is that launch site's own table, one entry per device:
-// 0 until set, then the cudaError_t + 1.
-inline cudaError_t max_dynamic_smem(const void* kernel, int bytes, int (&site)[kMaxDevices]) {
+// Sets a kernel attribute on the current device, the first time a launch
+// site runs there (attributes are per device). `site` is that launch
+// site's own table, one entry per device: 0 until set, then the
+// cudaError_t + 1.
+inline cudaError_t func_attribute(const void* kernel, cudaFuncAttribute attr, int value,
+                                  int (&site)[kMaxDevices]) {
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (site[dev] == 0)
-    site[dev] = 1 + (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              bytes);
+  if (dev >= kMaxDevices) return cudaFuncSetAttribute(kernel, attr, value);
+  if (site[dev] == 0) site[dev] = 1 + (int)cudaFuncSetAttribute(kernel, attr, value);
   return (cudaError_t)(site[dev] - 1);
+}
+
+// Raises a kernel's dynamic shared memory limit to `bytes` (see
+// func_attribute).
+inline cudaError_t max_dynamic_smem(const void* kernel, int bytes, int (&site)[kMaxDevices]) {
+  return func_attribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes, site);
 }
 
 // Running max before any valid score has been seen (the Pallas kernels'

@@ -25,7 +25,10 @@
 // short. Inputs are read through element strides (the
 // head axis contiguous), so the model's (B, S, H, N) projections are
 // passed as (B, H, S, N) views, and y is written the same way. Built for
-// N = 16 and 64, the head sizes of the reduced and the full rwkv6-1.6b.
+// N = 8, 16, 32 and 64: the reduced and the full rwkv6-1.6b's head sizes
+// (16, 64) and every size the reference's own test sweeps. At N = 8 a
+// block is a quarter warp and a pass stages 256 tokens; nothing in the
+// kernel assumes whole warps (barriers only, no shuffles).
 //
 // B*H blocks of N threads (128 blocks of 64 at the serve shape) cannot
 // hide the latency of 132 SMs; a chunked tensor-core form is later work.
@@ -111,7 +114,9 @@ int dispatch_n(int N, const void* r, const void* k, const void* v, const void* w
         st);                                                                                  \
     break;
   switch (N) {
+    RT_WKV6_CASE(8)
     RT_WKV6_CASE(16)
+    RT_WKV6_CASE(32)
     RT_WKV6_CASE(64)
     default:
       return (int)cudaErrorInvalidValue;

@@ -42,7 +42,8 @@ SIGNATURES = {
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES,
                         _I, _I, _F, _I, _P],
     "rt_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P],
-    "rt_rglru": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_rglru": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_rglru_blocks_per_sm": [_I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

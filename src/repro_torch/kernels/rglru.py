@@ -2,11 +2,18 @@
 
 Replaces ``src/repro/kernels/rglru.py::rglru_scan`` (the Pallas kernel):
 the per-channel recurrence ``h_t = exp(log_a_t) h_{t-1} + m_t`` from h0,
-returning every h_t and the final h in float32. The kernel is bound by
-bytes (see the note in the source); the plain version is the log-depth
-associative scan of ``repro/models/rglru.py::rglru_scan`` in torch.
+returning every h_t and the final h in float32. log_a and m may be
+float32 or bfloat16 (both the same), read in their type and computed in
+float32, as the Pallas kernel casts them; h0 is taken in float32. The
+kernel is bound by bytes (see the note in the source): a warp per slab of
+SLAB channels carries h through the tokens while a ring of asynchronous
+copies keeps the slab's next tiles in flight. The plain version is the
+log-depth associative scan of ``repro/models/rglru.py::rglru_scan`` in
+torch.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -14,6 +21,25 @@ from repro_torch.kernels import _build
 
 #: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
 launches = 0
+
+#: input types the kernel reads (log_a and m share one)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: channels a block carries (one warp, a channel per lane)
+SLAB = 32
+#: bytes of one channel's tokens in a tile of the ring (csrc/rglru.cu's ROW_BYTES)
+ROW_BYTES = 128
+
+
+def tile_tokens(elem: int) -> int:
+    """Tokens in a tile of the kernel's ring, for inputs of ``elem`` bytes."""
+    return ROW_BYTES // elem
+
+
+def copy_bytes(W: int, elem: int, *ptrs: int) -> int:
+    """The kernel's copy width: 16 bytes where every token row of the
+    inputs starts 16-byte aligned (W * elem a multiple of 16 and every base
+    pointer aligned), else 4."""
+    return 16 if (W * elem) % 16 == 0 and all(p % 16 == 0 for p in ptrs) else 4
 
 
 def _check(log_a, m, h0):
@@ -24,26 +50,50 @@ def _check(log_a, m, h0):
     return B, S, W
 
 
+def kernel_inputs(log_a, m, h0):
+    """log_a, m and h0 as the kernel takes them: log_a and m contiguous in
+    one of KERNEL_DTYPES, on 4-byte aligned bases (a misaligned bf16 view
+    is copied); h0 contiguous float32 (any floating h0 is cast, as the
+    Pallas kernel's float32 scratch does). Anything else raises TypeError."""
+    if log_a.dtype not in KERNEL_DTYPES or m.dtype != log_a.dtype:
+        raise TypeError(f"rglru: log_a and m must share a dtype in {KERNEL_DTYPES}, got "
+                        f"{log_a.dtype} and {m.dtype}")
+    if not h0.is_floating_point():
+        raise TypeError(f"rglru: h0 must be floating, got {h0.dtype}")
+    log_a, m = (t.contiguous() for t in (log_a, m))
+    log_a, m = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (log_a, m))
+    return log_a, m, h0.to(torch.float32).contiguous()
+
+
 def rglru(log_a, m, h0):
-    """CUDA kernel. log_a, m: (B, S, W) float32; h0: (B, W) float32.
-    Returns (h_seq (B, S, W), h_final (B, W)), float32."""
+    """CUDA kernel. log_a, m: (B, S, W) float32 or bfloat16; h0: (B, W)
+    floating. Returns (h_seq (B, S, W), h_final (B, W)), float32."""
     global launches
     dev = log_a.device
     if not (log_a.is_cuda and m.device == dev and h0.device == dev):
         raise ValueError("rglru: the CUDA kernel takes CUDA tensors on one device")
     B, S, W = _check(log_a, m, h0)
-    if not (log_a.dtype == m.dtype == h0.dtype == torch.float32):
-        raise TypeError("rglru: log_a, m and h0 must be float32")
-    log_a, m, h0 = log_a.contiguous(), m.contiguous(), h0.contiguous()
+    log_a, m, h0 = kernel_inputs(log_a, m, h0)
+    vec = copy_bytes(W, log_a.element_size(), log_a.data_ptr(), m.data_ptr())
     h_seq = torch.empty((B, S, W), dtype=torch.float32, device=dev)
     h_final = torch.empty((B, W), dtype=torch.float32, device=dev)
     err = _build.lib().rt_rglru(
         log_a.data_ptr(), m.data_ptr(), h0.data_ptr(), h_seq.data_ptr(), h_final.data_ptr(),
-        B, S, W, _build.stream_arg(dev),
+        B, S, W, _build.dtype_code(log_a), vec, _build.stream_arg(dev),
     )
     _build.check(err, "rglru")
     launches += 1
     return h_seq, h_final
+
+
+def blocks_per_sm(dtype: torch.dtype, vec: int) -> int:
+    """Blocks of the kernel's (dtype, vec) instantiation resident on one SM
+    of the current CUDA device (a grid has B * ceil(W / SLAB) blocks)."""
+    out = ctypes.c_int(0)
+    err = _build.lib().rt_rglru_blocks_per_sm(_build.DTYPE_CODES[str(dtype)], vec,
+                                              ctypes.byref(out))
+    _build.check(err, "rglru occupancy")
+    return out.value
 
 
 def rglru_ref(log_a, m, h0):

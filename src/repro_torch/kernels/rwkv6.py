@@ -21,8 +21,9 @@ from repro_torch.kernels import _build
 #: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
 launches = 0
 
-#: head sizes csrc/wkv6.cu instantiates: the reduced and the full rwkv6-1.6b
-HEAD_SIZES = (16, 64)
+#: head sizes csrc/wkv6.cu instantiates: the reduced and the full rwkv6-1.6b's
+#: (16, 64) and the others tests/test_kernels.py sweeps (8, 32)
+HEAD_SIZES = (8, 16, 32, 64)
 _CHUNK = 64  # tokens per chunk of the plain version
 
 

@@ -9,6 +9,10 @@ from pathlib import Path
 import pytest
 import torch
 
+# Two intra-op threads: these tests share the host with the other pytest-xdist
+# workers, among them the reference's wall-clock orchestrator tests.
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 

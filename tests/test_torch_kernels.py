@@ -26,6 +26,10 @@ from repro_torch.kernels import rglru as lru
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import rwkv6
 
+# Two intra-op threads: these tests share the host with the other pytest-xdist
+# workers, among them the reference's wall-clock orchestrator tests.
+torch.set_num_threads(2)
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_TOL = 3e-5
@@ -440,3 +444,148 @@ def test_rglru_plain_matches_pallas_and_oracle(B, S, W):
         _close(h_seq, want_seq, RGLRU_TOL)
         _close(h_final, want_final, RGLRU_TOL)
     assert ops.launch_counts()["rglru"] == 0
+
+
+def _rglru_inputs(B, S, W, seed):
+    """tests/test_kernels.py's rglru distributions, from numpy."""
+    rng = np.random.default_rng(seed)
+    log_a = -np.exp(rng.standard_normal((B, S, W)).astype(np.float32) * 0.5)
+    m = rng.standard_normal((B, S, W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    return log_a, m, h0
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 64, 32), (2, 128, 64), (2, 192, 128)])
+def test_rglru_plain_bf16_inputs_match_pallas_and_oracle(B, S, W):
+    """bf16 log_a and m, float32 h0: the plain version reads them as the
+    Pallas kernel does (cast to float32) and returns float32."""
+    log_a, m, h0 = _rglru_inputs(B, S, W, seed=S + W + 1)
+    (aj, at), (mj, mt) = _pair(log_a, "bfloat16"), _pair(m, "bfloat16")
+    h_seq, h_final = ops.rglru(at, mt, torch.from_numpy(h0))
+    assert h_seq.dtype == h_final.dtype == torch.float32
+    h0j = jnp.asarray(h0)
+    for want_seq, want_final in (jax_rglru_scan(aj, mj, h0j, chunk=32, block_w=32, interpret=True),
+                                 jax_rglru_ref(aj, mj, h0j)):
+        _close(h_seq, want_seq, RGLRU_TOL)
+        _close(h_final, want_final, RGLRU_TOL)
+
+
+def _rglru_kernel_emulation(log_a, m, h0):
+    """csrc/rglru.cu's order of work in torch: per batch row, slabs of
+    lru.SLAB channels; per slab, tiles of lru.tile_tokens(elem) tokens (the
+    last one short) staged as the kernel's copies stage them (copies of
+    `vec` bytes from the row's first whole copy, the one holding the slab's
+    last element reading only the slab, the rest of it zero-filled; copies
+    past it never started and left NaN); then per token one a * h + m per
+    channel. Fails if a channel reads an element no copy staged or a copy
+    reads outside the tensor."""
+    log_a, m, h0 = lru.kernel_inputs(log_a, m, h0)
+    B, S, W = log_a.shape
+    elem = log_a.element_size()
+    vec = lru.copy_bytes(W, elem, log_a.data_ptr(), m.data_ptr())
+    assert all(t.data_ptr() % vec == 0 for t in (log_a, m))  # whole copies from the base
+    E, TT, SLAB = vec // elem, lru.tile_tokens(elem), lru.SLAB
+    pitch = -(-(SLAB + (0 if vec == 16 else E - 1)) // E) * E
+    flat = [t.reshape(-1) for t in (log_a, m)]
+    k = torch.arange(pitch)
+    h_seq = torch.full((B, S, W), float("nan"))
+    h_final = torch.full((B, W), float("nan"))
+    for b in range(B):
+        for w0 in range(0, W, SLAB):
+            nv = min(SLAB, W - w0)
+            h = h0[b, w0:w0 + nv].clone()
+            for t0 in range(0, S, TT):
+                g = (b * S + t0 + torch.arange(min(TT, S - t0)))[:, None] * W + w0  # (rows, 1)
+                o = g % E if vec != 16 else torch.zeros_like(g)
+                if vec == 16:
+                    assert bool((g % E == 0).all())
+                src = g - o + k  # (rows, pitch)
+                read = src < g + nv
+                started = g - o + k // E * E < g + nv
+                assert int(src[read].max()) < flat[0].numel()
+                tiles = []
+                for f in flat:
+                    tile = torch.full(src.shape, float("nan"))
+                    tile[started] = 0.0
+                    tile[read] = f[src[read]].float()
+                    tiles.append(tile)
+                lanes = o + torch.arange(nv)  # (rows, nv)
+                a, x = (t.gather(1, lanes) for t in tiles)
+                assert not (a.isnan().any() or x.isnan().any()), "read an unstaged element"
+                for r in range(len(g)):
+                    h = torch.exp(a[r]) * h + x[r]
+                    h_seq[b, t0 + r, w0:w0 + nv] = h
+            h_final[b, w0:w0 + nv] = h
+    return h_seq, h_final
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,W", [(1, 64, 32), (2, 128, 64), (2, 192, 128),  # the reference's
+                                   (2, 300, 96), (2, 1, 64)])  # short last tile; S = 1
+def test_rglru_kernel_emulation_matches_pallas_and_oracle(B, S, W, dtype):
+    log_a, m, h0 = _rglru_inputs(B, S, W, seed=S + W + 2)
+    (aj, at), (mj, mt) = _pair(log_a, dtype), _pair(m, dtype)
+    h_seq, h_final = _rglru_kernel_emulation(at, mt, torch.from_numpy(h0))
+    h0j = jnp.asarray(h0)
+    for want_seq, want_final in (jax_rglru_scan(aj, mj, h0j, chunk=32, block_w=32, interpret=True),
+                                 jax_rglru_ref(aj, mj, h0j)):
+        _close(h_seq, want_seq, RGLRU_TOL)
+        _close(h_final, want_final, RGLRU_TOL)
+
+
+@pytest.mark.parametrize("W,dtype,vec", [(98, "float32", 4), (99, "float32", 4),
+                                         (100, "bfloat16", 4), (99, "bfloat16", 4),
+                                         (40, "float32", 16)])
+def test_rglru_kernel_emulation_on_unaligned_rows_matches_oracle(W, dtype, vec):
+    """Rows that are not 16-byte aligned take 4-byte copies; bf16 rows of odd
+    W start on odd elements half the time (read from the element before);
+    W = 40 has a partial slab on 16-byte copies."""
+    log_a, m, h0 = _rglru_inputs(2, 130, W, seed=W)
+    (aj, at), (mj, mt) = _pair(log_a, dtype), _pair(m, dtype)
+    assert lru.copy_bytes(W, at.element_size(), at.data_ptr(), mt.data_ptr()) == vec
+    h_seq, h_final = _rglru_kernel_emulation(at, mt, torch.from_numpy(h0))
+    want_seq, want_final = jax_rglru_ref(aj, mj, jnp.asarray(h0))
+    _close(h_seq, want_seq, RGLRU_TOL)
+    _close(h_final, want_final, RGLRU_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_kernel_emulation_on_a_base_one_element_off(dtype):
+    """log_a as a view one element past an aligned base: float32 takes
+    4-byte copies, bf16 is copied to an aligned base first."""
+    log_a, m, h0 = _rglru_inputs(2, 70, 64, seed=9)
+    (aj, at), (mj, mt) = _pair(log_a, dtype), _pair(m, dtype)
+    at = torch.zeros(at.numel() + 1, dtype=at.dtype)[1:].copy_(at.reshape(-1)).view(at.shape)
+    assert at.data_ptr() % 16 != 0
+    h_seq, h_final = _rglru_kernel_emulation(at, mt, torch.from_numpy(h0))
+    want_seq, want_final = jax_rglru_ref(aj, mj, jnp.asarray(h0))
+    _close(h_seq, want_seq, RGLRU_TOL)
+    _close(h_final, want_final, RGLRU_TOL)
+
+
+def test_rglru_kernel_input_rules():
+    """What the CUDA wrapper hands the kernel, checked without a card: log_a
+    and m float32 or bfloat16 and the same, h0 any floating type as float32;
+    anything else raises TypeError (no plain-version fallback), and a CPU
+    tensor is refused before any of it."""
+    x = torch.zeros((1, 4, 8))
+    h0 = torch.zeros((1, 8))
+    for bad in ((x.half(), x.half(), h0), (x, x.bfloat16(), h0), (x.double(), x.double(), h0),
+                (x, x, h0.int())):
+        with pytest.raises(TypeError):
+            lru.kernel_inputs(*bad)
+    la, mm, h = lru.kernel_inputs(x.bfloat16(), x.bfloat16(), h0.double())
+    assert la.dtype == mm.dtype == torch.bfloat16 and h.dtype == torch.float32
+    off = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    assert off.data_ptr() % 4 == 2 and lru.kernel_inputs(off, off, h0)[0].data_ptr() % 4 == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        lru.rglru(x.half(), x.half(), h0)
+    assert lru.copy_bytes(4096, 4, 0, 512) == 16 and lru.copy_bytes(4096, 2, 0, 0) == 16
+    assert lru.copy_bytes(98, 4, 0, 0) == 4 and lru.copy_bytes(100, 2, 0, 0) == 4
+    assert lru.copy_bytes(64, 4, 4, 0) == 4
+
+
+def test_wkv6_kernel_head_sizes_cover_the_reference_sweep():
+    """csrc/wkv6.cu is built for every head size tests/test_kernels.py
+    sweeps (8, 16, 32) and the full model's 64."""
+    assert rwkv6.HEAD_SIZES == (8, 16, 32, 64)

@@ -16,6 +16,10 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
 from repro_torch.models import build_model
 
+# Two intra-op threads: these tests share the host with the other pytest-xdist
+# workers, among them the reference's wall-clock orchestrator tests.
+torch.set_num_threads(2)
+
 B, S, STEPS = 2, 16, 4
 
 

@@ -19,6 +19,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import build_model
 from repro_torch.models.model_api import _stacks_for
 
+# Two intra-op threads: these tests share the host with the other pytest-xdist
+# workers, among them the reference's wall-clock orchestrator tests.
+torch.set_num_threads(2)
+
 B, STEPS = 2, 4
 F32_TOL = 1e-4  # float32 model, plain versions against the JAX model
 BF16_TOL = 2e-2  # bfloat16, teacher-forced (the two frameworks round at other places)

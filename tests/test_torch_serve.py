@@ -11,6 +11,10 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 
+# Two intra-op threads: these tests share the host with the other pytest-xdist
+# workers, among them the reference's wall-clock orchestrator tests.
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parents[1]
 KEYS = {"status", "exit_code", "arch", "prefill_s", "decode_p50_s", "decode_p99_s",
         "tokens_per_s"}
