@@ -16,8 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
    with bf16 inputs) plus ragged / window / ring / empty-row /
    strong-decay / float32 / head-dim cases, the reference's own test
-   shapes of wkv6 (head sizes 8, 16, 32) and rglru, and rglru's S = 1,
-   short-tile, unaligned-row, long-sequence and extreme-decay cases;
+   shapes of wkv6 (head sizes 8, 16, 32) and rglru, wkv6's S = 1 and
+   odd-grid cases and the check that its serve grid is one wave, and
+   rglru's S = 1, short-tile, unaligned-row, long-sequence and
+   extreme-decay cases;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call;
@@ -508,7 +510,10 @@ def decode_rows(dev, randn):
 
 def wkv6_row(randn, dev):
     """wkv6 at rwkv6-1.6b's prefill shape, r/k/v/wlog as the (B, S, H, N)
-    views the model passes; no single PyTorch call computes it."""
+    views the model passes, after checking that the built kernel's launch
+    plan is launch_plan's and that its serve grid is resident in one wave;
+    then the ragged, odd-grid, S = 1, strong-decay and reference-shape
+    cases. No single PyTorch call computes it."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -538,11 +543,28 @@ def wkv6_row(randn, dev):
         return max(compare(f"{name} y", y, y_ref, tol_y),
                    compare(f"{name} state", st, st_ref, tol_state))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks, threads, smem = rwkv6.launch_plan(BATCH, H, N)
+        got = rwkv6.device_plan(dtype, N)
+        print(f"  wkv6 grid at ({BATCH},{H},{PROMPT},{N}) {dtype}: {blocks} blocks of "
+              f"{threads} threads, {smem} B shared, {got['per_sm']} resident per SM x {sms} "
+              f"SMs = {got['per_sm'] * sms}")
+        if (got["threads"], got["smem"], got["slabs"] * BATCH * H) != (threads, smem, blocks):
+            fail(f"wkv6 {dtype}: the kernel's plan {got} differs from launch_plan's "
+                 f"{(blocks, threads, smem)}")
+        if blocks > got["per_sm"] * sms:
+            fail(f"wkv6 {dtype}: {blocks} blocks do not fit one wave ({got['per_sm']} per SM)")
     args = inputs(BATCH, PROMPT, H, N, torch.bfloat16)
     err = check(f"wkv6 bf16 r/k/v ({BATCH},{H},{PROMPT},{N})", args, TOL["bfloat16"],
                 WKV6_TOL_F32)
     check("wkv6 f32 ragged S=300 (2,8,300,64)", inputs(2, 300, 8, N, torch.float32),
           WKV6_TOL_F32, WKV6_TOL_F32)
+    check("wkv6 f32 (3,5,130,64): B*H*slabs = 60 blocks, a short tile",
+          inputs(3, 130, 5, N, torch.float32), WKV6_TOL_F32, WKV6_TOL_F32)
+    for tag, dtype, tol_y in (("f32", torch.float32, WKV6_TOL_F32),
+                              ("bf16 r/k/v", torch.bfloat16, TOL["bfloat16"])):
+        check(f"wkv6 {tag} S=1 (2,4,1,64)", inputs(2, 1, 4, N, dtype), tol_y, WKV6_TOL_F32)
     strong = inputs(1, 256, 2, N, torch.float32, strong_decay=True)
     check("wkv6 f32 wlog=-8 (1,2,256,64)", strong, WKV6_TOL_STRONG_DECAY, WKV6_TOL_STRONG_DECAY)
     for B_, H_, S_, N_ in ((1, 1, 32, 8), (2, 4, 128, 16), (1, 2, 96, 32)):  # tests/test_kernels.py
@@ -861,6 +883,7 @@ def main() -> int:
     ptxas_report(_build.library_path(), "flash_tc_kernel")
     ptxas_report(_build.library_path(), "decode_kernel")
     ptxas_report(_build.library_path(), "rglru_kernel")
+    ptxas_report(_build.library_path(), "wkv6_kernel")
     sass_check(_build.library_path())
 
     rows = kernel_phase(dev)

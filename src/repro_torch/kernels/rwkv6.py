@@ -11,8 +11,13 @@ over r/k/v/wlog (B, H, S, N), u (H, N) and the float32 state (B, H, N, N),
 and return y in r's dtype with the final float32 state. The kernel is
 bound by bytes (see the note in the source); it reads r/k/v/wlog through
 their strides, so the model passes its (B, S, H, N) projections as views.
+A block owns a slab of columns of one (b, h)'s state, a thread an R x C
+tile of it (``TILES``), and the block stages ``TILE`` tokens at a time
+(:func:`launch_plan`).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -25,6 +30,34 @@ launches = 0
 #: (16, 64) and the others tests/test_kernels.py sweeps (8, 32)
 HEAD_SIZES = (8, 16, 32, 64)
 _CHUNK = 64  # tokens per chunk of the plain version
+
+#: tokens per staged tile of csrc/wkv6.cu
+TILE = 32
+#: csrc/wkv6.cu's Tile<N>: per head size, the rows R and columns C of the
+#: state a thread carries and the columns JC of a block's slab
+TILES = {8: (2, 1, 8), 16: (4, 1, 16), 32: (4, 4, 32), 64: (4, 4, 16)}
+
+
+def launch_plan(B: int, H: int, N: int) -> tuple:
+    """(blocks, threads per block, static shared bytes) of the kernel's
+    launch for B x H heads of size N: a block per slab of JC columns of a
+    (b, h), a thread per R x C tile of the slab; its tile holds TILE tokens
+    of r, k and exp(w) at N wide, of the bonus products at N + 1 wide, of v
+    at JC wide, and the bonus's parts (one per TILE threads) per token."""
+    R, C, JC = TILES[N]
+    threads = JC // C * (N // R)
+    smem = 4 * TILE * (3 * N + (N + 1) + JC + threads // TILE)
+    return B * H * (N // JC), threads, smem
+
+
+def device_plan(dtype: torch.dtype, N: int) -> dict:
+    """The built kernel's own plan on the current CUDA device, for
+    (dtype, N): threads, static shared bytes, blocks per (b, h) and blocks
+    resident on one SM."""
+    out = (ctypes.c_int * 4)()
+    err = _build.lib().rt_wkv6_plan(_build.DTYPE_CODES[str(dtype)], N, out)
+    _build.check(err, "wkv6 plan")
+    return dict(threads=out[0], smem=out[1], slabs=out[2], per_sm=out[3])
 
 
 def _check(r, k, v, wlog, u, state):

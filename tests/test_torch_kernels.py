@@ -429,6 +429,82 @@ def test_wkv6_plain_ragged_length_and_strided_views():
     _close(st, want_st, WKV6_TOL)
 
 
+def _wkv6_kernel_emulation(r, k, v, wlog, u, state):
+    """csrc/wkv6.cu's arithmetic in torch, float32, with the thread tiles of
+    rwkv6.TILES[N]. Per (b, h) and tile of rwkv6.TILE tokens: each token's
+    bonus r . (u * k) in parts of N / parts rows (parts = threads / TILE),
+    each summed in row order, then the parts in order. Per token, each
+    column's rows in G = N / R groups of R rows: a group sums its R products
+    r_i s_i in row order, a butterfly adds the groups (g ^ 1, then g ^ 2,
+    ...; the kernel's lanes carry different columns through its first
+    steps, which sums the same pairs), then + bonus * v_j; each row is
+    updated as s_i * exp(w_i) + k_i * v_j."""
+    B, H, S, N = r.shape
+    R, C, JC = rwkv6.TILES[N]
+    G = N // R
+    parts = rwkv6.launch_plan(1, 1, N)[1] // rwkv6.TILE
+    r, k, v, wlog = (t.float() for t in (r, k, v, wlog))
+    s = state.float().clone().view(B, H, G, R, N)  # s[..., g, q, j] = S[g * R + q][j]
+    uf = u.float()[None, :, None, :]
+    y = torch.empty((B, H, S, N))
+    for t0 in range(0, S, rwkv6.TILE):
+        n = min(rwkv6.TILE, S - t0)
+        rt, kt, vt = (x[:, :, t0:t0 + n] for x in (r, k, v))
+        wt = torch.exp(wlog[:, :, t0:t0 + n])
+        p = (rt * (uf * kt)).view(B, H, n, parts, N // parts)
+        sums = [p[..., c, 0] for c in range(parts)]
+        for q in range(1, N // parts):
+            sums = [sm + p[..., c, q] for c, sm in enumerate(sums)]
+        bonus = sums[0]
+        for sm in sums[1:]:
+            bonus = bonus + sm
+        for tt in range(n):
+            rg, kg, wg = (x[:, :, tt].view(B, H, G, R) for x in (rt, kt, wt))
+            vj = vt[:, :, tt][:, :, None, :]  # (B, H, 1, N)
+            acc = torch.zeros((B, H, G, N))
+            for q in range(R):
+                acc = acc + rg[..., q, None] * s[..., q, :]
+                s[..., q, :] = s[..., q, :] * wg[..., q, None] + kg[..., q, None] * vj
+            o = 1
+            while o < G:
+                acc = acc + acc[:, :, torch.arange(G) ^ o]
+                o *= 2
+            y[:, :, t0 + tt] = acc[:, :, 0] + bonus[:, :, tt, None] * vj[:, :, 0]
+    return y, s.view(B, H, N, N)
+
+
+@pytest.mark.parametrize("B,H,S,N,strong_decay", [
+    (1, 1, 32, 8, False), (2, 4, 128, 16, False), (1, 2, 96, 32, False),  # the reference's
+    (1, 2, 70, 64, False),  # the served head size, a short last tile
+    (1, 2, 96, 64, True)])  # wlog = -8
+def test_wkv6_kernel_emulation_matches_pallas_and_oracle(B, H, S, N, strong_decay):
+    inputs = _wkv6_inputs(B, H, S, N, seed=S + N + 7, strong_decay=strong_decay)
+    y, st = _wkv6_kernel_emulation(*(torch.from_numpy(a) for a in inputs))
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    tol = WKV6_STRONG_DECAY_TOL if strong_decay else WKV6_TOL
+    for want_y, want_st in _wkv6_both(inputs, chunk=64):
+        _close(y, want_y, tol)
+        _close(st, want_st, tol)
+
+
+def test_wkv6_launch_plan_fits_the_card():
+    """The kernel's grid at rwkv6-1.6b's prefill shape is 512 blocks, all
+    resident in one wave on an H100's 132 SMs (228 KB of shared memory an
+    SM); every head size gives whole warps of whole column groups, at most
+    1024 threads a block, and a thread per staged row."""
+    blocks, threads, smem = rwkv6.launch_plan(4, 32, 64)
+    assert (blocks, threads) == (512, 64)
+    assert smem * -(-blocks // 132) <= 228 * 1024
+    for N in rwkv6.HEAD_SIZES:
+        R, C, JC = rwkv6.TILES[N]
+        G = N // R
+        blocks, threads, smem = rwkv6.launch_plan(2, 3, N)
+        assert N % JC == 0 and JC % C == 0 and C <= G <= 32 and 32 % G == 0
+        assert blocks == 2 * 3 * (N // JC) and threads == JC // C * G <= 1024
+        assert threads % 32 == 0 and threads % N == 0 and threads % rwkv6.TILE == 0
+        assert smem <= 48 * 1024
+
+
 @pytest.mark.parametrize("B,S,W", [(1, 64, 32), (2, 128, 64), (2, 192, 128), (2, 300, 96)])
 def test_rglru_plain_matches_pallas_and_oracle(B, S, W):
     rng = np.random.default_rng(S + W)
