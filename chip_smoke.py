@@ -34,7 +34,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reduced float32 model of each family (recurrentgemma with 5 layers, so
    that its remainder stack runs) on the card against the same weights on
    the CPU;
-5. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+5. paper: the paper's own path, which launches none of the five kernels
+   (their counts must stay 0): ``repro_torch.launch.tables`` on the card
+   (an unpinned ``measure_micro``, the failure predictor trained on the
+   card), every check of Tables 1-2 and of the predictor passing; the
+   card-trained predictor against the CPU-trained one (weights within
+   PREDICTOR_TOL, equal threshold); the genome job of
+   ``configs/paper_genome.CONFIG`` (PAPER_BASES bases, 5000 patterns of
+   15-25 bases, 3 search nodes x 4 chunks) through
+   ``repro_torch.launch.genome``: a failure-free run and, for each of the
+   seven strategies, a run with a predicted failure and a migration whose
+   hit table must equal the failure-free one, with every planted
+   occurrence found; the fast search against ``_match_positions_plain``
+   over one 2^20-base chunk with all 5000 patterns; the search timed per
+   chunk beside its bound. Prints the search's seconds and Mbases/s, the
+   Tables' wall seconds and the predictor's training ms;
+6. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -82,6 +97,13 @@ ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
 SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048))
 WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
 WKV6_TOL_STRONG_DECAY = 1e-4
+# the paper phase: the card-trained predictor against the CPU-trained one,
+# float32 sums in another order (tests/test_torch_paper.py holds the port to
+# the JAX predictor with the same limit); the genome's size (the paper's
+# 2^29 bases unless cut, see PERF.md) and the plain check's chunk
+PREDICTOR_TOL = 1e-5
+PAPER_BASES = 2 ** 29
+PLAIN_CHECK_BASES = 2 ** 20
 
 
 def fail(msg: str) -> None:
@@ -135,6 +157,23 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
         if us > 0:
             return us / 1e3 / iters
     return None
+
+
+def device_top(fn, iters: int = 3, k: int = 6):
+    """The ``k`` CUDA kernels with the most device time in a torch.profiler
+    trace of ``iters`` calls of ``fn``: [(name, ms per call)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])[:k]
 
 
 def timings(kernel, plain, library=None, iters: int = 20) -> dict:
@@ -860,6 +899,99 @@ def reduced_reference_phase(dev):
               f"plain versions within {LOGITS_TOL_F32}, tokens equal")
 
 
+def paper_phase(card: str) -> None:
+    import torch
+
+    from repro_torch.configs.paper_genome import CONFIG
+    from repro_torch.core.predictor import FailurePredictor
+    from repro_torch.data import genome
+    from repro_torch.kernels import ops
+    from repro_torch.launch import genome as genome_launch
+    from repro_torch.launch import tables
+    from repro_torch.strategies import registry
+
+    ops.reset_launch_counts()
+    res = tables.run(str(ROOT / "bench_out_torch"), device="cuda")
+    failed = sorted(k for k, v in res["checks"].items() if not v)
+    print(f"paper tables: {len(res['checks'])} checks, failed {failed}; "
+          f"{len(res['table1'])} + {len(res['table2'])} rows in {res['tables_s']:.6f} s (host)")
+    for r in res["table1"]:
+        print(f"  table1 {r['strategy']:15s} 1rnd {r['exec_1random']} "
+              f"(+{r['overhead_pct_1random']} %) paper {r.get('paper_1random', '-')}")
+    if failed:
+        fail(f"paper tables: checks failed: {failed}")
+    pred = res["predictor"]
+    if pred.device.type != "cuda":
+        fail(f"the predictor trained on {pred.device}, not the card")
+    cpu_pred = FailurePredictor.train(seed=0, device="cpu")
+    werr = max(float((pred.params[k].cpu() - cpu_pred.params[k]).abs().max()) for k in ("w", "b"))
+    print(f"paper predictor: trained on the card in {res['predictor_train_ms']:.3f} ms; "
+          f"max |w, b card - cpu| {werr:.3g} (tol {PREDICTOR_TOL}), threshold card "
+          f"{pred.threshold} cpu {cpu_pred.threshold}; {res['prediction']}")
+    if werr > PREDICTOR_TOL or pred.threshold != cpu_pred.threshold:
+        fail("the card-trained predictor disagrees with the CPU-trained one")
+
+    if PAPER_BASES != CONFIG.input_bytes:
+        print(f"paper genome: CUT to {PAPER_BASES} bases from the paper's {CONFIG.input_bytes}")
+    run = genome_launch.run(PAPER_BASES, CONFIG.n_patterns, registry.names(), device="cuda")
+    job = run.pop("job")
+    print(f"paper genome: {run['bases']} bases, {run['patterns']} patterns of "
+          f"{CONFIG.pattern_len_min}-{CONFIG.pattern_len_max} bases, {job.n_search} search nodes x "
+          f"{job.chunks_per_node} chunks on {card}: {run['n_hits']} hits, planted "
+          f"{run['truth'] - run['missing']}/{run['truth']}; made in {run['make_s']:.3f} s, "
+          f"uploaded in {run['upload_s']:.4f} s")
+    for r in run["runs"]:
+        print(f"  ft {r['strategy']:15s} node 0 -> {r['to']} via {r['mechanism']} ({r['outcome']}), "
+              f"hash_ok {r['hash_ok']}, identical {r['identical']}, {r['seconds']:.3f} s")
+    if not run["ok"] or len(run["runs"]) != 7:
+        fail(f"paper genome: recall {run['truth'] - run['missing']}/{run['truth']}, runs "
+             f"{[(r['strategy'], r['identical'], r['hash_ok']) for r in run['runs']]}")
+
+    g, index = job.upload()
+    chunk = g[:PLAIN_CHECK_BASES]
+    t0 = time.perf_counter()
+    fast = genome.search_chunk(chunk, job.patterns, index=index)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = genome.search_chunk_plain(chunk, job.patterns)
+    plain_s = time.perf_counter() - t0
+    print(f"paper search vs plain: {PLAIN_CHECK_BASES} bases x {2 * len(job.patterns)} "
+          f"(pattern, strand): {len(fast)} hits, equal {fast == plain}; fast {fast_s:.4f} s, "
+          f"plain {plain_s:.4f} s")
+    if fast != plain or not fast:
+        fail("paper search: the fast search disagrees with _match_positions_plain")
+
+    start, end = job.chunk_bounds(0, 0)
+    one = g[start:end]
+    ms = time_ms(lambda: genome._match_hits(one, index), iters=5, warmup=1)
+    dev_ms = device_ms(lambda: genome._match_hits(one, index), iters=5, warmup=1)
+    n_len = len(index.groups)
+    bound_ms = 1e3 * n_len * (end - start) / HBM_BYTES_PER_S
+    print(f"paper search per chunk: {end - start} bases, {n_len} length groups: {ms:.4f} ms per "
+          f"call, device {dev_ms} ms, bound {bound_ms:.4f} ms (the chunk's bytes read once per "
+          f"length group at {HBM_BYTES_PER_S:.3g} B/s)")
+    top = device_top(lambda: genome._match_hits(one, index))
+    for name, t in top:
+        print(f"  device {t:9.4f} ms  {name[:100]}")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"the paper path launched a kernel of the serve path: {counts}")
+    print(json.dumps({"paper": {
+        "card": card, "bases": run["bases"], "patterns": run["patterns"], "n_hits": run["n_hits"],
+        "search_s": run["search_s"], "mbases_per_s": run["mbases_per_s"],
+        "make_s": run["make_s"], "upload_s": run["upload_s"],
+        "ft_s": {r["strategy"]: r["seconds"] for r in run["runs"]},
+        "chunk_bases": end - start, "chunk_ms": ms, "chunk_device_ms": dev_ms,
+        "chunk_bound_ms": bound_ms, "chunk_top": top, "plain_check_s": plain_s, "fast_check_s": fast_s,
+        "tables_s": res["tables_s"], "predictor_train_ms": res["predictor_train_ms"],
+        "predictor_max_abs_err": werr, "prediction": res["prediction"], "launches": counts}}))
+    print(f"paper: search {run['search_s']:.4f} s, {run['mbases_per_s']:.1f} Mbases/s")
+    print(f"paper: tables {res['tables_s']:.6f} s")
+    print(f"paper: predictor training {res['predictor_train_ms']:.3f} ms")
+    del g, index, chunk, one, job
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -894,6 +1026,7 @@ def main() -> int:
     for arch, prompt_len in SERVES:
         full_width_f32_phase(dev, arch, prompt_len)
     reduced_reference_phase(dev)
+    paper_phase(card)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

@@ -64,3 +64,17 @@ def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu") -> Di
     if not cfg.tie_embeddings:
         params["lm_head"] = _tensor(values["lm_head"], dt, device)
     return params
+
+
+def predictor_from_jax(params: Dict[str, Any], mu, sd, threshold: float):
+    """The reference ``FailurePredictor``'s ``params`` ({"w": (F,), "b": ()}),
+    ``mu``, ``sd`` and ``threshold``, as numpy -> the port's predictor, on
+    the CPU."""
+    from repro_torch.core.predictor import FailurePredictor
+
+    return FailurePredictor(
+        threshold=float(threshold),
+        params={k: _tensor(params[k], torch.float32, "cpu") for k in ("w", "b")},
+        mu=np.asarray(mu, np.float32),
+        sd=np.asarray(sd, np.float32),
+    )

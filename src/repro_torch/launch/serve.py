@@ -25,18 +25,7 @@ import torch
 from repro_torch.configs import all_archs, get_arch
 from repro_torch.models import build_model
 from repro_torch.orchestrator.contract import EXIT_OK
-
-
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch runs its kernels on the card; pass "
-            "--device cpu (device='cpu') to run the plain versions on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, not {name!r}")
-    return dev
+from repro_torch.utils.device import resolve_device
 
 
 def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_len: int = 64,

@@ -25,17 +25,47 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
 
+# the paper's path (fault-tolerance machinery, strategies, simulator, genome job)
+PAPER_MODULES = (
+    "repro_torch.configs.paper_genome",
+    "repro_torch.core", "repro_torch.core.agent", "repro_torch.core.checkpoint",
+    "repro_torch.core.cluster", "repro_torch.core.failure", "repro_torch.core.heartbeat",
+    "repro_torch.core.hybrid", "repro_torch.core.migration", "repro_torch.core.predictor",
+    "repro_torch.core.rules", "repro_torch.core.runtime", "repro_torch.core.sim",
+    "repro_torch.core.virtual_core",
+    "repro_torch.data", "repro_torch.data.genome",
+    "repro_torch.launch.genome", "repro_torch.launch.tables",
+    "repro_torch.strategies", "repro_torch.strategies.base", "repro_torch.strategies.builtin",
+    "repro_torch.strategies.costmodel", "repro_torch.strategies.placement",
+    "repro_torch.strategies.registry",
+    "repro_torch.utils", "repro_torch.utils.device", "repro_torch.utils.tree",
+)
 
-def test_import_every_module_loads_no_jax():
+
+@pytest.fixture(scope="module")
+def import_all():
+    """One interpreter that imports every module of the port: (count, names)."""
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, env={"PYTHONPATH": str(REPO / "src"), "PATH": ""},
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 15
+    count, names = res.stdout.splitlines()[:2]
+    return int(count.split()[0]), names.split()
+
+
+def test_import_every_module_loads_no_jax(import_all):
+    n_modules, _ = import_all
+    assert n_modules >= 15 + len(PAPER_MODULES)
+
+
+@pytest.mark.parametrize("module", PAPER_MODULES)
+def test_paper_module_imported_without_jax(module, import_all):
+    """Each module of the paper's path is among those the no-jax import loads."""
+    assert module in import_all[1]
 
 
 def _forbidden(name: str) -> bool:
