@@ -49,7 +49,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over one 2^20-base chunk with all 5000 patterns; the search timed per
    chunk beside its bound. Prints the search's seconds and Mbases/s, the
    Tables' wall seconds and the predictor's training ms;
-6. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+6. campaign: the paper's job under streams of failures, which launches
+   none of the five kernels either (their counts must stay 0). Every
+   registered family whose workload the port has (15 of 17: the two LLM
+   families wait for ROADMAP Queue 1, item 8) under all seven strategies,
+   at CAMPAIGN_SEEDS seeds (FLEET_CHECK_SEEDS for fleet_stress): the replay
+   fold on the card against ``CampaignEngine`` trial for trial (the
+   reference tests' tolerances, ``launch/campaign.trial_mismatches``) and
+   against the same fold on the CPU bit for bit, under one MicroCosts per
+   family. Then ``mc_trajectories`` at full size on the card, ``mc_stress``
+   at 2000 seeds and ``fleet_stress`` at 256 under ``central_single`` and
+   ``core``, each checked bit for bit against the CPU fold and its first
+   trials against the engine, timed (host clock; the trials are on the host
+   when it is read) and profiled (``torch.profiler``: kernel launches per
+   slot and the device's busy share of an unprofiled fold); ``tile_slots``
+   1 / 8 / 64 bit-identical on ``fleet_stress`` on the card; ``mc_totals``
+   at 2000 seeds of ``table1_random`` on the card, its mean within 4
+   standard errors of the closed form's expectation; with more than one
+   card, ``fleet_stress`` x 256 split over every card against one card,
+   bit for bit. Prints the folds' seconds, seeds/s, launches per slot,
+   busy share and the engine's seconds per trial;
+7. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -104,6 +124,17 @@ WKV6_TOL_STRONG_DECAY = 1e-4
 PREDICTOR_TOL = 1e-5
 PAPER_BASES = 2 ** 29
 PLAIN_CHECK_BASES = 2 ** 20
+# the campaign phase: seeds per (family, strategy) cell of the sweep; the
+# full-size Monte-Carlo runs (the reference bench's --seeds default and its
+# fleet-family cap, benchmarks/bench_scenarios.py); trials checked against
+# the engine in those; mc_totals' seeds and its limit in standard errors
+CAMPAIGN_SEEDS = 4
+FLEET_CHECK_SEEDS = 2
+MC_FULL = (("mc_stress", 2000), ("fleet_stress", 256))
+MC_STRATEGIES = ("central_single", "core")
+MC_ENGINE_CHECKS = 4
+MC_TOTALS_SEEDS = 2000
+MC_TOTALS_SE = 4.0
 
 
 def fail(msg: str) -> None:
@@ -992,6 +1023,216 @@ def paper_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def fold_profile(fn, args, n_slots: int) -> dict:
+    """One replay fold on the card: its wall seconds unprofiled (the output
+    is numpy, so the device is done when the clock is read), then a
+    torch.profiler trace of another: kernel launches per slot, copies, and
+    device busy time as a share of the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.self_device_time_total <= 0:
+            continue
+        busy_us += e.self_device_time_total
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+    return {"wall_s": wall_s, "launches": kernels, "launches_per_slot": kernels / n_slots,
+            "copies": copies, "busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e6 / wall_s if busy_us else None}
+
+
+def split_check(micro):
+    """With more than one card: ``fleet_stress`` x 256 seeds split over every
+    card (``n_devices``) against one card, bit for bit, each timed once
+    warm. With one card (how the script runs by default) it is not run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.scenarios import registry as scenarios
+    from repro_torch.scenarios.trajectory import compile_batch, replay_batch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("campaign n_devices split: one card, not run")
+        return None
+    spec = scenarios.get("fleet_stress")
+    batch = compile_batch(spec, 256)
+    res = {}
+    for d in (1, n):
+        replay_batch(spec, batch, "core", micro=micro, n_devices=d, device="cuda")
+        t0 = time.perf_counter()
+        res[d] = replay_batch(spec, batch, "core", micro=micro, n_devices=d, device="cuda")
+        res[d]["seconds"] = time.perf_counter() - t0
+    diff = [k for k in res[1] if k != "seconds"
+            and not np.array_equal(res[1][k], res[n][k], equal_nan=res[1][k].dtype.kind == "f")]
+    print(f"campaign n_devices split: fleet_stress x 256 over {n} cards "
+          f"{'bit-identical to' if not diff else f'DIFFERS in {diff} from'} one card; "
+          f"{res[n]['seconds']:.4f} s against {res[1]['seconds']:.4f} s")
+    if diff:
+        fail(f"campaign: the seed split over {n} cards changed {diff}")
+    return {"cards": n, "seconds": res[n]["seconds"], "one_card_seconds": res[1]["seconds"]}
+
+
+def campaign_phase(card: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.campaign import runnable_families, trial_mismatches
+    from repro_torch.scenarios import registry as scenarios
+    from repro_torch.scenarios.engine import CampaignEngine
+    from repro_torch.scenarios.montecarlo import (
+        _n_windows, mc_totals, mc_trajectories, params_from_scenario)
+    from repro_torch.scenarios.trajectory import compile_batch, replay_batch, replay_program
+    from repro_torch.strategies import registry as strategies
+    from repro_torch.workloads import resolve as resolve_workload
+
+    def same(a: dict, b: dict) -> list:
+        """Keys whose arrays differ in a bit, a dtype or a shape."""
+        return [k for k in a if k not in b or a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                or not np.array_equal(a[k], b[k], equal_nan=a[k].dtype.kind == "f")]
+
+    ops.reset_launch_counts()
+    families = runnable_families()
+    waiting = [n for n in scenarios.names() if n not in families]
+    micros = {}
+    t0 = time.perf_counter()
+    cells = engine_trials = 0
+    engine_s = 0.0
+    for family in families:
+        spec = scenarios.get(family)
+        n = FLEET_CHECK_SEEDS if family == "fleet_stress" else CAMPAIGN_SEEDS
+        wl = resolve_workload(None, spec, device="cuda")
+        micros[family] = micro = wl.micro("placentia", n_nodes=spec.n_nodes)
+        batch = compile_batch(spec, n)
+        for name in strategies.names():
+            card_out = replay_batch(spec, batch, name, micro=micro, device="cuda")
+            cpu_out = replay_batch(spec, batch, name, micro=micro, device="cpu")
+            diff = same(cpu_out, card_out)
+            if diff:
+                fail(f"campaign {family}/{name}: the card's fold differs from the CPU's in {diff}")
+            for k in range(n):
+                e0 = time.perf_counter()
+                res = CampaignEngine(spec, name, micro=micro, seed=k, workload=wl,
+                                     device="cuda").run()
+                engine_s += time.perf_counter() - e0
+                engine_trials += 1
+                bad = trial_mismatches(card_out, k, res)
+                if bad:
+                    fail(f"campaign {family}/{name} seed {k}: the card's fold differs from "
+                         f"the engine in {bad}")
+            cells += 1
+    sweep_s = time.perf_counter() - t0
+    print(f"campaign sweep: {len(families)} families x {len(strategies.names())} strategies = "
+          f"{cells} cells at {CAMPAIGN_SEEDS} seeds ({FLEET_CHECK_SEEDS} for fleet_stress) on "
+          f"{card}: card fold = CPU fold bit for bit, = engine in {engine_trials} trials; "
+          f"{sweep_s:.3f} s; waiting for ROADMAP Queue 1, item 8: {waiting}")
+
+    runs = []
+    for family, n_seeds in MC_FULL:
+        spec = scenarios.get(family)
+        micro = micros[family]
+        b0 = time.perf_counter()
+        batch = compile_batch(spec, n_seeds)
+        compile_s = time.perf_counter() - b0
+        for name in MC_STRATEGIES:
+            m0 = time.perf_counter()
+            mc = mc_trajectories(spec, name, n_seeds, batch=batch, micro=micro, device="cuda")
+            mc_s = time.perf_counter() - m0
+            out = mc["trials"]
+            cpu_out = replay_batch(spec, batch, name, micro=micro, device="cpu")
+            diff = same(cpu_out, out)
+            if diff:
+                fail(f"campaign {family}/{name} x {n_seeds}: card fold differs from CPU in {diff}")
+            e0 = time.perf_counter()
+            for k in range(MC_ENGINE_CHECKS):
+                res = CampaignEngine(spec, name, micro=micro, seed=k, device="cuda").run()
+                bad = trial_mismatches(out, k, res)
+                if bad:
+                    fail(f"campaign {family}/{name} seed {k}: fold differs from engine in {bad}")
+            eng = (time.perf_counter() - e0) / MC_ENGINE_CHECKS
+            fn, args = replay_program(spec, batch, name, micro=micro, device="cuda")
+            n_slots = args[1]["times"].shape[1]
+            prof = fold_profile(fn, args, n_slots)
+            if not all(np.isfinite(out["total_s"][out["survived"]])) or mc["n_seeds"] != n_seeds:
+                fail(f"campaign {family}/{name}: non-finite totals or a wrong seed count")
+            row = {"scenario": family, "strategy": name, "n_seeds": n_seeds,
+                   "n_hosts": batch.n_hosts, "n_slots": n_slots, "compile_s": compile_s,
+                   "mc_s": mc_s, "seeds_per_s": n_seeds / mc_s, "fold_s": prof["wall_s"],
+                   "fold_seeds_per_s": n_seeds / prof["wall_s"], "launches": prof["launches"],
+                   "launches_per_slot": prof["launches_per_slot"], "copies": prof["copies"],
+                   "busy_ms": prof["busy_ms"], "busy_share": prof["busy_share"],
+                   "engine_s_per_trial": eng, "survival_rate": mc["survival_rate"],
+                   "mean_s": mc["mean_s"], "p5_s": mc["p5_s"], "p50_s": mc["p50_s"],
+                   "p95_s": mc["p95_s"]}
+            runs.append(row)
+            print(f"campaign mc {family} {name}: {n_seeds} seeds x {batch.n_hosts} hosts x "
+                  f"{n_slots} slots, survival {mc['survival_rate']:.4f}, mean {mc['mean_s']} s, "
+                  f"p5/p50/p95 {mc['p5_s']}/{mc['p50_s']}/{mc['p95_s']} s; = CPU fold bitwise, "
+                  f"= engine on {MC_ENGINE_CHECKS} trials; tapes {compile_s:.4f} s (host)")
+
+    spec = scenarios.get("fleet_stress")
+    batch = compile_batch(spec, 256)
+    outs = [replay_batch(spec, batch, "core", micro=micros["fleet_stress"], tile_slots=t,
+                         device="cuda") for t in (1, 8, 64)]
+    diff = same(outs[1], outs[0]) + same(outs[1], outs[2])
+    print(f"campaign tile_slots 1/8/64 on fleet_stress x 256 on the card: "
+          f"{'bit-identical' if not diff else diff}")
+    if diff:
+        fail(f"campaign: tile_slots changed {diff}")
+
+    params = params_from_scenario(scenarios.get("table1_random"), "central_single",
+                                  micros["table1_random"])
+    t0 = time.perf_counter()
+    tot = mc_totals(params, n_seeds=MC_TOTALS_SEEDS, seed=0, device="cuda")
+    totals_s = time.perf_counter() - t0
+    n_fail = _n_windows(params.J_s, params.period_s) * params.per_window
+    expect = (params.J_s + params.probe_per_hour_s * params.J_s / 3600.0
+              + n_fail * (params.period_s / 2 + params.reinstate_s + params.overhead_s
+                          + params.lead_s))
+    se = tot["std_s"] / MC_TOTALS_SEEDS ** 0.5
+    print(f"campaign mc_totals table1_random central_single x {MC_TOTALS_SEEDS} on the card: "
+          f"mean {tot['mean_s']} s, closed form {expect} s, {abs(tot['mean_s'] - expect) / se:.3f} "
+          f"standard errors (limit {MC_TOTALS_SE}); {totals_s:.4f} s")
+    if not abs(tot["mean_s"] - expect) <= MC_TOTALS_SE * se:
+        fail("campaign: mc_totals' mean is off the closed form's expectation")
+
+    split = split_check(micros["fleet_stress"])
+
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"the campaign path launched a kernel of the serve path: {counts}")
+    print(json.dumps({"campaign": {
+        "card": card, "families": families, "waiting": waiting, "cells": cells,
+        "sweep_s": sweep_s, "engine_trials": engine_trials,
+        "sweep_engine_s_per_trial": engine_s / engine_trials, "mc": runs,
+        "mc_totals": {"n_seeds": MC_TOTALS_SEEDS, "mean_s": tot["mean_s"], "std_s": tot["std_s"],
+                      "expect_s": expect, "seconds": totals_s},
+        "split": split, "launches": counts}}))
+    for r in runs:
+        tag = f"{r['scenario']} {r['strategy']} x {r['n_seeds']}"
+        print(f"campaign: {tag}: mc_trajectories {r['mc_s']:.4f} s, {r['seeds_per_s']:.1f} seeds/s; "
+              f"fold {r['fold_s']:.4f} s, {r['fold_seeds_per_s']:.1f} seeds/s")
+        print(f"campaign: {tag}: {r['launches_per_slot']:.2f} launches per slot "
+              f"({r['launches']} over {r['n_slots']} slots), {r['copies']} copies")
+        print(f"campaign: {tag}: device busy {r['busy_ms']:.3f} ms, share {r['busy_share']}")
+        print(f"campaign: {tag}: engine {r['engine_s_per_trial']:.4f} s per trial")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1027,6 +1268,7 @@ def main() -> int:
         full_width_f32_phase(dev, arch, prompt_len)
     reduced_reference_phase(dev)
     paper_phase(card)
+    campaign_phase(card)
 
     for r in rows:
         r["launches"] = launches[r["name"]]

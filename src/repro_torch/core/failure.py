@@ -15,7 +15,7 @@ failure process (see ``EventStream``). ``FailureModel`` keeps the paper's
 two single-node patterns bit-for-bit (same rng call sequence); richer
 multi-failure campaigns — correlated rack outages, cascades onto the spare,
 flaky repeat offenders, spare-pool exhaustion, checkpoint-time failures —
-live in the reference's ``repro.scenarios.spec`` (not ported yet) and emit the same ``FailureEvent``
+live in ``repro_torch.scenarios.spec`` and emit the same ``FailureEvent``
 records with the extra metadata fields below.
 """
 from __future__ import annotations

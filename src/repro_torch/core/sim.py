@@ -292,39 +292,43 @@ def fmt_hms(s: float) -> str:
 # ------------------------------------------------------------------------
 # Scenario-engine integration: a scenario that reduces to the paper's
 # Tables 1-2 patterns is priced with the EXACT same `strategy_rows`
-# arithmetic as the seed simulator — bit-for-bit identical totals. The
-# event-driven CampaignEngine that executes every other scenario, the
-# scenario registry and the workload models are later slices of the port
-# (ROADMAP Queue 1, item 7): such a scenario raises NotImplementedError.
+# arithmetic as the seed simulator — bit-for-bit identical totals; every
+# other scenario runs through the event-driven CampaignEngine.
 # ------------------------------------------------------------------------
 def scenario_totals(
     scenario,
     strategies=None,
     micro: Optional[MicroCosts] = None,
     profile_name: str = "placentia",
+    workload=None,
+    device="cuda",
 ) -> Dict[str, Dict]:
     """Total execution time of a scenario under each FT strategy.
 
-    `scenario` is a ScenarioSpec (the reference's ``repro.scenarios.spec``
-    record, or any object with its ``name``, ``n_nodes``, ``horizon_s``,
-    ``period_s``, ``closed_form`` and ``processes`` fields); `strategies`
-    defaults to every name in the strategy registry. Returns
-    {strategy: {"total_s", "source", "survived"}} with source
-    "closed_form". ``micro`` defaults to ``measure_micro(profile_name,
-    n_nodes=spec.n_nodes)``, which is what the reference's default
-    ``analytic`` workload passes."""
-    if isinstance(scenario, str):
-        raise NotImplementedError(
-            f"scenario {scenario!r} by name: the scenario registry is not ported yet "
-            "(ROADMAP Queue 1, item 7); pass a ScenarioSpec"
-        )
-    spec = scenario
+    `scenario` is a ScenarioSpec or a registered scenario name;
+    `strategies` defaults to every name in the strategy registry. Returns
+    {strategy: {"total_s", "source", "survived", ...}} where source is
+    "closed_form" for the paper-reducible specs and "engine" otherwise.
+
+    ``workload`` (a registered name or :class:`~repro_torch.workloads.base.
+    Workload` instance; default: the spec's declared workload, then
+    ``"analytic"``) supplies the micro-costs when none are given — the
+    ``analytic`` workload reduces to the seed ``measure_micro`` call
+    bit-for-bit, calibrated workloads price the same campaign from their
+    own cost surfaces. ``device`` is where a workload or detector resolved
+    from a name computes (the card unless the caller asks for the CPU)."""
+    from repro_torch.scenarios import registry  # lazy: avoid import cycle
+    from repro_torch.scenarios.engine import CampaignEngine
+    from repro_torch.workloads import resolve as resolve_workload
+
+    spec = registry.get(scenario) if isinstance(scenario, str) else scenario
     strategies = (
         tuple(strategy_names())
         if strategies is None
         else tuple(get_strategy_class(s).name for s in strategies)  # aliases ok
     )
-    micro = micro or measure_micro(profile_name, n_nodes=spec.n_nodes)
+    workload = resolve_workload(workload, spec, device=device)
+    micro = micro or workload.micro(profile_name, n_nodes=spec.n_nodes)
     out: Dict[str, Dict] = {}
 
     proc = next(
@@ -333,7 +337,7 @@ def scenario_totals(
     per_window = int(proc.params.get("per_window", 1)) if proc else 1
     # the published tables only price 1 failure/window (both kinds) and 5
     # random failures/window; anything else has no exact closed form ->
-    # the campaign engine
+    # execute through the engine
     closed_form_ok = (
         spec.closed_form in ("periodic", "random")
         and len(spec.processes) == 1  # extra processes have no table column
@@ -374,7 +378,17 @@ def scenario_totals(
             }
         return out
 
-    raise NotImplementedError(
-        f"scenario {spec.name!r} has no closed form; the campaign engine that "
-        "executes it is not ported yet (ROADMAP Queue 1, item 7)"
-    )
+    for strat in strategies:
+        res = CampaignEngine(
+            spec, approach=strat, profile=profile_name, micro=micro, workload=workload,
+            device=device,
+        ).run()
+        out[strat] = {
+            "total_s": res.total_s,
+            "source": "engine",
+            "survived": res.survived,
+            "failed_at_s": res.failed_at_s,
+            "n_events": res.n_events,
+            "n_migrations": res.n_migrations,
+        }
+    return out

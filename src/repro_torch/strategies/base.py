@@ -61,8 +61,8 @@ class StrategyCosts:
 @dataclass(frozen=True)
 class StrategyCostTable:
     """Vectorised (structure-of-arrays-ready) form of :class:`StrategyCosts`
-    for the batched trajectory replay kernel
-    (the reference's ``repro.scenarios.trajectory``; its port waits).
+    for the batched trajectory replay fold
+    (:mod:`repro_torch.scenarios.trajectory`).
 
     Where :class:`StrategyCosts` is one closed-form per-failure record,
     this table carries every coefficient the replay kernel may need to
@@ -209,7 +209,7 @@ class FaultToleranceStrategy(ABC):
 
     def cost_table(self, ctx: CostContext) -> StrategyCostTable:
         """Batched per-event cost coefficients for the trajectory replay
-        kernel (the reference's ``repro.scenarios.trajectory``).
+        fold (:mod:`repro_torch.scenarios.trajectory`).
 
         The default reduces the scalar :meth:`costs` record: reactive
         strategies bill window-clock losses, proactive ones bill the same

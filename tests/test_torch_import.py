@@ -46,6 +46,23 @@ PAPER_MODULES = (
 )
 
 
+# the campaign path (telemetry, workloads, scenarios, the replay fold,
+# Monte-Carlo, metric frames, arrivals, straggler handling)
+CAMPAIGN_MODULES = (
+    "repro_torch.core.straggler",
+    "repro_torch.launch.campaign",
+    "repro_torch.obs", "repro_torch.obs.metrics",
+    "repro_torch.scenarios", "repro_torch.scenarios.engine", "repro_torch.scenarios.montecarlo",
+    "repro_torch.scenarios.registry", "repro_torch.scenarios.spec",
+    "repro_torch.scenarios.trajectory",
+    "repro_torch.telemetry", "repro_torch.telemetry.builtin", "repro_torch.telemetry.detector",
+    "repro_torch.telemetry.frame", "repro_torch.telemetry.registry",
+    "repro_torch.traffic", "repro_torch.traffic.arrivals",
+    "repro_torch.workloads", "repro_torch.workloads.base", "repro_torch.workloads.builtin",
+    "repro_torch.workloads.registry",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -59,13 +76,28 @@ def import_all():
 
 def test_import_every_module_loads_no_jax(import_all):
     n_modules, _ = import_all
-    assert n_modules >= 15 + len(PAPER_MODULES)
+    assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES)
 
 
 @pytest.mark.parametrize("module", PAPER_MODULES)
 def test_paper_module_imported_without_jax(module, import_all):
     """Each module of the paper's path is among those the no-jax import loads."""
     assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", CAMPAIGN_MODULES)
+def test_campaign_module_imported_without_jax(module, import_all):
+    """Each module of the campaign path is among those the no-jax import loads."""
+    assert module in import_all[1]
+
+
+def test_cold_telemetry_import_is_not_circular():
+    """``import repro_torch.telemetry`` works first thing in an interpreter
+    (the reference's needs ``repro.core`` imported before it)."""
+    res = subprocess.run([sys.executable, "-c", "import repro_torch.telemetry"], cwd=REPO,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(REPO / "src"), "PATH": ""}, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def _forbidden(name: str) -> bool:

@@ -356,8 +356,11 @@ def test_scenario_totals_closed_form_bitwise(scenario, micro):
     spec = r_scenarios.get(scenario)
     want = r_sim.scenario_totals(spec, micro=r_micro)
     assert t_sim.scenario_totals(spec, micro=t_micro) == want
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        t_sim.scenario_totals(r_scenarios.get("rack_outage"), micro=t_micro)
+    # a scenario without a closed form runs through the campaign engine,
+    # given by name as well
+    got = t_sim.scenario_totals("rack_outage", micro=t_micro, device="cpu")
+    assert got == r_sim.scenario_totals("rack_outage", micro=r_micro)
+    assert {v["source"] for v in got.values()} == {"engine"}
 
 
 # ------------------------------------------------------------- Tables 1-2 ---
