@@ -93,6 +93,14 @@ class ShapeCfg:
     kind: str  # train | prefill | decode
 
 
+SHAPES: Dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

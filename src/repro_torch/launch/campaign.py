@@ -16,14 +16,17 @@ For each scenario family and strategy asked for:
    ``CampaignEngine`` and must equal the replay: counters exactly, costs
    within ``rel=1e-9, abs=1e-6``, totals within ``rel=1e-9`` and failure
    times within ``rel=1e-12`` (the tolerances of the reference's
-   ``tests/test_trajectory.py``).
+   ``tests/test_trajectory.py``); a family that declares traffic is
+   billed for request-level SLOs too, and its four SLO numbers (p50, p99,
+   dropped, availability) must equal the engine's bit for bit.
 
 Prints the replay's seconds and seeds/s and the engine's seconds per
-trial. ``--scenario all`` runs every registered family whose workload the
-port has; ``llm_pretrain_storm`` and ``decode_fleet_churn`` price through
-the LLM workloads and SLO billing (ROADMAP Queue 1, item 8): asked for by
-name they raise, and ``all`` lists them as waiting. ``--json`` makes the
-last line one JSON object. Exits 1 when a check fails.
+trial, and for a family with traffic the cross-seed SLO summary (mean p50
+and p99 seconds, mean dropped requests, mean and least availability).
+``--scenario all`` runs all 17 registered families, the two LLM families
+(``llm_pretrain_storm``, ``decode_fleet_churn``) among them, priced on
+the port's device record (``roofline.analysis.H100_SXM``). ``--json``
+makes the last line one JSON object. Exits 1 when a check fails.
 """
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ from repro_torch.scenarios.montecarlo import mc_trajectories
 from repro_torch.scenarios.trajectory import compile_batch
 from repro_torch.strategies import registry as strategies
 from repro_torch.utils.device import resolve_device
-from repro_torch.workloads import registry as workloads
 
 COUNTERS = ("n_events", "n_handled", "n_migrations", "n_blacklisted", "n_reprovisioned")
 COSTS = ("lost_s", "reinstate_s", "overhead_s", "probe_s")
+SLO = ("slo_p50_s", "slo_p99_s", "slo_dropped", "slo_availability")
 
 
 def _close(got: float, want: float, rel: float, abs_: float = 1e-12) -> bool:
@@ -56,7 +59,8 @@ def _close(got: float, want: float, rel: float, abs_: float = 1e-12) -> bool:
 def trial_mismatches(out: Dict[str, np.ndarray], k: int, res) -> List[str]:
     """The fields where replay trial ``k`` differs from the engine's
     :class:`CampaignResult` ``res`` beyond the reference tests' tolerances
-    (empty when they agree)."""
+    (empty when they agree). SLO bills, where the replay has them, must
+    be bitwise equal (NaN equal to NaN)."""
     bad = []
     if bool(out["survived"][k]) != res.survived:
         return ["survived"]
@@ -72,15 +76,12 @@ def trial_mismatches(out: Dict[str, np.ndarray], k: int, res) -> List[str]:
             bad.append("total_s")
         if not _close(float(out["failed_at_s"][k]), res.failed_at_s, 1e-12):
             bad.append("failed_at_s")
+    for f in SLO:
+        if f in out:
+            got, want = float(out[f][k]), getattr(res, f)
+            if not (got == want or (math.isnan(got) and want is not None and math.isnan(want))):
+                bad.append(f)
     return bad
-
-
-def runnable_families() -> List[str]:
-    """Registered families whose workload the port has and that declare
-    no traffic (the others wait for ROADMAP Queue 1, item 8)."""
-    have = set(workloads.names())
-    return [n for n in scenarios.names()
-            if scenarios.get(n).workload in have and scenarios.get(n).traffic is None]
 
 
 def run_one(family: str, strategy: str, n_seeds: int, *, detector="oracle", workload=None,
@@ -127,6 +128,7 @@ def run_one(family: str, strategy: str, n_seeds: int, *, detector="oracle", work
         "seeds_per_s": n_seeds / replay_s,
         "checked": n_check,
         "engine_s_per_trial": engine_s / n_check if n_check else None,
+        "slo": mc.get("slo"),
         "mismatches": mismatches,
         "ok": not mismatches,
     }
@@ -148,12 +150,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = ap.parse_args(argv)
     resolve_device(args.device)  # raises before any work without a card
 
-    waiting: List[str] = []
-    if args.scenario == "all":
-        families = runnable_families()
-        waiting = [n for n in scenarios.names() if n not in families]
-    else:
-        families = [args.scenario]
+    families = scenarios.names() if args.scenario == "all" else [args.scenario]
     names = strategies.names() if args.strategy == "all" else [args.strategy]
 
     cells = []
@@ -169,13 +166,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"{r['p95_s']:.3f} s; replay {r['replay_s']:.4f} s ({r['seeds_per_s']:.1f} "
                   f"seeds/s); engine {r['engine_s_per_trial']:.4f} s/trial; {r['checked']} "
                   f"trials checked: {'equal' if r['ok'] else r['mismatches']}")
-    if waiting:
-        print(f"waiting for the LLM workloads and SLO billing (ROADMAP Queue 1, item 8): "
-              f"{', '.join(waiting)}")
+            slo = r["slo"]
+            if slo is not None:
+                lat = lambda v: "nan" if v is None else f"{v['mean']:.6f}"
+                # billed under the traffic spec's autoscaler: the launcher passes none
+                policy = scenarios.get(family).traffic.autoscaler
+                print(f"{'':18s} {'':15s} SLO under {policy}: p50 "
+                      f"{lat(slo['p50_s'])} s, p99 {lat(slo['p99_s'])} s, dropped "
+                      f"{slo['dropped_mean']:.3f}, availability {slo['availability_mean']:.6f} "
+                      f"(least {slo['availability_min']:.6f})")
     ok = all(r["ok"] for r in cells)
     print("OK" if ok else "FAIL")
     if args.json:
-        print(json.dumps({"cells": cells, "waiting": waiting, "ok": ok}))
+        print(json.dumps({"cells": cells, "ok": ok}))
     return 0 if ok else 1
 
 

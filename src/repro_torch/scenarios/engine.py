@@ -65,10 +65,10 @@ byte-identical to the pre-workload-API engine.
 The engine runs on the host. ``device`` says where the detector and the
 workload it resolves from names compute (the ``ml`` detector trains its
 predictor there, ``genome_search`` times its search there): the card
-unless the caller asks for the CPU. The reference's structured trace
-(``trace=True``) and its request-level SLO billing (a spec that declares
-``traffic``) are a later slice of the port (ROADMAP Queue 1, item 8): both
-raise ``NotImplementedError``.
+unless the caller asks for the CPU. With ``trace=True`` it records the
+structured event timeline (:mod:`repro_torch.obs.trace`); a spec that
+declares ``traffic`` is also billed for request-level SLOs
+(:func:`repro_torch.traffic.slo.bill_slo`, host numpy).
 """
 from __future__ import annotations
 
@@ -116,15 +116,16 @@ class CampaignResult:
     detector: str = "oracle"
     workload: str = "analytic"
     # request-level SLO billing (populated only when the spec declares a
-    # traffic model: a later slice of the port, so never populated here)
+    # traffic model; repro_torch.traffic.slo.bill_slo on both billing paths)
     autoscaler: Optional[str] = None
     slo_p50_s: Optional[float] = None
     slo_p99_s: Optional[float] = None
     slo_dropped: Optional[float] = None
     slo_availability: Optional[float] = None
     events: List[Dict] = field(default_factory=list)
-    # the reference's trace=True timeline: a later slice of the port
-    trace: Optional[object] = None
+    # populated only when the engine ran with trace=True; never serialised
+    # by to_dict, so campaign records stay byte-identical
+    trace: Optional[object] = None  # repro_torch.obs.trace.CampaignTrace
 
     def to_dict(self) -> Dict:
         d = {
@@ -178,16 +179,6 @@ class CampaignEngine:
         trace: bool = False,
         device: str = "cuda",
     ):
-        if trace:
-            raise NotImplementedError(
-                "CampaignEngine(trace=True): the structured trace needs obs/trace, "
-                "not ported yet (ROADMAP Queue 1, item 8)"
-            )
-        if spec.traffic is not None:
-            raise NotImplementedError(
-                f"scenario {spec.name!r} declares traffic: SLO billing needs "
-                "traffic/slo, not ported yet (ROADMAP Queue 1, item 8)"
-            )
         try:
             cls = strategy_registry.get_class(approach)
         except KeyError:
@@ -210,9 +201,11 @@ class CampaignEngine:
         # which events count as predicted is the detector's call — the
         # oracle default reproduces the ev.predictable branch bit-for-bit
         self.detector = resolve_detector(detector, device)
-        # capacity policy for request-level SLO billing (kept for the
-        # reference's signature; a spec with traffic raises above)
+        # capacity policy for request-level SLO billing (a repro_torch.traffic
+        # registry name; None -> the traffic spec's declared default)
         self.autoscaler = autoscaler
+        # structured event timeline (repro_torch.obs): opt-in, zero overhead off
+        self.trace = bool(trace)
 
     # ------------------------------------------------------------------
     def _build(self) -> ClusterRuntime:
@@ -254,6 +247,12 @@ class CampaignEngine:
             seed=self.seed,
         )
         oracle = self.detector.name == "oracle"
+        # tracing off -> rec_ is None and every emit site is a single `if`
+        rec_ = None
+        if self.trace:
+            from repro_torch.obs.trace import TraceRecorder
+
+            rec_ = TraceRecorder()
 
         strikes: Dict[int, int] = {}
         pending: Dict[int, float] = {}  # host -> repair completion time
@@ -301,6 +300,8 @@ class CampaignEngine:
                     del pending[h]
                     if rt.provision_spare(h):
                         res.n_reprovisioned += 1
+                        if rec_ is not None:  # timestamped at completion
+                            rec_.emit(tr, "provision", node=h)
 
             # cascade children chase the host their parent's sub-job
             # migrated to — and only exist if it migrated at all
@@ -323,6 +324,8 @@ class CampaignEngine:
                 cause=tape.causes[j],
                 during_checkpoint=bool(tape.during_ckpt[j]),
             )
+            if rec_ is not None:
+                rec_.emit(t, "failure", node=host, cause=ev.cause, predictable=ev.predictable)
             strikes[host] = strikes.get(host, 0) + 1
             permanent = spec.repair_s is None or strikes[host] >= spec.max_strikes
 
@@ -343,6 +346,8 @@ class CampaignEngine:
                     res.events.append(
                         {"t": float(t), "node": host, "cause": ev.cause, "outcome": "stranded"}
                     )
+                    if rec_ is not None:
+                        rec_.emit(t, "stranded", node=host)
                     break
                 # the detector's verdict — not the oracle bit — decides
                 # whether the strategy ACTS on a lead window; but a lead
@@ -382,10 +387,24 @@ class CampaignEngine:
                 if not oracle:  # ground truth vs the detector's claim
                     rec["predicted"] = predicted
                 res.events.append(rec)
+                if rec_ is not None:
+                    rec_.emit(
+                        t,
+                        "verdict",
+                        node=host,
+                        detector=self.detector.name,
+                        predicted=predicted,
+                        saved=bool(saved and strat.proactive),
+                    )
+                    rec_.emit(
+                        t, "migrate", node=host, target=int(out.new_host), outcome=out.outcome
+                    )
 
             rt.fail(host, permanent=permanent)
             if permanent:
                 res.n_blacklisted += 1
+                if rec_ is not None:
+                    rec_.emit(t, "blacklist", node=host)
             elif spec.repair_s is not None:
                 pending[host] = t + float(tape.repair_draws[draw_i])
                 draw_i += 1
@@ -396,6 +415,8 @@ class CampaignEngine:
             for h, tr in sorted(pending.items(), key=lambda kv: (kv[1], kv[0])):
                 if tr < spec.horizon_s and rt.provision_spare(h):
                     res.n_reprovisioned += 1
+                    if rec_ is not None:
+                        rec_.emit(tr, "provision", node=h)
 
         # background probing accrues only while the campaign is running —
         # a lost campaign stops probing at failed_at_s
@@ -418,4 +439,53 @@ class CampaignEngine:
                 + res.slowdown_s
             )
 
+        # request-level SLO billing: one shared deterministic function of
+        # the compiled tape + verdicts, so the replay fold's per-seed
+        # bill is bitwise identical (the degrade_slowdown_s idiom)
+        if spec.traffic is not None:
+            from repro_torch.core.rules import SD_THRESHOLD_BYTES
+            from repro_torch.scenarios.trajectory import _payload_bytes
+            from repro_torch.strategies.base import CostContext
+            from repro_torch.traffic.slo import bill_slo
+
+            bill = bill_slo(
+                spec,
+                times=tape.times,
+                victim=tape.victim,
+                parent=tape.parent,
+                predictable=tape.predictable,
+                verdicts=np.asarray(verdicts, bool),
+                draws=tape.repair_draws,
+                table=strat.cost_table(
+                    CostContext(micro=self.micro, period_h=spec.period_s / 3600.0)
+                ),
+                wtable=self.workload.cost_table(self.profile, n_nodes=spec.n_nodes),
+                seed=self.seed,
+                autoscaler=self.autoscaler,
+                rules_agent_small=_payload_bytes(self.payload_elems)
+                <= SD_THRESHOLD_BYTES,
+            )
+            res.autoscaler = bill.autoscaler
+            res.slo_p50_s = bill.p50_s
+            res.slo_p99_s = bill.p99_s
+            res.slo_dropped = bill.dropped
+            res.slo_availability = bill.availability
+
+        if rec_ is not None:
+            from repro_torch.strategies.base import CostContext
+
+            table = strat.cost_table(
+                CostContext(micro=self.micro, period_h=spec.period_s / 3600.0)
+            )
+            res.trace = rec_.finalize(
+                spec,
+                approach=self.approach,
+                seed=self.seed,
+                detector=self.detector.name,
+                workload=self.workload.name,
+                survived=res.survived,
+                failed_at_s=res.failed_at_s,
+                mode_window=table.mode == "window",
+                flags_stragglers=self.detector.flags_stragglers,
+            )
         return res

@@ -277,9 +277,11 @@ def mc_trajectories(
     distribution (:func:`repro_torch.obs.metrics.aggregate_frames` over
     per-campaign :class:`~repro_torch.obs.metrics.MetricFrame` decompositions)
     — p5/p50/p95 per component for this (family × strategy × workload ×
-    detector) cell, each frame summing to its billed total exactly. A
-    scenario that declares a traffic spec raises: its SLO billing is a
-    later slice of the port (ROADMAP Queue 1, item 8)."""
+    detector) cell, each frame summing to its billed total exactly. When
+    the scenario declares a traffic spec, an ``"slo"`` block
+    (:func:`repro_torch.obs.metrics.aggregate_slo`) summarises the
+    request-level p50/p99 latency, drop, and availability bills across
+    seeds, under the ``autoscaler`` the trials were billed with."""
     from repro_torch.obs.metrics import aggregate_frames, aggregate_slo, frames_from_replay
     from repro_torch.scenarios import registry
     from repro_torch.scenarios.trajectory import compile_batch, replay_batch

@@ -771,14 +771,14 @@ def _default_micro(workload, profile: str, n_nodes: int):
 
 
 def default_seed_devices(n_seeds: int) -> int:
-    """Largest CUDA device count that divides the seed axis evenly — the
-    default split for :func:`replay_batch` on the card (1 without a card).
-    Splitting never changes results (per-seed work is independent), only
-    placement."""
-    d = int(torch.cuda.device_count()) if torch.cuda.is_available() else 1
-    while d > 1 and n_seeds % d:
-        d -= 1
-    return max(d, 1)
+    """The default seed split for :func:`replay_batch`: one device.
+
+    The reference splits inside one ``shard_map`` program; here each card's
+    chunk is issued in turn from one host thread, and the fold is bound by
+    its launches, so a split multiplies the launches and buys memory, not
+    time. A caller that needs the memory passes ``n_devices``. Splitting
+    never changes results (per-seed work is independent), only placement."""
+    return 1
 
 
 def _resolve_program(
@@ -807,11 +807,6 @@ def _resolve_program(
     from repro_torch.workloads import resolve as resolve_workload
 
     dev = resolve_device(device)
-    if getattr(spec, "traffic", None) is not None:
-        raise NotImplementedError(
-            f"scenario {spec.name!r} declares traffic: SLO billing needs traffic/slo, "
-            "not ported yet (ROADMAP Queue 1, item 8)"
-        )
     if isinstance(strategy, FaultToleranceStrategy):
         strat = strategy
     else:
@@ -877,7 +872,7 @@ def _resolve_program(
         tape["comp"] = padded(batch.part_comp, -1)
 
     if n_devices is None:
-        n_devices = default_seed_devices(batch.n_seeds) if dev.type == "cuda" else 1
+        n_devices = default_seed_devices(batch.n_seeds)
     n_devices = max(1, int(n_devices))
     if dev.type == "cuda":
         first = 0 if dev.index is None else dev.index
@@ -1005,14 +1000,18 @@ def replay_batch(
     ``tile_slots`` sets how many slots of the tape are staged onto the
     device at a time (the slot axis is padded to a multiple) and
     ``n_devices`` the number of cards the seed axis is split over
-    (default: the largest CUDA device count that divides it, see
-    :func:`default_seed_devices`; 1 on the CPU, where any count runs its
-    chunks in turn). Both are pure execution-shape knobs: results are
-    bit-identical across every tile size and device count.
+    (default 1, see :func:`default_seed_devices`; on the CPU any count
+    runs its chunks in turn). Both are pure execution-shape knobs: results
+    are bit-identical across every tile size and device count.
 
-    ``autoscaler`` is kept for the reference's signature: it applies only
-    to a spec that declares traffic, which raises (ROADMAP Queue 1, item
-    8)."""
+    A spec that declares traffic is also billed for request-level SLOs
+    (``slo_p50_s`` / ``slo_p99_s`` / ``slo_dropped`` /
+    ``slo_availability``, one float64 per seed) under ``autoscaler`` (a
+    :mod:`repro_torch.traffic` name or instance; None for the traffic
+    spec's default), by the same host function and on the same inputs as
+    :class:`~repro_torch.scenarios.engine.CampaignEngine`: each seed's
+    valid-prefix slice of the host tape and its verdict tape, so the four
+    numbers equal the engine's bit for bit."""
     from repro_torch.scenarios.spec import degrade_slowdown_s
 
     fn, args, det, verdicts, ctx = _resolve_program(
@@ -1044,6 +1043,46 @@ def replay_batch(
     if slow:
         out["total_s"] = out["total_s"] + slow
     out["slowdown_s"] = np.full(batch.n_seeds, slow, np.float64)
+
+    # request-level SLO billing: the identical shared deterministic
+    # function (and identical inputs — valid-prefix tape slices + the
+    # per-seed verdict tapes, host numpy) the engine calls, so the four
+    # SLO arrays are trial-for-trial bitwise equal to CampaignEngine's fields
+    if getattr(spec, "traffic", None) is not None:
+        from repro_torch.traffic.slo import bill_slo
+        from repro_torch.workloads import resolve as resolve_workload
+
+        wtable = resolve_workload(workload, spec, device=device).cost_table(
+            profile, n_nodes=spec.n_nodes
+        )
+        S = batch.n_seeds
+        slo = {
+            "slo_p50_s": np.empty(S, np.float64),
+            "slo_p99_s": np.empty(S, np.float64),
+            "slo_dropped": np.empty(S, np.float64),
+            "slo_availability": np.empty(S, np.float64),
+        }
+        for s in range(S):
+            m = batch.valid[s]
+            bill = bill_slo(
+                spec,
+                times=batch.times[s][m],
+                victim=batch.victim[s][m],
+                parent=batch.parent[s][m],
+                predictable=batch.predictable[s][m],
+                verdicts=verdicts[s][m],
+                draws=batch.repair_draws[s][m],
+                table=ctx["table"],
+                wtable=wtable,
+                seed=int(batch.seeds[s]),
+                autoscaler=autoscaler,
+                rules_agent_small=ctx["rules_agent_small"],
+            )
+            slo["slo_p50_s"][s] = bill.p50_s
+            slo["slo_p99_s"][s] = bill.p99_s
+            slo["slo_dropped"][s] = bill.dropped
+            slo["slo_availability"][s] = bill.availability
+        out.update(slo)
 
     if record_slots:
         out["slot_verdict"] = verdicts

@@ -13,9 +13,9 @@ tapes' repair draws (``default_rng((seed, STREAM))`` consumed in
 interval order), so the reference engine and the batched replay path
 bill the identical arrivals by construction.
 
-Everything here is plain numpy — the SLO fold (``traffic/slo.py``, a
-later slice of the port) is host-side accounting on both the engine and
-replay paths, so the tape never reaches the device.
+Everything here is plain numpy — the SLO fold in :mod:`repro_torch.traffic.slo`
+is host-side accounting on both the engine and replay paths, so the tape
+never reaches the device.
 """
 from __future__ import annotations
 
@@ -52,8 +52,7 @@ class TrafficSpec:
     the SLO queue fold; ``queue_wait_cap_s`` is the admission bound —
     requests that would wait longer than this are dropped (shed) rather
     than queued. ``autoscaler`` names the default capacity policy from
-    the autoscaler registry (``traffic/registry.py``, a later slice of the
-    port; campaign calls may override it).
+    :mod:`repro_torch.traffic.registry` (campaign calls may override it).
     """
 
     base_rps: float = 100.0

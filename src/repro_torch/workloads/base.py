@@ -167,14 +167,18 @@ class Workload(ABC):
         )
 
     def measured_step_surface(self, n_shards: Tuple[int, ...] = (1, 2, 4), **shape):
-        """The *measured* step-time surface of the workload's kernel hot
-        path (the reference times its flash-decode / flash-attention
-        kernels per shard count). It needs the port's profiling module and
-        the LLM workloads, a later slice."""
-        raise NotImplementedError(
-            f"{self.name}: measured step surfaces wait for obs/profile and the LLM "
-            "workloads (ROADMAP Queue 1, item 8)"
-        )
+        """The *measured* wall-clock step-time surface for this workload's
+        kernel hot path, per shard count — the empirical sibling of the
+        analytic ``cost_table().step_time_s`` tuple. Routed through
+        :func:`repro_torch.obs.profile.kernel_step_surface`:
+        ``serve_decode`` times the CUDA flash-decode kernel, ``train_llm``
+        the CUDA flash-attention kernel; workloads with no kernel hot path
+        return ``None``. ``shape`` may name the ``device`` (the card unless
+        the caller asks for the CPU, where the plain versions run); the
+        backend and whether the kernel ran travel with the numbers."""
+        from repro_torch.obs.profile import kernel_step_surface
+
+        return kernel_step_surface(self.name, n_shards=n_shards, **shape)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<{type(self).__name__} {self.name!r}>"

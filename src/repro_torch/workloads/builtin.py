@@ -1,6 +1,6 @@
 """The built-in workload models.
 
-Two registrations — the matrix rows of the benchmark's per-workload
+Four registrations — the matrix rows of the benchmark's per-workload
 overhead report, in registration order:
 
 ``analytic``
@@ -20,16 +20,31 @@ overhead report, in registration order:
     partial hit table — which is what actually moves, and is orders of
     magnitude smaller.
 
-The reference's ``train_llm`` and ``serve_decode`` price from the
-roofline and the measured kernel surfaces, a later slice of the port
-(ROADMAP Queue 1, item 8): :mod:`repro_torch.workloads.registry` raises
-a ``KeyError`` that says so for either name.
+``train_llm``
+    LLM pre-training: step time from the three-term roofline
+    (:mod:`repro_torch.roofline.analysis`) over a ``configs/``
+    architecture at the ``train_4k`` shape; recovery state is the full
+    training state (f32 params + AdamW moments) sharded over the fleet —
+    the state-heavy extreme, where checkpoint writes dwarf everything.
+
+``serve_decode``
+    autoregressive decoding behind the decode-attention kernel path: the
+    per-shard state is only the KV cache slice (small), but every lost
+    shard forces a cache rebuild/rebalance while latency-critical
+    traffic waits — the small-state / high-rebalance-sensitivity extreme
+    where the paper's ordering can invert (checkpointing a few dozen MB
+    is cheaper than continuously probing for migration).
+
+Both LLM workloads price on a device record (``hw=``, default
+:data:`~repro_torch.roofline.analysis.H100_SXM`): the simulated fleet is
+made of that device, so the port's default numbers for them differ from
+the reference's, which prices on its own record.
 """
 from __future__ import annotations
 
 import time
 from functools import lru_cache
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.configs.paper_genome import CONFIG as GENOME_CFG
 from repro_torch.workloads.base import (
@@ -157,4 +172,160 @@ class GenomeSearchWorkload(Workload):
             n_shards=n_grid,
             step_time_s=tuple(step),
             **_transfer_surfaces(prof, s_d, n_grid),
+        )
+
+
+# ------------------------------------------------------------ train llm ---
+@lru_cache(maxsize=None)
+def _arch_params(arch: str) -> float:
+    from repro_torch.configs import get_arch
+    from repro_torch.roofline.analysis import param_count
+
+    return param_count(get_arch(arch))["total"]
+
+
+class _RooflineWorkload(Workload):
+    """An LLM workload priced on one device record, ``hw`` (default
+    :data:`~repro_torch.roofline.analysis.H100_SXM`). Two instances are
+    equal, and hash alike, when their sizing and their record are: a record
+    is part of what the cost table is a function of."""
+
+    def __init__(self, hw=None):
+        from repro_torch.roofline.analysis import H100_SXM
+
+        self.hw = H100_SXM if hw is None else hw
+
+    def _key(self):
+        raise NotImplementedError
+
+    def __eq__(self, other):
+        return type(other) is type(self) and other._key() == self._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+
+@register("train_llm", aliases=("train",))
+class TrainLLMWorkload(_RooflineWorkload):
+    """LLM pre-training priced from the roofline over a real config.
+
+    Step time is the three-term roofline lower bound of one data-parallel
+    training step on ``hw`` (compute = 6·N·tokens, memory = one pass over
+    the training state + bf16 grads, collective = ring grad all-reduce);
+    recovery state is the training state dict — f32 params plus AdamW
+    first/second moments — sharded over the fleet. Z couples the whole
+    fleet (a synchronous all-reduce stalls on any lost member)."""
+
+    description = "data-parallel LLM pre-training (roofline-derived costs)"
+
+    def __init__(self, arch: str = "gemma-2b", shape: str = "train_4k", hw=None):
+        super().__init__(hw)
+        self.arch = arch
+        self.shape = shape
+
+    def _key(self):
+        return (self.arch, self.shape, self.hw)
+
+    def _step_surface(self, n_grid: Tuple[int, ...]) -> Tuple[float, ...]:
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.base import SHAPES
+        from repro_torch.roofline.analysis import model_flops, roofline_terms
+
+        cfg = get_arch(self.arch)
+        shape = SHAPES[self.shape]
+        n_params = _arch_params(self.arch)
+        flops = model_flops(cfg, shape)
+        state_bytes = n_params * 4 * 3  # f32 params + adamw m/v
+        out = []
+        for n in n_grid:
+            coll = 0.0 if n == 1 else 2.0 * (n - 1) / n * (2.0 * n_params / n)
+            t = roofline_terms(
+                flops / n, (state_bytes + 2.0 * n_params) / n, coll, self.hw
+            )
+            out.append(t["step_lower_bound_s"])
+        return tuple(out)
+
+    def cost_table(
+        self, profile: str = "placentia", n_nodes: int = 4
+    ) -> WorkloadCostTable:
+        prof = _profile(profile)
+        state_bytes = int(_arch_params(self.arch)) * 4 * 3
+        per_shard = max(state_bytes // max(n_nodes, 1), 1)
+        return WorkloadCostTable(
+            workload=self.name,
+            z=max(GENOME_CFG.z_dependencies, n_nodes),  # all-reduce coupling
+            state_bytes_per_shard=per_shard,
+            payload_bytes=per_shard,
+            n_shards=DEFAULT_SHARD_GRID,
+            step_time_s=self._step_surface(DEFAULT_SHARD_GRID),
+            **_transfer_surfaces(prof, per_shard, DEFAULT_SHARD_GRID),
+        )
+
+
+# ---------------------------------------------------------- serve decode ---
+@register("serve_decode", aliases=("serve",))
+class ServeDecodeWorkload(_RooflineWorkload):
+    """Autoregressive decoding over the decode-attention kernel path.
+
+    Per-shard recovery state is only its KV-cache slice — bf16
+    ``2 · n_kv_heads · head_dim`` bytes per token per layer, the exact
+    tensor ``kernels/decode_attention.py`` streams — so checkpoints are
+    tiny; but the workload is rebalance-sensitive: a lost shard's
+    sessions re-prefill on the survivors while decode traffic waits,
+    billed in the rebalance surface. Z stays small (router → replica).
+    Step times are roofline bounds on ``hw``."""
+
+    description = "KV-cache decode serving (small state, rebalance-sensitive)"
+
+    def __init__(self, arch: str = "gemma-2b", batch: int = 8, seq_len: int = 2048, hw=None):
+        super().__init__(hw)
+        self.arch = arch
+        self.batch = batch
+        self.seq_len = seq_len
+
+    def _key(self):
+        return (self.arch, self.batch, self.seq_len, self.hw)
+
+    def _cache_bytes(self) -> int:
+        from repro_torch.configs import get_arch
+
+        cfg = get_arch(self.arch)
+        if cfg.attn_free:  # recurrent archs: per-row state, no KV growth
+            per_row = cfg.n_layers * cfg.d_model * 4 * 2
+        else:
+            per_row = (
+                self.seq_len * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+            )
+        return int(self.batch * per_row)
+
+    def cost_table(
+        self, profile: str = "placentia", n_nodes: int = 4
+    ) -> WorkloadCostTable:
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.base import ShapeCfg
+        from repro_torch.roofline.analysis import model_flops, roofline_terms
+
+        prof = _profile(profile)
+        cfg = get_arch(self.arch)
+        cache = self._cache_bytes()
+        per_shard = max(cache // max(n_nodes, 1), 1)
+        n_params = _arch_params(self.arch)
+        shape = ShapeCfg("decode", self.seq_len, self.batch, "decode")
+        flops = model_flops(cfg, shape)
+        step = []
+        for n in DEFAULT_SHARD_GRID:
+            # one decode step: stream the cache slice + replicated params
+            # (the memory-bound regime the flash-decode kernel lives in),
+            # then gather one token row per shard
+            coll = 0.0 if n == 1 else self.batch * cfg.d_model * 2.0 * (n - 1) / n
+            t = roofline_terms(flops / n, cache / n + 2.0 * n_params, coll, self.hw)
+            step.append(t["step_lower_bound_s"])
+        return WorkloadCostTable(
+            workload=self.name,
+            z=2,
+            state_bytes_per_shard=per_shard,
+            payload_bytes=per_shard,
+            n_shards=DEFAULT_SHARD_GRID,
+            step_time_s=tuple(step),
+            **_transfer_surfaces(prof, per_shard, DEFAULT_SHARD_GRID),
         )

@@ -18,9 +18,6 @@ from typing import Dict, List, Type
 from repro_torch.workloads.base import Workload
 
 _REGISTRY: Dict[str, Type[Workload]] = {}
-#: the reference's LLM workloads (and their aliases): they price from the
-#: roofline and the measured kernel surfaces, a later slice of the port
-_NOT_PORTED = ("train_llm", "train", "serve_decode", "serve")
 _ALIASES: Dict[str, str] = {}
 _builtin_loaded = False
 
@@ -81,11 +78,6 @@ def get_class(name: str) -> Type[Workload]:
     try:
         return _REGISTRY[_ALIASES.get(name, name)]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise KeyError(
-                f"workload {name!r} is not ported yet: it needs roofline/ and "
-                "obs/profile (ROADMAP Queue 1, item 8)"
-            ) from None
         raise KeyError(
             f"unknown workload {name!r}; have {names()} (aliases: {sorted(_ALIASES)})"
         ) from None

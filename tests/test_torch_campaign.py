@@ -10,6 +10,7 @@ import torch
 import repro.core  # before repro.telemetry: a cold import of it is circular
 from repro.core import sim as r_sim
 from repro.core import straggler as r_straggler
+from repro.roofline import analysis as r_analysis
 from repro.scenarios import registry as r_scenarios
 from repro.scenarios.engine import CampaignEngine as REngine
 from repro.scenarios.spec import ScenarioSpec as RSpec
@@ -25,6 +26,7 @@ from repro_torch.core import sim as t_sim
 from repro_torch.core import straggler as t_straggler
 from repro_torch.launch import campaign as t_campaign
 from repro_torch.launch import genome as t_genome_launch
+from repro_torch.roofline import analysis as t_analysis
 from repro_torch.scenarios import registry as t_scenarios
 from repro_torch.scenarios.engine import CampaignEngine as TEngine
 from repro_torch.scenarios.spec import ScenarioSpec as TSpec
@@ -173,13 +175,17 @@ def test_degrade_slowdown_matches_reference(family, mitigate):
 
 # ------------------------------------------------------------- workloads ---
 def test_workload_registry_and_the_llm_workloads_raise():
-    assert t_workloads.names() == ["analytic", "genome_search"]
-    assert [n for n in r_workloads.names() if n in t_workloads.names()] == t_workloads.names()
+    """Every reference workload is registered, in the reference's order; the
+    LLM workloads resolve (they raised until they were ported) and an
+    unknown name still raises."""
+    assert t_workloads.names() == r_workloads.names() == [
+        "analytic", "genome_search", "train_llm", "serve_decode"]
     assert t_workloads.get_class("paper").name == "analytic"
     assert t_workloads.get_class("genome").name == "genome_search"
-    for name in ("train_llm", "serve_decode", "train", "serve"):
-        with pytest.raises(KeyError, match="Queue 1, item 8"):
-            t_resolve_workload(name)
+    for name, canonical in (("train_llm", "train_llm"), ("train", "train_llm"),
+                            ("serve_decode", "serve_decode"), ("serve", "serve_decode")):
+        wl = t_resolve_workload(name, device="cpu")
+        assert wl.name == canonical and wl.hw == t_analysis.H100_SXM and wl.arch == "gemma-2b"
     with pytest.raises(KeyError, match="unknown workload"):
         t_workloads.get("voodoo")
     wl = t_resolve_workload(None, t_scenarios.get("genome_campaign"), device="cpu")
@@ -215,6 +221,51 @@ def test_cost_table_at_equals_np_interp():
         np.interp([1.0, 2.0], tied.numpy(), np.arange(4.0)).tolist()
 
 
+LLM_ARCHS = ("gemma-2b", "rwkv6-1.6b", "recurrentgemma-9b")
+
+
+@pytest.mark.parametrize("arch", LLM_ARCHS)
+def test_roofline_param_count_and_flops_match_reference(arch):
+    from repro.configs import SHAPES as R_SHAPES, get_arch as r_get_arch
+
+    from repro_torch.configs import SHAPES as T_SHAPES, get_arch as t_get_arch
+
+    assert {k: dataclasses.asdict(v) for k, v in T_SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in R_SHAPES.items()}
+    r_cfg, t_cfg = r_get_arch(arch), t_get_arch(arch)
+    assert t_analysis.param_count(t_cfg) == r_analysis.param_count(r_cfg)
+    for shape in R_SHAPES:
+        assert t_analysis.model_flops(t_cfg, T_SHAPES[shape]) == \
+            r_analysis.model_flops(r_cfg, R_SHAPES[shape])
+    hw = t_analysis.HW(**dataclasses.asdict(r_analysis.V5E))
+    for args in ((1e15, 2e10, 0.0), (3e12, 5e11, 4e9), (0.0, 0.0, 0.0)):
+        assert t_analysis.roofline_terms(*args, hw) == r_analysis.roofline_terms(*args)
+
+
+@pytest.mark.parametrize("n_nodes", [4, 8, 256])
+@pytest.mark.parametrize("workload", ["train_llm", "serve_decode"])
+def test_llm_cost_tables_bitwise_under_the_reference_record(workload, n_nodes):
+    """Under the reference's device record the LLM workloads' cost tables
+    are the reference's, bit for bit; the port's own record, the H100's,
+    changes the step surface and nothing else."""
+    hw = t_analysis.HW(**dataclasses.asdict(r_analysis.V5E))
+    for arch in LLM_ARCHS:
+        want = r_workloads.get(workload, arch=arch).cost_table("placentia", n_nodes=n_nodes)
+        got = t_workloads.get(workload, arch=arch, hw=hw).cost_table("placentia", n_nodes=n_nodes)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), (workload, arch)
+        h100 = t_workloads.get(workload, arch=arch).cost_table("placentia", n_nodes=n_nodes)
+        assert h100.step_time_s != want.step_time_s, (workload, arch)
+        assert dataclasses.asdict(dataclasses.replace(h100, step_time_s=want.step_time_s)) == \
+            dataclasses.asdict(want)
+        assert all(0 < a <= b for a, b in zip(h100.step_time_s, want.step_time_s))
+    assert r_analysis.V5E != t_analysis.H100_SXM  # no TPU record in the port
+    assert t_workloads.get(workload, hw=hw) == t_workloads.get(workload, hw=hw)
+    assert t_workloads.get(workload, hw=hw) != t_workloads.get(workload)
+    assert len({t_workloads.get(workload, hw=hw), t_workloads.get(workload, hw=hw)}) == 1
+    with pytest.raises(TypeError):
+        t_analysis.HW()  # the record carries no default peaks
+
+
 def test_genome_workload_calibrates_on_its_device():
     wl = t_resolve_workload("genome_search", device="cpu")
     table = wl.cost_table("placentia", n_nodes=4)
@@ -224,8 +275,7 @@ def test_genome_workload_calibrates_on_its_device():
     ref = r_workloads.get("genome_search").cost_table("placentia", n_nodes=4)
     assert (table.state_bytes_per_shard, table.ckpt_write_s) == \
         (ref.state_bytes_per_shard, ref.ckpt_write_s)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        wl.measured_step_surface()
+    assert wl.measured_step_surface() is None  # no kernel hot path
 
 
 # ------------------------------------------------------ spec and registry ---
@@ -285,13 +335,14 @@ def test_engine_records_match_reference_under_detectors(family, strategy, detect
 
 
 def test_engine_raises_for_what_waits_for_item_8():
+    """Nothing waits any more: the trace, the traffic families and the LLM
+    workloads run; an unknown approach still raises."""
     spec = t_scenarios.get("flaky_node")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        TEngine(spec, "core", trace=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        TEngine(t_scenarios.get("decode_fleet_churn"), "core", device="cpu")
-    with pytest.raises(KeyError, match="Queue 1, item 8"):
-        TEngine(t_scenarios.get("llm_pretrain_storm"), "core", device="cpu")
+    assert TEngine(spec, "core", trace=True, seed=0, device="cpu").run().trace.events
+    churn = TEngine(t_scenarios.get("decode_fleet_churn"), "core", seed=0, device="cpu").run()
+    assert churn.workload == "serve_decode" and 0.0 < churn.slo_availability <= 1.0
+    storm = TEngine(t_scenarios.get("llm_pretrain_storm"), "core", seed=0, device="cpu").run()
+    assert storm.workload == "train_llm" and storm.slo_p99_s is None
     with pytest.raises(ValueError, match="approach"):
         TEngine(spec, "voodoo", device="cpu")
 
@@ -316,12 +367,21 @@ def test_campaign_launcher_on_the_cpu(capsys):
     assert all(c["ok"] and c["checked"] == 4 and c["device"] == "cpu" for c in res["cells"])
 
 
-def test_campaign_launcher_lists_the_waiting_families():
-    assert [n for n in t_scenarios.names() if n not in t_campaign.runnable_families()] == \
-        sorted(LLM_FAMILIES)
-    for family in LLM_FAMILIES:
-        with pytest.raises((KeyError, NotImplementedError), match="Queue 1, item 8"):
-            t_campaign.run_one(family, "core", 2, device="cpu")
+def test_campaign_launcher_lists_the_waiting_families(capsys):
+    """``--scenario all`` runs all 17 families and lists none as waiting;
+    the traffic family prints its SLO line and equals the engine's bills."""
+    rc = t_campaign.main(["--device", "cpu", "--scenario", "all", "--strategy", "core",
+                          "--seeds", "2", "--check-seeds", "1", "--json"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "waiting" not in out
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])
+    assert [c["scenario"] for c in res["cells"]] == t_scenarios.names()
+    assert set(LLM_FAMILIES) <= {c["scenario"] for c in res["cells"]}
+    slo = {c["scenario"]: c["slo"] for c in res["cells"] if c["slo"] is not None}
+    assert list(slo) == ["decode_fleet_churn"] and slo["decode_fleet_churn"]["n_seeds"] == 2
+    assert "SLO under static" in out
 
 
 def test_campaign_launcher_without_cuda_raises(monkeypatch):

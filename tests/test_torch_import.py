@@ -63,6 +63,17 @@ CAMPAIGN_MODULES = (
 )
 
 
+# the paper's figures and the campaign's serving branch (SLO billing,
+# autoscalers, traces, profiling, the roofline the LLM workloads price on)
+SERVING_MODULES = (
+    "repro_torch.launch.figures",
+    "repro_torch.obs.export", "repro_torch.obs.profile", "repro_torch.obs.trace",
+    "repro_torch.roofline", "repro_torch.roofline.analysis",
+    "repro_torch.traffic.autoscale", "repro_torch.traffic.registry", "repro_torch.traffic.slo",
+    "repro_torch.utils.timing",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -76,7 +87,7 @@ def import_all():
 
 def test_import_every_module_loads_no_jax(import_all):
     n_modules, _ = import_all
-    assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES)
+    assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES) + len(SERVING_MODULES)
 
 
 @pytest.mark.parametrize("module", PAPER_MODULES)
@@ -88,6 +99,13 @@ def test_paper_module_imported_without_jax(module, import_all):
 @pytest.mark.parametrize("module", CAMPAIGN_MODULES)
 def test_campaign_module_imported_without_jax(module, import_all):
     """Each module of the campaign path is among those the no-jax import loads."""
+    assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_module_imported_without_jax(module, import_all):
+    """Each module of the figures and the serving branch is among those the
+    no-jax import loads."""
     assert module in import_all[1]
 
 
