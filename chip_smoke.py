@@ -9,8 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, and
    checks in the SASS (cuobjdump) that the bf16 flash_attention kernel
    runs on the tensor cores (HGMMA);
-3. kernels: each of the five kernels against its plain torch version on
-   the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
+3. kernels: each of the seven kernels (the five forward kernels and the
+   rmsnorm and flash_attention backward kernels) against its plain torch
+   version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
@@ -19,7 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes of wkv6 (head sizes 8, 16, 32) and rglru, wkv6's S = 1 and
    odd-grid cases and the check that its serve grid is one wave, and
    rglru's S = 1, short-tile, unaligned-row, long-sequence and
-   extreme-decay cases;
+   extreme-decay cases; the backward kernels at the training shapes
+   (rmsnorm_bwd at (2048, 2048) bf16 and f32; flash_attention_bwd at
+   gemma-2b's shape, recurrentgemma-9b's window shape and a float32 shape,
+   and ragged / window / not-causal / head-dim cases), each also run twice
+   and required to give the same bits, and the forward's lse;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call;
@@ -34,7 +39,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reduced float32 model of each family (recurrentgemma with 5 layers, so
    that its remainder stack runs) on the card against the same weights on
    the CPU;
-5. paper: the paper's own path, which launches none of the five kernels
+   train: gemma-2b at full width through ``repro_torch.launch.train``
+   (bf16 activations, float32 masters and AdamW, batch 4 x 512, 5 steps on
+   one repeated batch): the exact launch counts of the run, including the
+   two backward kernels (every block recomputed once in the backward), a
+   falling loss, step s, tokens/s and peak memory; one step's gradients
+   against the plain path's, leaf by leaf; a profile of a step; the
+   FTTrainer's lossless invariant at reduced size under hybrid, agent,
+   core and checkpoint, and ``launch.fig15``'s two tables; one hybrid run
+   at full width with a predicted failure (one migration of the whole
+   28 GiB state through host memory) bit-identical to a failure-free run;
+5. paper: the paper's own path, which launches none of the seven kernels
    (their counts must stay 0): ``repro_torch.launch.tables`` on the card
    (an unpinned ``measure_micro``, the failure predictor trained on the
    card), every check of Tables 1-2 and of the predictor passing; the
@@ -90,13 +105,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    before each) must rise by n_shards x (warmup + n), ``impl`` must read
    ``kernel`` and ``backend`` ``cuda``; one output per case held against its
    plain version within tests/test_kernels.py's float32 tolerances (those
-   calls are made after the counts are read). Prints the per-shard step
-   times beside the card;
+   calls are made after the counts are read), and one call of it at one
+   shard timed beside one library call on the same inputs (SDPA, causal;
+   masked SDPA for decode). Prints the per-shard step times beside the
+   card;
 9. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -132,6 +150,13 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 # themselves agree (tokens equal, logits within 1e-3) at the same shapes.
 TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875}
 BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55}
+# The backward kernels against their plain versions, (atol, rtol). Both sum
+# in float32 from the same inputs in another order; in bf16 the outputs are
+# rounded once more, and a value that lies on a rounding boundary may land
+# one bf16 step (2^-7 of it at most) away. float32: sums over up to
+# g·S = 4096 terms (dK/dV) or 2048 rows (dscale) in another order.
+BWD_TOL = {"bfloat16": (1e-3, 2.0 ** -7), "float32": (1e-4, 1e-4)}
+LSE_TOL = (1e-4, 1e-5)  # the forward's log-sum-exp, float32 either way
 LOGITS_TOL_F32 = 1e-4  # reduced float32 model, card kernels vs CPU plain versions
 LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain versions
 
@@ -175,6 +200,28 @@ FIGURE_TRIALS = 30
 SURFACE_SHAPES = ((8, 256, 4, 64), (8, 2048, 8, 256))
 SURFACE_SHARDS = (1, 2, 4)
 SURFACE_N, SURFACE_WARMUP = 2, 1
+# the train phase: gemma-2b at full width, bf16 activations, float32 masters
+# and AdamW moments, batch 4 x 512, TRAIN_STEPS steps on one repeated batch
+# through ``repro_torch.launch.train``
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
+# the FT invariant at reduced size (tests/test_trainer_integration.py's
+# schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
+# an unpredicted one at t = 11) and at full width (hybrid, FT_FULL_STEPS
+# steps, one predicted failure landing at FT_FULL_FAIL_T with a lead of
+# FT_FULL_LEAD_S: one migration of the whole training state)
+FT_POLICIES = ("hybrid", "agent", "core", "checkpoint")
+FT_STEPS, FT_CKPT_EVERY = 16, 4
+FT_FULL_STEPS, FT_FULL_FAIL_T, FT_FULL_LEAD_S = 6, 3.0, 0.5
+# one step's gradients at full width, kernel path against plain path, per
+# leaf: max |g_kernel - g_plain| <= GRAD_TOL_BF16 * max |g_plain|. In bf16
+# the two paths round at other places (the kernel's P·V takes P in bf16, as
+# SDPA does) and the differences compound over 18 layers: the largest
+# reading was 0.067 (layers/16/attn/wk) on an NVIDIA H100 80GB HBM3 at
+# 700 W; the limit is about twice that. A gradient that is dropped or of
+# the wrong sign reads 1 or more. The losses agree within LOSS_TOL_TRAIN
+# relative (the reading: 1.3e-5).
+GRAD_TOL_BF16 = 0.15
+LOSS_TOL_TRAIN = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -455,6 +502,7 @@ def kernel_phase(dev):
                                                          enable_gqa=True), iters=5),
     ))
     del qg, kg, vg
+    rows += backward_rows(dev, randn, qkv)
 
     # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
     decode_cases(dev, randn)
@@ -469,6 +517,107 @@ def kernel_phase(dev):
               f"the device (plain {r['plain_ms']:.4f}; library {fmt(r['library_ms'])} per call, "
               f"{fmt(r['library_device_ms'])} on the device; bound {r['bound_ms']:.5f} by "
               f"{r['bound_by']})")
+    return rows
+
+
+def backward_rows(dev, randn, qkv):
+    """The two backward kernels against their plain versions on the same
+    inputs, at the training path's shapes, timed beside the library's
+    autograd backward: rmsnorm at (2048, 2048) bf16 and f32; flash
+    attention at gemma-2b's shape (bf16, causal), recurrentgemma-9b's
+    window shape and a float32 shape, plus ragged / GQA / head-dim cases.
+    Also the forward's lse against the plain log-sum-exp."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    cfg = get_arch(ARCH)
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = []
+    print("kernel rmsnorm_bwd")
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        x, dy, scale = randn(BATCH * PROMPT, d, dtype=dt), randn(BATCH * PROMPT, d, dtype=dt), \
+            randn(d, dtype=torch.float32)
+        got, want = rn.rmsnorm_bwd(x, scale, dy), rn.rmsnorm_bwd_ref(x, scale, dy)
+        err = compare(f"rmsnorm_bwd dx {name} (2048, 2048)", got[0], want[0], BWD_TOL[str(dt)[6:]])
+        compare(f"rmsnorm_bwd dscale {name} (2048, 2048)", got[1], want[1], BWD_TOL["float32"])
+        again = rn.rmsnorm_bwd(x, scale, dy)
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            fail(f"rmsnorm_bwd {name}: two calls on the same inputs differ")
+        b_ms, b_by = bound(3 * nbytes(x) + 2 * nbytes(scale), 10 * x.numel(), "float32")
+        xg, wg = x.clone().requires_grad_(), scale.to(dt).requires_grad_()
+        yg = F.rms_norm(xg, (d,), weight=wg, eps=1e-6)
+        rows.append(dict(
+            name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:27 (its gradient: jax.grad of the jnp norm)",
+            shape=f"x, dy (2048, 2048) {name}", max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            **timings(lambda: rn.rmsnorm_bwd(x, scale, dy), lambda: rn.rmsnorm_bwd_ref(x, scale, dy),
+                      lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True)),
+        ))
+    for shape in ((37, 100), (3, 5, 4096), (1, 64)):  # ragged widths, one block, many blocks
+        x, dy = randn(*shape, dtype=torch.float32), randn(*shape, dtype=torch.float32)
+        scale = randn(shape[-1], dtype=torch.float32)
+        got, want = rn.rmsnorm_bwd(x, scale, dy), rn.rmsnorm_bwd_ref(x, scale, dy)
+        compare(f"rmsnorm_bwd dx f32 {shape}", got[0], want[0], BWD_TOL["float32"])
+        compare(f"rmsnorm_bwd dscale f32 {shape}", got[1], want[1], BWD_TOL["float32"])
+
+    print("kernel flash_attention_bwd")
+    rg = get_arch("recurrentgemma-9b")
+
+    def case(label, B_, S_, H_, K_, hd_, dtype=torch.bfloat16, window=0, causal=True,
+             row=False, iters=20):
+        q, k, v = qkv(B_, S_, H_, K_, hd_, dtype=dtype)
+        out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        _, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                            return_lse=True)
+        compare(f"flash_attention lse {label}", lse, lse_ref, LSE_TOL)
+        dout = randn(B_, S_, H_, hd_, dtype=dtype).transpose(1, 2)
+        args = (q, k, v, out, dout, lse)
+        got = fa.flash_attention_bwd(*args, causal=causal, window=window)
+        want = fa.flash_attention_bwd_ref(*args, causal=causal, window=window)
+        tol = BWD_TOL[str(dtype)[6:]]
+        errs = [compare(f"flash_attention_bwd {n} {label}", a, b, tol)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        again = fa.flash_attention_bwd(*args, causal=causal, window=window)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            fail(f"flash_attention_bwd {label}: two calls on the same inputs differ")
+        if not row:
+            return
+        vis = fa._mask(S_, causal, window, dev).sum().item()  # visible (query, key) pairs
+        pk = str(dtype)[6:]
+        b_ms, b_by = bound(nbytes(q, k, v, out, dout, lse, *got), 10 * hd_ * vis * B_ * H_, pk)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        rows.append(dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention.py:75 (its gradient: jax.grad of "
+                     "the jnp attention)",
+            shape=label, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+            **timings(lambda: fa.flash_attention_bwd(*args, causal=causal, window=window),
+                      lambda: fa.flash_attention_bwd_ref(*args, causal=causal, window=window),
+                      lambda: torch.autograd.grad(og, (qg, kg, vg), dout, retain_graph=True),
+                      iters=iters),
+        ))
+
+    case(f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) bf16, causal", BATCH, PROMPT, H, K, hd,
+         row=True)
+    case(f"q (4,{rg.n_heads},{rg.window},256), k/v (4,1,{rg.window},256) bf16, causal, window "
+         f"{rg.window}", BATCH, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim,
+         window=rg.window, row=True, iters=3)
+    case("q (2,4,512,64), k/v (2,2,512,64) f32, causal", 2, 512, 4, 2, 64,
+         dtype=torch.float32, row=True)
+    case("bf16 window 128 (4,8,512,256)", BATCH, PROMPT, H, K, hd, window=128)
+    case("bf16 ragged S=300 g 8", 2, 300, H, K, hd)
+    case("f32 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, dtype=torch.float32, window=48)
+    case("f32 not causal (1,2,100,32)", 1, 100, 2, 2, 32, dtype=torch.float32, causal=False)
+    for hd_ in fa.HEAD_DIMS[:-1]:
+        case(f"bf16 hd {hd_} g 4 (1,4,200) window 80", 1, 200, 4, 1, hd_, window=80)
+        case(f"f32 hd {hd_} g 1 (2,2,77)", 2, 77, 2, 2, hd_, dtype=torch.float32)
     return rows
 
 
@@ -793,7 +942,7 @@ def want_launches(model) -> dict:
     n_attn = sum(k in ("attn", "attn_local") for k in kinds)
     return {"rmsnorm": (2 * len(kinds) + 1) * NEW, "flash_attention": n_attn,
             "flash_decode": n_attn * (NEW - 1), "wkv6": kinds.count("rwkv"),
-            "rglru": kinds.count("rec")}
+            "rglru": kinds.count("rec"), "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 
 def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
@@ -1387,6 +1536,267 @@ def figures_phase(card: str) -> None:
                                   "launches": counts}}))
 
 
+def train_launches(n_layers: int, steps: int) -> dict:
+    """The exact launches of ``steps`` train steps of an attention-only model
+    with remat: every block's forward runs twice (once more in the
+    backward), the final norm once, each backward kernel once per norm or
+    attention layer."""
+    return {"rmsnorm": steps * (4 * n_layers + 1), "flash_attention": steps * 2 * n_layers,
+            "flash_decode": 0, "wkv6": 0, "rglru": 0,
+            "rmsnorm_bwd": steps * (2 * n_layers + 1), "flash_attention_bwd": steps * n_layers}
+
+
+def full_width_train(card: str) -> dict:
+    """gemma-2b at full width through ``launch.train``: TRAIN_STEPS steps on
+    one repeated batch. The loss must fall and every kernel of the path must
+    launch exactly as ``train_launches`` says."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    res = train.run(["--arch", ARCH, "--full", "--steps", str(TRAIN_STEPS), "--batch",
+                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--repeat-batch",
+                     "--policy", "none", "--json"])
+    counts = ops.launch_counts()
+    want = train_launches(get_arch(ARCH).n_layers, TRAIN_STEPS)
+    print(f"train {ARCH} launches {counts} (want {want})")
+    if counts != want:
+        fail(f"train {ARCH}: kernel launch counts {counts} != {want}")
+    losses = res["losses"]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train {ARCH}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {ARCH}: the loss on a repeated batch did not fall: {losses}")
+    print(f"train {ARCH} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 activations, "
+          f"float32 masters + AdamW, {TRAIN_STEPS} steps on {card}: step_s median "
+          f"{res['step_s_median']:.4f}, tokens/s {res['tokens_per_s']:.1f}, peak "
+          f"max_memory_allocated {res['peak_device_bytes'] / 2**30:.2f} GiB, losses {losses}")
+    print(json.dumps({"train": res, "card": card, "launches": counts}))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_grad_check(dev) -> None:
+    """One step's gradients at full width on the kernel path against the same
+    step under ``ops.plain_versions()``, leaf by leaf."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import _paths
+    from repro_torch.utils.tree import flatten, unflatten
+
+    cfg = get_arch(ARCH)
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = model.init(g, dev, param_dtype=torch.float32)
+    batch = token_batches(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)(0)
+    leaves, treedef = flatten(params)
+    names = ["/".join(p) for p, _ in _paths(params)]
+
+    def grads():
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss = model.loss(unflatten(treedef, live), batch)
+        return float(loss.detach()), torch.autograd.grad(loss, live)
+
+    loss_k, gk = grads()
+    with ops.plain_versions():
+        loss_p, gp = grads()
+    worst = (0.0, "")
+    for name, a, b in zip(names, gk, gp):
+        if not torch.isfinite(a).all():
+            fail(f"train grads {ARCH}: non-finite kernel-path gradient at {name}")
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, (rel, name))
+    print(f"train grads {ARCH} kernel vs plain, {len(names)} leaves: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; largest max|dg| / max|g_plain| {worst[0]:.4g} at {worst[1]} "
+          f"(tol {GRAD_TOL_BF16})")
+    if worst[0] > GRAD_TOL_BF16:
+        fail(f"train grads {ARCH}: {worst[1]} differs by {worst[0]:.4g} of its largest "
+             f"magnitude (> {GRAD_TOL_BF16})")
+    if abs(loss_k - loss_p) > LOSS_TOL_TRAIN * abs(loss_p):
+        fail(f"train grads {ARCH}: loss {loss_k} on the kernel path vs {loss_p} plain")
+    del params, leaves, gk, gp
+    torch.cuda.empty_cache()
+
+
+def profile_train(dev, card: str) -> None:
+    """Where a full-width train step spends its time: device time of one
+    step (torch.profiler) as a share of its unprofiled wall time, and the
+    kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_arch(ARCH)
+    ts, init_state = make_train_step(build_model(cfg))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = init_state(g)
+    batch = token_batches(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)(0)
+    state, _ = ts(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = ts(state, batch)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = ts(state, batch)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        print("profile train: no device time in the trace (not measured)")
+    else:
+        print(f"profile train step {ARCH} full width on {card}: device busy "
+              f"{device_us / 1e3:.3f} ms = {100 * device_us / 1e6 / wall_s:.1f}% of the "
+              f"unprofiled {wall_s * 1e3:.3f} ms")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, card: str) -> dict:
+    """The training path: full-width steps through ``launch.train`` (its
+    launch counts are returned), gradients against the plain path, a
+    profile of a step, the FT invariant at reduced size and Fig 15's tables,
+    then the FT invariant at full width."""
+    t0 = time.perf_counter()
+    counts = full_width_train(card)
+    train_grad_check(dev)
+    profile_train(dev, card)
+    t1 = time.perf_counter()
+    reduced_ft(card)
+    fig15_phase(card)
+    t2 = time.perf_counter()
+    full_width_ft(card)
+    print(f"train phase: {t1 - t0:.1f} s full-width steps, grads and profile; {t2 - t1:.1f} s "
+          f"reduced FT and fig15; {time.perf_counter() - t2:.1f} s full-width FT")
+    return counts
+
+
+def reduced_ft(card: str) -> None:
+    """The trainer's lossless invariant on the card at reduced size (float32):
+    under each of FT_POLICIES the run with failures ends bit-identical to the
+    failure-free run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.failure import FailureEvent
+    from repro_torch.launch.fig15 import _run
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.utils.tree import tree_hash
+
+    cfg = get_arch(ARCH).reduced()
+    fails = [FailureEvent(t=5.0, node=0, predictable=True),
+             FailureEvent(t=11.0, node=0, predictable=False)]
+    for policy in FT_POLICIES:
+        hashes, reps = [], []
+        for name, failures in ((policy + "_ref", []), (policy, fails)):
+            tr, _ = make_trainer(cfg, lr=1e-4, batch=2, seq=32, policy=name,
+                                 ckpt_every=FT_CKPT_EVERY, trainer_seed=2, device="cuda")
+            reps.append(_run(tr, FT_STEPS, failures, step_time_s=1.0))
+            hashes.append(tree_hash(tr.state))
+        rep = reps[1]
+        print(f"ft reduced {policy} on {card}: migrations {rep.migrations} restores "
+              f"{rep.restores} reexecuted {rep.steps_reexecuted} checkpoints {rep.checkpoints}; "
+              f"final state == failure-free: {hashes[0] == hashes[1]}")
+        if hashes[0] != hashes[1]:
+            fail(f"ft reduced {policy}: the final state differs from the failure-free run's")
+        if policy == "checkpoint" and rep.restores != 2:
+            fail(f"ft reduced checkpoint: {rep.restores} restores, want 2")
+        if policy != "checkpoint" and not (rep.migrations >= 1 and rep.steps_reexecuted <= 4):
+            fail(f"ft reduced {policy}: migrations {rep.migrations}, reexecuted "
+                 f"{rep.steps_reexecuted}")
+
+
+def fig15_phase(card: str) -> None:
+    """Fig 15's four states and the three-policy table on the card, through
+    ``launch.fig15``: every check passing."""
+    from repro_torch.launch import fig15
+
+    t0 = time.perf_counter()
+    rc = fig15.main(["--device", "cuda", "--out", str(ROOT / "bench_out_torch")])
+    print(f"fig15 on {card}: {time.perf_counter() - t0:.3f} s")
+    if rc != 0:
+        fail("fig15: a check failed")
+
+
+def full_width_ft(card: str) -> None:
+    """One hybrid run of gemma-2b at full width and depth with a predicted
+    failure, so one migration of the whole training state through host
+    memory, against a failure-free run: the final states must be
+    bit-identical."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.failure import FailureEvent
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.utils.tree import tree_bytes, tree_hash
+
+    cfg = get_arch(ARCH)
+    hashes, reps = [], []
+    fails = [FailureEvent(t=FT_FULL_FAIL_T, node=0, predictable=True, lead_s=FT_FULL_LEAD_S)]
+    for policy, failures in (("hybrid_ref", []), ("hybrid", fails)):
+        t0 = time.perf_counter()
+        tr, _ = make_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, policy=policy,
+                             ckpt_every=FT_FULL_STEPS, device="cuda")
+        state_bytes = tree_bytes(tr.state)
+        try:
+            rep = tr.run(FT_FULL_STEPS, failures=failures)
+        finally:
+            shutil.rmtree(tr.store.root, ignore_errors=True)
+        hashes.append(tree_hash(tr.state))
+        reps.append(rep)
+        moved = [e for e in rep.events if e.get("kind") == "predicted_failure_avoided"]
+        print(f"ft full width {ARCH} {policy} on {card}: state "
+              f"{state_bytes / 2**30:.2f} GiB, {rep.steps_run} steps, migrations "
+              f"{rep.migrations}, checkpoints {rep.checkpoints}, train_time_s "
+              f"{rep.train_time_s:.3f}, ft_time_s {rep.ft_time_s:.3f}, overhead_fraction "
+              f"{rep.overhead_fraction:.6f}, moved {[(e['bytes'], round(e['migrate_s'], 3)) for e in moved]} "
+              f"(bytes, s); {time.perf_counter() - t0:.1f} s in all")
+        del tr
+        torch.cuda.empty_cache()
+    if reps[1].migrations != 1:
+        fail(f"ft full width: {reps[1].migrations} migrations, want 1")
+    if hashes[0] != hashes[1]:
+        fail("ft full width: the migrated run's final state differs from the failure-free run's")
+    print(f"ft full width: final state == failure-free run's ({hashes[0][:16]})")
+
+
+def surface_library(kernel: str, batch: int, seq_len: int, heads: int, head_dim: int):
+    """One PyTorch call computing a measured surface's function on its
+    inputs (``obs/profile.py``'s cases: seed-0 numpy normals, float32, heads
+    = KV heads): SDPA, causal, for flash_attention; SDPA with the cache's
+    validity mask (every slot, ``pos = seq_len - 1``) for flash_decode."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.obs import profile
+
+    rng, dev = np.random.default_rng(0), torch.device("cuda")
+    if kernel == "decode_attention":
+        q = profile._normal(rng, (batch, heads, head_dim), dev)[:, :, None]
+        k = profile._normal(rng, (batch, heads, seq_len, head_dim), dev)
+        v = profile._normal(rng, (batch, heads, seq_len, head_dim), dev)
+        mask = torch.ones((batch, 1, 1, seq_len), dtype=torch.bool, device=dev)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    q, k, v = (profile._normal(rng, (batch, heads, seq_len, head_dim), dev) for _ in range(3))
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+
 def workloads_phase(card: str) -> dict:
     """The measured step surfaces on the card: the CUDA attention kernels'
     launches on this path, per-shard step times, and one output per case
@@ -1423,12 +1833,17 @@ def workloads_phase(card: str) -> dict:
                 want = fn()
             err = compare(f"workloads {name} {kernel} f32 {(batch, seq_len, heads, head_dim)}",
                           got, want, tol)
+            per_call = dict(kernel_ms=time_ms(fn),
+                            library_ms=time_ms(surface_library(kernel, batch, seq_len, heads,
+                                                               head_dim)))
             del fn, got, want
             torch.cuda.empty_cache()
-            rows.append(dict(rec, max_abs_err=err))
+            rows.append(dict(rec, max_abs_err=err, **per_call))
             print(f"workloads {name} ({kernel}) batch {batch}, seq {seq_len}, heads {heads}, "
                   f"head_dim {head_dim}, f32 on {card}: per-shard step s at n_shards "
-                  f"{rec['n_shards']}: {rec['step_time_s']}; {counts[counter]} launches")
+                  f"{rec['n_shards']}: {rec['step_time_s']}; {counts[counter]} launches; one "
+                  f"call at 1 shard {per_call['kernel_ms']:.5f} ms, the library's "
+                  f"{per_call['library_ms']:.5f} ms")
     print(json.dumps({"workloads": {"card": card, "surfaces": rows, "launches": launches}}))
     return launches
 
@@ -1467,6 +1882,8 @@ def main() -> int:
     for arch, prompt_len in SERVES:
         full_width_f32_phase(dev, arch, prompt_len)
     reduced_reference_phase(dev)
+    for name, n in train_phase(dev, card).items():
+        launches[name] += n
     paper_phase(card)
     figures_phase(card)
     campaign_phase(card)
@@ -1475,7 +1892,7 @@ def main() -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["launches"] == 0:
-            fail(f"{r['name']}: no launch on any serve path")
+            fail(f"{r['name']}: no launch on the serve or train paths")
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
     print(card)

@@ -44,8 +44,11 @@ class ArchConfig:
     encoder_layers: int = 0  # whisper
     num_img_tokens: int = 0  # phi-3-vision
     kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8"
-    # --- numerics ---
+    # --- numerics and training ---
     dtype: str = "bfloat16"  # activation dtype
+    param_dtype: str = "float32"  # the training masters' dtype (serving keeps ``dtype``)
+    optimizer: str = "adamw"  # adamw | adafactor | sgdm
+    remat: bool = True  # recompute each block in the backward (torch.utils.checkpoint)
     source: str = ""  # provenance note
 
     @property

@@ -13,7 +13,13 @@ Leaves the reference uses in float32 arithmetic without
 ``models.rwkv6.F32_KEYS`` and the RG-LRU's ``models.rglru.F32_KEYS`` (the
 same tuples the models' ``init`` reads). Every other weight is cast to the
 activation dtype, as the reference casts it at use, so the products are
-the same.
+the same; training asks for ``param_dtype=torch.float32`` instead, the
+reference's own storage type (the layers cast at use).
+
+``train_state_from_jax`` carries the reference's train state (``params``,
+``opt``, ``step``[, ``efb``], numpy leaves) into the port's: the optimizer
+state and the error feedback keep the reference's stacked layout (see
+``repro_torch.train.optim``), so they convert leaf for leaf.
 """
 from __future__ import annotations
 
@@ -47,10 +53,12 @@ def _convert(tree: Dict[str, Any], dtype, device, layer=None, f32=()) -> Dict[st
     return out
 
 
-def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
-    """The reference's values tree (numpy leaves) -> the port's parameters."""
+def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu",
+                    param_dtype=None) -> Dict[str, Any]:
+    """The reference's values tree (numpy leaves) -> the port's parameters,
+    matrices in ``param_dtype`` (default: the activation dtype)."""
     build_model(cfg)  # raises for a configuration the port does not run
-    dt = activation_dtype(cfg)
+    dt = param_dtype or activation_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": _tensor(values["embed"], dt, device),
         "final_ln": _convert(values["final_ln"], torch.float32, device),
@@ -64,6 +72,26 @@ def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu") -> Di
     if not cfg.tie_embeddings:
         params["lm_head"] = _tensor(values["lm_head"], dt, device)
     return params
+
+
+def _float32_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _float32_tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, torch.float32, device)
+
+
+def train_state_from_jax(state: Dict[str, Any], cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
+    """The reference's ``make_train_step`` state with numpy leaves -> the
+    port's: float32 parameters, the float32 optimizer state and error
+    feedback in the reference's stacked layout, the step an int32 tensor."""
+    out = {
+        "params": from_jax_values(state["params"], cfg, device, param_dtype=torch.float32),
+        "opt": _float32_tree(state["opt"], device),
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
+    }
+    if "efb" in state:
+        out["efb"] = _float32_tree(state["efb"], device)
+    return out
 
 
 def predictor_from_jax(params: Dict[str, Any], mu, sd, threshold: float):

@@ -8,12 +8,14 @@ Checkpointing baselines          -> repro_torch.core.checkpoint
 Tables 1-2 simulator             -> repro_torch.core.sim
 
 Straggler detection / mitigation -> repro_torch.core.straggler
+FT training loop (Fig 15)        -> repro_torch.core.trainer (FTTrainer, FTReport)
+Elastic re-planning              -> repro_torch.core.elastic
+Speculative state egress         -> repro_torch.core.speculative
 
-The reference's ``repro/core/__init__.py`` also imports its trainer, which
-closes a circular import through ``repro.telemetry``; the port's trainer,
-elastic re-meshing and speculative modules are later slices, and this
-package imports none of them, so ``import repro_torch.telemetry`` works
-cold.
+The reference's ``repro/core/__init__.py`` imports its trainer, which
+closes a circular import through ``repro.telemetry``. Here ``FTTrainer``
+and ``FTReport`` load on first attribute access instead, so
+``import repro_torch.telemetry`` works cold.
 """
 from repro_torch.core.agent import Agent
 from repro_torch.core.virtual_core import VirtualCore
@@ -24,3 +26,11 @@ from repro_torch.core.predictor import FailurePredictor
 from repro_torch.core.failure import FailureModel, FailureEvent
 from repro_torch.core.checkpoint import CheckpointStore, AsyncCheckpointer
 from repro_torch.core.straggler import StragglerDetector, mitigate, sync_step_time
+
+
+def __getattr__(name):
+    if name in ("FTTrainer", "FTReport"):
+        from repro_torch.core import trainer
+
+        return getattr(trainer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

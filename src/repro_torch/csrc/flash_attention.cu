@@ -1,7 +1,9 @@
 // Blocked causal / sliding-window GQA attention, forward only, for prefill
 // self-attention with positions 0..S-1. Two kernels in one source, chosen
 // by the input type: bfloat16 runs on Hopper's tensor cores (wgmma),
-// float32 on plain FMA.
+// float32 on plain FMA. Asked for it (a non-null lse), either also writes
+// each row's float32 log-sum-exp, the input of the backward in
+// flash_attention_bwd.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (pallas_call at :99, body _flash_kernel at :26).
@@ -80,8 +82,8 @@ struct Strides {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int H, int K, int S, Strides st, int causal, int window,
-                     float scale) {
+                     T* __restrict__ o, float* __restrict__ lse, int H, int K, int S, Strides st,
+                     int causal, int window, float scale) {
   constexpr int LD = HD + 1;
   constexpr int LDP = BK + 1;
   constexpr int CPT = HD / 4;  // accumulator columns per thread
@@ -192,12 +194,15 @@ __global__ void __launch_bounds__(THREADS)
     T* orow = o + b * st.ob + h * st.oh + (long long)qpos * st.os;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) orow[quad + 4 * j] = rt::from_f<T>(acc[j] * inv);
+    if (lse != nullptr && quad == 0)
+      lse[((long long)b * H + h) * S + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int S,
-               const Strides& st, int causal, int window, float scale, cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+               int K, int S, const Strides& st, int causal, int window, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static int smem_set[rt::kMaxDevices];
   const cudaError_t attr = rt::max_dynamic_smem(
@@ -206,7 +211,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, K, S, st, causal, window, scale);
+      static_cast<float*>(o), lse, H, K, S, st, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -344,8 +349,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                    int B, int H, int K, int S, long long ob, long long oh, long long os,
-                    int causal, int window, float scale_log2) {
+                    float* __restrict__ lse, int B, int H, int K, int S, long long ob,
+                    long long oh, long long os, int causal, int window, float scale_log2) {
   using Sh = TcShape<HD>;
   constexpr int NDB = Sh::NDB;
   extern __shared__ uint8_t smem_raw[];
@@ -537,6 +542,12 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // natural-log units: sum_k exp(s·scale) = 2^m · l
+    float* lrow = lse + ((long long)b * H + h) * S;
+    if (qpos0 < S) lrow[qpos0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+    if (qpos1 < S) lrow[qpos1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+  }
   __nv_bfloat16* obase = o + b * ob + h * oh;
 #pragma unroll
   for (int nb = 0; nb < NDB; ++nb) {
@@ -585,8 +596,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int K, int S,
-              const Strides& st, int causal, int window, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+              int K, int S, const Strides& st, int causal, int window, float scale,
+              cudaStream_t stream) {
   constexpr int smem = TcShape<HD>::SMEM;
   static int smem_set[rt::kMaxDevices];
   const cudaError_t attr = rt::max_dynamic_smem(
@@ -600,13 +612,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H
       !encode_map(&tv, v, HD, S, K, B, st.vb, st.vh, st.vs, TC_BK))
     return (int)cudaErrorInvalidValue;
   flash_tc_kernel<HD><<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, H, K, S, st.ob, st.oh, st.os, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, H, K, S, st.ob, st.oh, st.os, causal,
       window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-using LaunchFn = int (*)(const void*, const void*, const void*, void*, int, int, int, int,
-                         const Strides&, int, int, float, cudaStream_t);
+using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
+                         int, const Strides&, int, int, float, cudaStream_t);
 
 LaunchFn pick(int dtype, int hd) {
   const bool bf = dtype == rt::kBF16;
@@ -627,14 +639,19 @@ LaunchFn pick(int dtype, int hd) {
 // order; the head_dim axis of every tensor has stride 1. bfloat16 also
 // needs 16-byte aligned q, k, v and every q/k/v stride a multiple of 8
 // elements (the tensor maps' rule); the Python wrapper checks both.
-extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                  int H, int K, int S, int hd, const long long* strides,
-                                  int causal, int window, float scale, int dtype, void* stream) {
+//
+// lse: (B, H, S) float32, each row's log-sum-exp of its scaled, masked
+// scores (the backward's input), or null when the caller does not ask.
+extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int B, int H, int K, int S, int hd,
+                                  const long long* strides, int causal, int window, float scale,
+                                  int dtype, void* stream) {
   if (B <= 0 || K <= 0 || H % K != 0 || S <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const LaunchFn fn = pick(dtype, hd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
              strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
-  return fn(q, k, v, o, B, H, K, S, st, causal, window, scale, static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, static_cast<float*>(lse), B, H, K, S, st, causal, window, scale,
+            static_cast<cudaStream_t>(stream));
 }

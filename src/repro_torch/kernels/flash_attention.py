@@ -1,5 +1,6 @@
-"""Prefill flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and
-its plain version.
+"""Prefill flash attention: the CUDA kernels ``csrc/flash_attention.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (backward) and their plain
+versions.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas kernel); the plain version is ``repro/kernels/ref.py::attention_ref``
@@ -8,7 +9,15 @@ forward only, with a float32 running max, sum and accumulator. bfloat16
 runs on the tensor cores (wgmma), with the probabilities rounded to
 bfloat16 for P·V as SDPA does; float32 runs on FMA and keeps them in
 float32. The kernel reads q, k and v through their strides (the head_dim
-axis must be contiguous), so callers may pass transposed views.
+axis must be contiguous), so callers may pass transposed views. Asked for
+it, the forward also writes each row's log-sum-exp (``lse``, float32
+``(B, H, S)``), the backward's input.
+
+The backward (``flash_attention_bwd``) has no Pallas counterpart: the
+reference trains by ``jax.grad`` of its jnp attention. It gives dQ, dK and
+dV (dK/dV summed over a group's query heads inside one block, no atomics,
+so bit-identical from run to run) on float32 FMA for both dtypes;
+``ops.flash_attention`` binds it to the forward in an autograd Function.
 """
 from __future__ import annotations
 
@@ -20,8 +29,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1.0e30
 
-#: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
+#: launches of the CUDA kernels since the last reset (see ``ops.launch_counts``)
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -39,10 +49,11 @@ def _check(q, k, v):
     return B, H, K, S, hd
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse: bool = False):
     """CUDA kernel. q: (B, H, S, hd); k/v: (B, K, S, hd). Returns (B, H, S, hd)
     in q's dtype, as a view of a (B, S, H, hd) buffer: the model's next
-    step, the output projection, reads that layout without a copy."""
+    step, the output projection, reads that layout without a copy. With
+    ``return_lse``, returns (out, lse (B, H, S) float32)."""
     global launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: the CUDA kernel takes CUDA tensors on one device")
@@ -56,32 +67,102 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
                              f"and batch/head/sequence strides that are multiples of 8, got "
                              f"strides {t.stride()}")
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                                  *out.stride()[:3])
     err = _build.lib().rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, K, S, hd, strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, K, S, hd, strides,
         int(bool(causal)), int(window), 1.0 / math.sqrt(hd), _build.dtype_code(q),
         _build.stream_arg(q.device),
     )
     _build.check(err, "flash_attention")
     launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Plain version: naive full-matrix attention (``ref.attention_ref``)."""
+def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
+    """CUDA kernel. q, o, dout: (B, H, S, hd); k/v: (B, K, S, hd), one dtype;
+    lse: (B, H, S) float32 from the forward. Returns (dq, dk, dv) in the
+    inputs' dtype, each a view of a (B, S, heads, hd) buffer (the layout of
+    the model's projections)."""
+    global bwd_launches
+    if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
+        raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
+    B, H, K, S, hd = _check(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape or not (o.dtype == dout.dtype == q.dtype):
+        raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and dout "
+                         f"{dout.dtype} {tuple(dout.shape)} must be q's {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, H, S)}")
+    q, k, v, o, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = _build.strides_arg(*(s for t in (q, k, v, o, dout, dq, dk, dv)
+                                   for s in t.stride()[:3]))
+    err = _build.lib().rt_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, K, S, hd, strides, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        _build.dtype_code(q), _build.stream_arg(q.device),
+    )
+    _build.check(err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def _mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
+    qpos = torch.arange(S, dtype=torch.int32, device=device)[:, None]
+    kpos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """Plain version: naive full-matrix attention (``ref.attention_ref``);
+    with ``return_lse``, also each row's log-sum-exp of its masked scores."""
     B, H, K, S, hd = _check(q, k, v)
     g = H // K
     kk = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
     vv = torch.repeat_interleave(v, g, dim=1).to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk) / math.sqrt(hd)
-    qpos = torch.arange(S, dtype=torch.int32, device=q.device)[:, None]
-    kpos = torch.arange(S, dtype=torch.int32, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window:
-        mask = mask & (kpos > qpos - window)
+    mask = _mask(S, causal, window, q.device)
     s = torch.where(mask, s, torch.full((), NEG_INF, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
+    """Plain version of the backward: the kernel's formulas on full score
+    matrices in float32 (P = exp(s - lse) on the visible pairs, D =
+    rowsum(dO * O), dS = P * (dO·Vᵀ - D)), dK and dV summed over each
+    group's query heads."""
+    B, H, K, S, hd = _check(q, k, v)
+    g = H // K
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    qf, of, gf = q.to(f32), o.to(f32), dout.to(f32)
+    kk = torch.repeat_interleave(k, g, dim=1).to(f32)
+    vv = torch.repeat_interleave(v, g, dim=1).to(f32)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+    mask = _mask(S, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), dtype=f32,
+                                                                   device=q.device))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vv)
+    ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk.reshape(B, K, g, S, hd).sum(dim=2)
+    dv = dv.reshape(B, K, g, S, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

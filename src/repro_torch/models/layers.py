@@ -4,9 +4,11 @@ for decode against a ring-buffer KV cache, and the MLP variants (swiglu /
 geglu / gelu).
 
 Parameters are plain dicts of tensors with the reference's shapes and
-names. Matrix weights are stored in the activation dtype (the reference
-casts each one with ``.astype(x.dtype)`` before use, so the numbers are
-the same); norm scales stay float32 because the norm multiplies in float32.
+names. Each matrix weight is cast to the activation dtype at use, as the
+reference casts it with ``.astype(x.dtype)``: serving stores the matrices
+in the activation dtype already (the cast is then a no-op), training keeps
+float32 masters. Norm scales stay float32 because the norm multiplies in
+float32.
 The norm, prefill attention and decode attention go through
 :mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the projections
 and the MLP are plain matrix products.
@@ -76,9 +78,9 @@ def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     B, S, d = x.shape
     _, H, hd = p["wq"].shape
     n = p["wk"].shape[1]
-    q = (x @ p["wq"].reshape(d, H * hd)).view(B, S, H, hd)
-    k = (x @ p["wk"].reshape(d, n * hd)).view(B, S, n, hd)
-    v = (x @ p["wv"].reshape(d, n * hd)).view(B, S, n, hd)
+    q = (x @ p["wq"].to(x.dtype).reshape(d, H * hd)).view(B, S, H, hd)
+    k = (x @ p["wk"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
+    v = (x @ p["wv"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
     if cfg.rope_theta > 0:
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
@@ -88,7 +90,7 @@ def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
 def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
     """out: (B, S, H, hd) -> (B, S, d)."""
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    return out.reshape(B, S, H * hd) @ p["wo"].to(out.dtype).reshape(H * hd, -1)
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -103,6 +105,18 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
     )  # (B, H, S, hd)
     return _out_proj(p, out.transpose(1, 2)), k, v
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
+    """``attention_prefill`` for the training loss: the output only, no
+    cache. Under autograd the attention runs the flash kernels' forward and
+    backward (``ops.flash_attention``)."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
+    )
+    return _out_proj(p, out.transpose(1, 2))
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
@@ -161,7 +175,8 @@ def mlp_init(gen, cfg, device, dtype) -> Params:
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+    dt = x.dtype
     if "wg" in p:
         act = F.silu if cfg.mlp == "swiglu" else gelu
-        return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wo"]
-    return gelu(x @ p["wi"] + p["bi"]) @ p["wo"] + p["bo"]
+        return (act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))) @ p["wo"].to(dt)
+    return gelu(x @ p["wi"].to(dt) + p["bi"].to(dt)) @ p["wo"].to(dt) + p["bo"].to(dt)

@@ -1,6 +1,6 @@
 """The decoder-only model (counterpart of ``repro/models/model_api.py``):
-embedding, the blocks, ``final_ln``, the tied or untied head, ``prefill``,
-``decode`` and ``init_cache``.
+embedding, the blocks, ``final_ln``, the tied or untied head, ``loss``,
+``prefill``, ``decode`` and ``init_cache``.
 
 A model is a list of *stacks*, each a (pattern unit, repeats) pair, as in
 the reference: (("attn",), 18) for gemma, (("rwkv",), 24) for rwkv6,
@@ -17,6 +17,9 @@ Block kinds and their caches:
   attn_local  sliding-window attention + FFN       {"k", "v", "kpos"}, min(S, window) slots
   rec         RG-LRU temporal block + FFN          {"h" float32, "conv"}
   rwkv        RWKV6 time-mix + channel-mix         {"wkv" float32, "shift_t", "shift_c"}
+
+``loss`` trains the attention kinds; ``rec`` and ``rwkv`` blocks raise (their
+kernels have no backward yet).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -32,6 +37,11 @@ from repro_torch.models import rwkv6 as R
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
 _PATTERN_KINDS = ("rec", "attn")
+_TRAINABLE = ("attn", "attn_local")
+_NOT_TRAINABLE = ("cannot train yet: the wkv6 and rglru_scan kernels have no backward "
+                  "(ROADMAP.md Queue 1, item 9: rwkv6 and recurrentgemma training)")
+#: the cross-entropy's chunk of positions (the reference's ``_chunked_ce``)
+CE_CHUNK = 512
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
@@ -95,12 +105,15 @@ class ModelDef:
         return {"ln1": L.norm_init(d, device), **mixer, "ln2": L.norm_init(d, device),
                 "ffn": L.mlp_init(gen, cfg, device, dt)}
 
-    def init(self, gen: torch.Generator, device) -> Dict[str, Any]:
+    def init(self, gen: torch.Generator, device, param_dtype: Optional[torch.dtype] = None
+             ) -> Dict[str, Any]:
         """Random parameters from ``gen``: matrices normal (std 0.02, the
         decay LoRA 0.01), norm scales 1, and the reference's constant
-        initialisers for the rwkv and RG-LRU parameters."""
+        initialisers for the rwkv and RG-LRU parameters. The matrices are
+        stored in ``param_dtype`` (default: the activation dtype, for
+        serving; training passes float32 masters, cast at use)."""
         cfg = self.cfg
-        dt = activation_dtype(cfg)
+        dt = param_dtype or activation_dtype(cfg)
         params: Dict[str, Any] = {
             "embed": L._normal(gen, (cfg.vocab, cfg.d_model), L.INIT_STD, device, dt)
         }
@@ -111,8 +124,12 @@ class ModelDef:
         return params
 
     # -- forward ------------------------------------------------------------
-    def _head(self, params) -> torch.Tensor:
-        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+    def _head(self, params, dtype) -> torch.Tensor:
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return head.to(dtype)
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        return F.embedding(tokens, params["embed"]).to(activation_dtype(self.cfg))
 
     def _ffn_half(self, lp, x):
         h = L.norm_apply(lp["ln2"], x)
@@ -175,7 +192,7 @@ class ModelDef:
         layers; the recurrent layers keep their final states)."""
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens)
         caches = []
         for kind, lp in zip(self.kinds, params["layers"]):
             x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S)
@@ -183,18 +200,53 @@ class ModelDef:
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
         x = L.norm_apply(params["final_ln"], x[:, -1:])
-        return x[:, 0] @ self._head(params), caches
+        return x[:, 0] @ self._head(params, x.dtype), caches
 
     def decode(self, params, tokens: torch.Tensor, pos: int,
                caches: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, 1) int; pos: the position of every row (Python int).
         Updates each layer's cache in place and returns (logits (B, vocab),
         caches)."""
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens)
         for kind, lp, cache in zip(self.kinds, params["layers"], caches):
             x = self._block_decode(kind, lp, x, cache, pos)
         x = L.norm_apply(params["final_ln"], x)
-        return x[:, 0] @ self._head(params), caches
+        return x[:, 0] @ self._head(params, x.dtype), caches
+
+    # -- training -------------------------------------------------------------
+    def _block_train(self, kind: str, lp, x, positions):
+        h = L.norm_apply(lp["ln1"], x)
+        a = L.attention_train(lp["attn"], h, self.cfg, positions, _window(self.cfg, kind))
+        return self._ffn_half(lp, x + a)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S) (an
+        int array or tensor), as the reference's ``loss``: position t
+        predicts token t + 1, the last slot is masked, the cross-entropy is
+        taken over the vocabulary in chunks of CE_CHUNK positions, each
+        recomputed in the backward (the reference's ``jax.checkpoint(piece)``),
+        and with ``cfg.remat`` every block is recomputed in the backward too.
+        The reference adds 0.01 x the MoE aux term, 0 for these dense models.
+        Attention and the norms run the CUDA kernels, forward and backward,
+        on the card."""
+        bad = sorted(set(self.kinds) - set(_TRAINABLE))
+        if bad:
+            raise NotImplementedError(f"{self.cfg.name}: {'/'.join(bad)} blocks {_NOT_TRAINABLE}")
+        embed = params["embed"]
+        tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=embed.device).expand(B, S)
+        x = self._embed(params, tokens)
+        for kind, lp in zip(self.kinds, params["layers"]):
+            if self.cfg.remat:
+                x = checkpoint(self._block_train, kind, lp, x, positions, use_reentrant=False)
+            else:
+                x = self._block_train(kind, lp, x, positions)
+        x = L.norm_apply(params["final_ln"], x)
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
+        mask[:, -1] = 0.0
+        return _chunked_ce(x, self._head(params, x.dtype), labels, mask)
 
     # -- caches ---------------------------------------------------------------
     def _block_cache(self, kind: str, B: int, seq_len: int, dt, device) -> Dict[str, torch.Tensor]:
@@ -215,6 +267,28 @@ class ModelDef:
         """Empty caches for a fresh sequence of up to ``seq_len`` positions."""
         dt = activation_dtype(self.cfg)
         return [self._block_cache(kind, B, seq_len, dt, device) for kind in self.kinds]
+
+
+def _ce_piece(hc, head, lc, mc):
+    logits = (hc @ head).to(torch.float32)  # (B, c, V)
+    lz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+    return torch.sum((lz - ll) * mc)
+
+
+def _chunked_ce(h, head, labels, mask) -> torch.Tensor:
+    """sum over chunks of CE_CHUNK positions of the masked cross-entropy,
+    each chunk under ``torch.utils.checkpoint``, divided by the mask's sum
+    (at least 1): the (B, S, vocab) logits are never all held at once."""
+    T = h.shape[1]
+    c = min(CE_CHUNK, T)
+    while T % c:
+        c //= 2
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, T, c):
+        total = total + checkpoint(_ce_piece, h[:, i:i + c], head, labels[:, i:i + c],
+                                   mask[:, i:i + c], use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
 
 
 def build_model(cfg: ArchConfig) -> ModelDef:

@@ -7,18 +7,27 @@ as ``jax.tree`` visits them, so leaves come out in the reference's order.
 The structure is a nested tuple, hashable and comparable; ``tree_hash``
 hashes its ``repr``, so hash strings differ from the reference's, which
 hashes ``repr`` of a jax treedef (compare leaves and bytes across the two
-packages instead).
+packages instead). A leaf larger than ``HASH_CHUNK`` bytes enters the hash
+as the SHA-256 digests of its HASH_CHUNK-byte pieces, in order, taken on a
+pool of threads (hashlib releases the GIL): a full-width training state
+(~28 GiB) hashes in seconds rather than a minute, and a smaller leaf
+enters as its bytes, as before.
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Callable, List, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 Treedef = Tuple[Any, ...]
 _LEAF: Treedef = ("*",)
+
+HASH_CHUNK = 1 << 26  # 64 MiB
+_pool: Optional[ThreadPoolExecutor] = None
 
 
 def flatten(tree) -> Tuple[List[Any], Treedef]:
@@ -91,6 +100,23 @@ def tree_count(tree) -> int:
     return sum(int(np.prod(leaf.shape)) for leaf in flatten(tree)[0] if hasattr(leaf, "shape"))
 
 
+def _sha256(piece) -> bytes:
+    return hashlib.sha256(piece).digest()
+
+
+def _hash_leaf_bytes(h, arr: np.ndarray) -> None:
+    global _pool
+    if arr.dtype == object or arr.nbytes <= HASH_CHUNK:
+        h.update(arr.tobytes())
+        return
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    pieces = [flat[i:i + HASH_CHUNK] for i in range(0, flat.size, HASH_CHUNK)]
+    if _pool is None:
+        _pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 1)
+    for digest in _pool.map(_sha256, pieces):
+        h.update(digest)
+
+
 def tree_hash(tree) -> str:
     """Deterministic content hash of a tree of concrete leaves.
 
@@ -104,7 +130,7 @@ def tree_hash(tree) -> str:
         arr = as_numpy(leaf)
         h.update(str(leaf.dtype if isinstance(leaf, torch.Tensor) else arr.dtype).encode())
         h.update(str(arr.shape).encode())
-        h.update(arr.tobytes())
+        _hash_leaf_bytes(h, arr)
     return h.hexdigest()
 
 

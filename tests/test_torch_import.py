@@ -74,6 +74,16 @@ SERVING_MODULES = (
 )
 
 
+# the training path (train step, optimizers, synthetic data, the FT trainer,
+# elastic re-planning, speculative egress, the launchers)
+TRAIN_MODULES = (
+    "repro_torch.core.elastic", "repro_torch.core.speculative", "repro_torch.core.trainer",
+    "repro_torch.data.synthetic",
+    "repro_torch.launch.fig15", "repro_torch.launch.train",
+    "repro_torch.train", "repro_torch.train.optim", "repro_torch.train.step",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -87,7 +97,8 @@ def import_all():
 
 def test_import_every_module_loads_no_jax(import_all):
     n_modules, _ = import_all
-    assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES) + len(SERVING_MODULES)
+    assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES) + len(SERVING_MODULES) \
+        + len(TRAIN_MODULES)
 
 
 @pytest.mark.parametrize("module", PAPER_MODULES)
@@ -107,6 +118,24 @@ def test_serving_module_imported_without_jax(module, import_all):
     """Each module of the figures and the serving branch is among those the
     no-jax import loads."""
     assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_module_imported_without_jax(module, import_all):
+    """Each module of the training path is among those the no-jax import
+    loads."""
+    assert module in import_all[1]
+
+
+def test_trainer_reached_from_core_without_a_cycle():
+    """``repro_torch.core.FTTrainer`` resolves, and importing it first thing
+    leaves ``repro_torch.telemetry`` importable (no cycle through core)."""
+    code = ("from repro_torch.core import FTTrainer, FTReport\n"
+            "import repro_torch.telemetry\n"
+            "assert FTTrainer.__module__ == 'repro_torch.core.trainer'")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         env={"PYTHONPATH": str(REPO / "src"), "PATH": ""}, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_cold_telemetry_import_is_not_circular():

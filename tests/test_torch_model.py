@@ -62,7 +62,8 @@ def test_reduced_gemma_f32_matches_jax(cache_len):
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4, err_msg=f"step {step}")
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1), err_msg=f"step {step}")
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
-                                   "wkv6": 0, "rglru": 0}
+                                   "wkv6": 0, "rglru": 0, "rmsnorm_bwd": 0,
+                                   "flash_attention_bwd": 0}
 
 
 def test_reduced_gemma_bf16_matches_jax():

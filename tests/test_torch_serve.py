@@ -30,7 +30,8 @@ def test_serve_json_on_cpu(capsys):
     assert last["status"] == "ok" and last["exit_code"] == 0 and last["arch"] == "gemma-2b"
     assert last["prefill_s"] > 0 and last["tokens_per_s"] > 0
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
-                                   "wkv6": 0, "rglru": 0}
+                                   "wkv6": 0, "rglru": 0, "rmsnorm_bwd": 0,
+                                   "flash_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("arch,prompt_len", [("rwkv6-1.6b", 12), ("recurrentgemma-9b", 32)])
