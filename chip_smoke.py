@@ -6,9 +6,11 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a, and
-   checks in the SASS (cuobjdump) that the bf16 flash_attention kernel
-   runs on the tensor cores (HGMMA);
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a,
+   checks in the SASS (cuobjdump) that every instantiation of the bf16
+   flash_attention kernel and of the bf16 flash_attention backward kernels
+   runs on the tensor cores (HGMMA), and in ptxas's report that the
+   backward's hd-256 instantiations do not spill;
 3. kernels: each of the seven kernels (the five forward kernels and the
    rmsnorm and flash_attention backward kernels) against its plain torch
    version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
@@ -304,10 +306,17 @@ def timings(kernel, plain, library=None, iters: int = 20) -> dict:
                 library_device_ms=None if library is None else device_ms(library, iters))
 
 
+# kernel -> instantiations that must run on the tensor cores (HGMMA in their
+# SASS): the bf16 forward at 5 head dims, the bf16 backward's dK/dV and dQ
+# kernels at 5 head dims each
+TENSOR_CORE_KERNELS = {"flash_tc_kernel": 5, "flash_bwd_tc_kernel": 10}
+
+
 def sass_check(lib_path: Path) -> None:
-    """The bf16 flash_attention kernel must run on the tensor cores: count
-    HGMMA / HMMA instructions in the SASS of each flash_tc_kernel
-    instantiation (cuobjdump on the built library)."""
+    """The bf16 attention kernels, forward and backward, must run on
+    Hopper's tensor cores: count HGMMA / HMMA instructions in the SASS of
+    each instantiation of TENSOR_CORE_KERNELS (cuobjdump on the built
+    library) and require HGMMA in every one."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -315,38 +324,62 @@ def sass_check(lib_path: Path) -> None:
                          timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
-    counts, name = {}, None
+    counts = {kernel: {} for kernel in TENSOR_CORE_KERNELS}
+    name = None
     for line in res.stdout.splitlines():
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            name = name if "flash_tc_kernel" in name else None
+            fn = line.split("Function :")[1].strip()
+            kernel = next((k for k in TENSOR_CORE_KERNELS if k in fn), None)
+            name = (kernel, fn) if kernel else None
             if name:
-                counts[name] = {"HGMMA": 0, "HMMA": 0}
+                counts[kernel][fn] = {"HGMMA": 0, "HMMA": 0}
         elif name:
             for op in ("HGMMA", "HMMA"):
                 if op + "." in line:
-                    counts[name][op] += 1
-    print(f"sass: {len(counts)} flash_tc_kernel instantiation(s)")
-    for fn, c in counts.items():
-        print(f"  {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
-    if not counts or not all(c["HGMMA"] + c["HMMA"] > 0 for c in counts.values()):
-        fail("the bf16 flash_attention kernel has no tensor-core instruction in its SASS")
+                    counts[name[0]][name[1]][op] += 1
+    for kernel, want in TENSOR_CORE_KERNELS.items():
+        found = counts[kernel]
+        print(f"sass: {len(found)} {kernel} instantiation(s)")
+        for fn, c in found.items():
+            print(f"  {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
+        if len(found) != want:
+            fail(f"sass: {len(found)} {kernel} instantiations, want {want}")
+        if not all(c["HGMMA"] > 0 for c in found.values()):
+            fail(f"a bf16 {kernel} instantiation has no HGMMA instruction in its SASS")
 
 
-def ptxas_report(lib_path: Path, kernel: str) -> None:
+def ptxas_report(lib_path: Path, kernel: str) -> list:
     """Registers and spill bytes of each instantiation of ``kernel``, from
-    the ptxas output the build keeps beside the library."""
-    name = None
+    the ptxas output the build keeps beside the library: printed, and
+    returned as [(mangled name, registers, spill store bytes, spill load
+    bytes)]."""
+    name, out = None, []
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[1].strip()
             name = name if kernel in name else None
         elif name and "spill stores" in line:
             spills = line.strip()
+            stores = int(spills.split("bytes spill stores")[0].split(",")[-1])
+            loads = int(spills.split("bytes spill loads")[0].split(",")[-1])
         elif name and "Used" in line and "registers" in line:
             regs = line.split("Used")[1].split("registers")[0].strip()
             print(f"ptxas: {name[:100]}: {regs} registers; {spills}")
+            out.append((name, int(regs), stores, loads))
             name = None
+    return out
+
+
+def spill_check(lib_path: Path) -> None:
+    """The bf16 backward's hd-256 instantiations (``Li256E`` in the mangled
+    name: the training shapes) must not spill."""
+    rows = ptxas_report(lib_path, "flash_bwd_tc_kernel")
+    hd256 = [r for r in rows if "Li256E" in r[0]]
+    if len(hd256) != 2:
+        fail(f"ptxas: {len(hd256)} hd-256 flash_bwd_tc_kernel instantiations in the log, want 2")
+    for name, regs, stores, loads in hd256:
+        if stores or loads:
+            fail(f"ptxas: {name} spills ({stores} bytes stored, {loads} loaded)")
 
 
 def compare(name: str, got, want, tol) -> float:
@@ -589,7 +622,15 @@ def backward_rows(dev, randn, qkv):
             return
         vis = fa._mask(S_, causal, window, dev).sum().item()  # visible (query, key) pairs
         pk = str(dtype)[6:]
+        # the function's own traffic: each input read once, each output written once
         b_ms, b_by = bound(nbytes(q, k, v, out, dout, lse, *got), 10 * hd_ * vis * B_ * H_, pk)
+        split = [(n.replace("void (anonymous namespace)::", "")[:36], round(ms, 5)) for n, ms in
+                 device_top(lambda: fa.flash_attention_bwd(*args, causal=causal, window=window))]
+        print(f"  flash_attention_bwd {label}: device ms by kernel {split}")
+        if dtype == torch.bfloat16:  # a cost of the design, not of the function: not in the bound
+            scratch = 2 * 2 * B_ * H_ * S_ * hd_ * 4  # float32 dK/dV partials, written and read
+            print(f"  flash_attention_bwd {label}: per-head partials {scratch / 1e6:.1f} MB "
+                  f"round trip, {scratch / HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate")
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
         og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
         rows.append(dict(
@@ -614,7 +655,11 @@ def backward_rows(dev, randn, qkv):
     case("bf16 window 128 (4,8,512,256)", BATCH, PROMPT, H, K, hd, window=128)
     case("bf16 ragged S=300 g 8", 2, 300, H, K, hd)
     case("f32 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, dtype=torch.float32, window=48)
+    case("bf16 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, window=48)
     case("f32 not causal (1,2,100,32)", 1, 100, 2, 2, 32, dtype=torch.float32, causal=False)
+    case("bf16 not causal (1,2,100,64)", 1, 100, 2, 2, 64, causal=False)
+    case("bf16 not causal, window 40, GQA g 2 (2,4,300,256)", 2, 300, 4, 2, 256, causal=False,
+         window=40)
     for hd_ in fa.HEAD_DIMS[:-1]:
         case(f"bf16 hd {hd_} g 4 (1,4,200) window 80", 1, 200, 4, 1, hd_, window=80)
         case(f"f32 hd {hd_} g 1 (2,2,77)", 2, 77, 2, 2, hd_, dtype=torch.float32)
@@ -1869,6 +1914,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0_s
     print(f"build: {build_s:.1f} s -> {_build.library_path().relative_to(ROOT)}")
     ptxas_report(_build.library_path(), "flash_tc_kernel")
+    spill_check(_build.library_path())
     ptxas_report(_build.library_path(), "decode_kernel")
     ptxas_report(_build.library_path(), "rglru_kernel")
     ptxas_report(_build.library_path(), "wkv6_kernel")

@@ -15,9 +15,14 @@ it, the forward also writes each row's log-sum-exp (``lse``, float32
 
 The backward (``flash_attention_bwd``) has no Pallas counterpart: the
 reference trains by ``jax.grad`` of its jnp attention. It gives dQ, dK and
-dV (dK/dV summed over a group's query heads inside one block, no atomics,
-so bit-identical from run to run) on float32 FMA for both dtypes;
-``ops.flash_attention`` binds it to the forward in an autograd Function.
+dV, bit-identical from run to run (no atomics; every sum in a fixed
+order). bfloat16 runs on the tensor cores: a dK/dV kernel per (64 keys,
+query head, batch) writing float32 per-head partials to a scratch buffer
+that a second pass sums over each group in head order, and a dQ kernel per
+(64 query rows, head, batch); P and dS enter the products as a bf16 high
+and low part. float32 runs on FMA, dK/dV summed over a group inside one
+block. ``ops.flash_attention`` binds it to the forward in an autograd
+Function.
 """
 from __future__ import annotations
 
@@ -49,6 +54,20 @@ def _check(q, k, v):
     return B, H, K, S, hd
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bfloat16 kernels' TMA tensor maps can read ``t`` in
+    place: a 16-byte aligned base and batch, head and sequence strides that
+    are multiples of 8 elements (16 bytes)."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when :func:`tma_ready`, else a fresh contiguous copy
+    (a new allocation is aligned; a contiguous view of an offset base may
+    not be)."""
+    return t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse: bool = False):
     """CUDA kernel. q: (B, H, S, hd); k/v: (B, K, S, hd). Returns (B, H, S, hd)
     in q's dtype, as a view of a (B, S, H, hd) buffer: the model's next
@@ -62,7 +81,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
         # the bfloat16 kernel copies 16-byte chunks of each row
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+        if q.dtype == torch.bfloat16 and not tma_ready(t):
             raise ValueError(f"flash_attention: bfloat16 {name} needs a 16-byte aligned base "
                              f"and batch/head/sequence strides that are multiples of 8, got "
                              f"strides {t.stride()}")
@@ -85,7 +104,10 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     """CUDA kernel. q, o, dout: (B, H, S, hd); k/v: (B, K, S, hd), one dtype;
     lse: (B, H, S) float32 from the forward. Returns (dq, dk, dv) in the
     inputs' dtype, each a view of a (B, S, heads, hd) buffer (the layout of
-    the model's projections)."""
+    the model's projections). The bfloat16 kernels read q, k, v and dout
+    through TMA tensor maps: any of the four that a map cannot read in place
+    (:func:`tma_ready`) is copied first, and the route does not change. o is
+    read by element strides, as on the float32 route."""
     global bwd_launches
     if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
         raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
@@ -97,6 +119,11 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, H, S)}")
     q, k, v, o, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, dout))
+    part = None
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = (tma_copy(t) for t in (q, k, v, dout))
+        # the per-head float32 dV and dK partials that the second pass sums
+        part = torch.empty((2, B, H, S, hd), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -106,7 +133,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
                                    for s in t.stride()[:3]))
     err = _build.lib().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), None if part is None else part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, K, S, hd, strides, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _build.dtype_code(q), _build.stream_arg(q.device),
     )
