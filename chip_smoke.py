@@ -7,10 +7,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: a CUDA card is required; prints its name and power limit;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a,
-   checks in the SASS (cuobjdump) that every instantiation of the bf16
-   flash_attention kernel and of the bf16 flash_attention backward kernels
-   runs on the tensor cores (HGMMA), and in ptxas's report that the
-   backward's hd-256 instantiations do not spill;
+   checks in the SASS (cuobjdump) that every instantiation of the
+   flash_attention kernels runs on the tensor cores (HGMMA for the bf16
+   forward and backward, HMMA for the float32 forward's 3xTF32), and in
+   ptxas's report that the hd-256 instantiations of the bf16 backward and
+   of the float32 forward do not spill;
 3. kernels: each of the seven kernels (the five forward kernels and the
    rmsnorm and flash_attention backward kernels) against its plain torch
    version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
@@ -18,9 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
    with bf16 inputs) plus ragged / window / ring / empty-row /
-   strong-decay / float32 / head-dim cases, the reference's own test
-   shapes of wkv6 (head sizes 8, 16, 32) and rglru, wkv6's S = 1 and
-   odd-grid cases and the check that its serve grid is one wave, and
+   strong-decay / float32 / head-dim cases (flash_attention's float32
+   route also at hd 256 with a window, with a base one element off, at the
+   train_llm surface (8, 8, 2048, 256) and at gemma-2b's serve shape in
+   float32, each with its lse and two calls giving the same bits), the
+   reference's own test shapes of wkv6 (head sizes 8, 16, 32) and rglru,
+   wkv6's S = 1 and odd-grid cases and the check that its serve grid is
+   one wave, and
    rglru's S = 1, short-tile, unaligned-row, long-sequence and
    extreme-decay cases; the backward kernels at the training shapes
    (rmsnorm_bwd at (2048, 2048) bf16 and f32; flash_attention_bwd at
@@ -109,8 +114,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version within tests/test_kernels.py's float32 tolerances (those
    calls are made after the counts are read), and one call of it at one
    shard timed beside one library call on the same inputs (SDPA, causal;
-   masked SDPA for decode). Prints the per-shard step times beside the
-   card;
+   masked SDPA for decode) and its bound. Prints the per-shard step times
+   beside the card;
 9. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -125,9 +130,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet (dense): memory rate and peak rates by operand type
+# H100 SXM data sheet (dense): memory rate and peak rates by operand type.
+# "float32 3xTF32" is the card's fastest float32-accurate product: three
+# TF32 tensor-core passes (hi·hi + hi·lo + lo·hi) at 495 TFLOP/s, faster
+# than float32 FMA's 67; the float32 attention rows count it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "float32 3xTF32": 495e12 / 3}
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}  # tests/test_kernels.py tolerances
 DECODE_TOL_F32 = 3e-5
@@ -306,17 +314,19 @@ def timings(kernel, plain, library=None, iters: int = 20) -> dict:
                 library_device_ms=None if library is None else device_ms(library, iters))
 
 
-# kernel -> instantiations that must run on the tensor cores (HGMMA in their
-# SASS): the bf16 forward at 5 head dims, the bf16 backward's dK/dV and dQ
-# kernels at 5 head dims each
-TENSOR_CORE_KERNELS = {"flash_tc_kernel": 5, "flash_bwd_tc_kernel": 10}
+# kernel -> (instantiations, the tensor-core instruction each one's SASS
+# must hold): the bf16 forward at 5 head dims and the bf16 backward's dK/dV
+# and dQ kernels at 5 each on wgmma (HGMMA); the float32 forward at 5 head
+# dims on mma.sync (HMMA)
+TENSOR_CORE_KERNELS = {"flash_tc_kernel": (5, "HGMMA"), "flash_bwd_tc_kernel": (10, "HGMMA"),
+                       "flash_f32_kernel": (5, "HMMA")}
 
 
 def sass_check(lib_path: Path) -> None:
-    """The bf16 attention kernels, forward and backward, must run on
-    Hopper's tensor cores: count HGMMA / HMMA instructions in the SASS of
-    each instantiation of TENSOR_CORE_KERNELS (cuobjdump on the built
-    library) and require HGMMA in every one."""
+    """The attention kernels of TENSOR_CORE_KERNELS must run on Hopper's
+    tensor cores: count HGMMA / HMMA instructions in the SASS of each
+    instantiation (cuobjdump on the built library) and require the
+    kernel's instruction in every one."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -337,15 +347,15 @@ def sass_check(lib_path: Path) -> None:
             for op in ("HGMMA", "HMMA"):
                 if op + "." in line:
                     counts[name[0]][name[1]][op] += 1
-    for kernel, want in TENSOR_CORE_KERNELS.items():
+    for kernel, (want, op) in TENSOR_CORE_KERNELS.items():
         found = counts[kernel]
         print(f"sass: {len(found)} {kernel} instantiation(s)")
         for fn, c in found.items():
             print(f"  {fn}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
         if len(found) != want:
             fail(f"sass: {len(found)} {kernel} instantiations, want {want}")
-        if not all(c["HGMMA"] > 0 for c in found.values()):
-            fail(f"a bf16 {kernel} instantiation has no HGMMA instruction in its SASS")
+        if not all(c[op] > 0 for c in found.values()):
+            fail(f"a {kernel} instantiation has no {op} instruction in its SASS")
 
 
 def ptxas_report(lib_path: Path, kernel: str) -> list:
@@ -371,15 +381,16 @@ def ptxas_report(lib_path: Path, kernel: str) -> list:
 
 
 def spill_check(lib_path: Path) -> None:
-    """The bf16 backward's hd-256 instantiations (``Li256E`` in the mangled
-    name: the training shapes) must not spill."""
-    rows = ptxas_report(lib_path, "flash_bwd_tc_kernel")
-    hd256 = [r for r in rows if "Li256E" in r[0]]
-    if len(hd256) != 2:
-        fail(f"ptxas: {len(hd256)} hd-256 flash_bwd_tc_kernel instantiations in the log, want 2")
-    for name, regs, stores, loads in hd256:
-        if stores or loads:
-            fail(f"ptxas: {name} spills ({stores} bytes stored, {loads} loaded)")
+    """The hd-256 instantiations (``Li256E`` in the mangled name: the
+    training and serve shapes) of the bf16 backward's two kernels and of
+    the float32 forward must not spill."""
+    for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1)):
+        hd256 = [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]]
+        if len(hd256) != want:
+            fail(f"ptxas: {len(hd256)} hd-256 {kernel} instantiations in the log, want {want}")
+        for name, regs, stores, loads in hd256:
+            if stores or loads:
+                fail(f"ptxas: {name} spills ({stores} bytes stored, {loads} loaded)")
 
 
 def compare(name: str, got, want, tol) -> float:
@@ -410,9 +421,15 @@ def exceeds(got, want, tol) -> bool:
     return float(((got.float() - want.float()).abs() - rtol * want.float().abs()).max()) > atol
 
 
-def bound(nbytes: float, ops: float, dtype: str):
+def bound(nbytes: float, ops: float, dtype: str) -> dict:
+    """A row's bound: the larger of its bytes over the memory rate and its
+    operations over ``dtype``'s peak (``bound_rate`` names the one taken)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes * 1e3, bound_by="bytes",
+                    bound_rate=f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+    return dict(bound_ms=t_ops * 1e3, bound_by="operations",
+                bound_rate=f"{PEAK_OPS_PER_S[dtype] / 1e12:.4g} TFLOP/s {dtype}")
 
 
 def nbytes(*ts) -> int:
@@ -466,12 +483,12 @@ def kernel_phase(dev):
         xr_, sr_ = randn(*shape), randn(4096, dtype=torch.float32)
         compare(f"rmsnorm bf16 {shape}", rn.rmsnorm(xr_, sr_), rn.rmsnorm_ref(xr_, sr_),
                 TOL["bfloat16"])
-    b_ms, b_by = bound(2 * nbytes(x) + nbytes(scale), 4 * x.numel(), "float32")
+    bnd = bound(2 * nbytes(x) + nbytes(scale), 4 * x.numel(), "float32")
     w16 = scale.to(bf)
     rows.append(dict(
         name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm.py:27", shape="x (2048, 2048) bf16",
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, **bnd,
         **timings(lambda: rn.rmsnorm(x, scale), lambda: rn.rmsnorm_ref(x, scale),
                   lambda: F.rms_norm(x, (d,), weight=w16, eps=1e-6)),
     ))
@@ -492,23 +509,38 @@ def kernel_phase(dev):
             fa.flash_attention_ref(qr, kr, vr), TOL["bfloat16"])
     compare("flash_attention bf16 window 128", fa.flash_attention(q, k, v, window=128),
             fa.flash_attention_ref(q, k, v, window=128), TOL["bfloat16"])
+
+    def f32_case(label, q_, k_, v_, **kw):
+        """The float32 kernel (3xTF32) and its lse against the plain
+        version; two calls must give the same bits."""
+        out, lse = fa.flash_attention(q_, k_, v_, return_lse=True, **kw)
+        ref, lse_ref = fa.flash_attention_ref(q_, k_, v_, return_lse=True, **kw)
+        err = compare(f"flash_attention f32 {label}", out, ref, TOL["float32"])
+        compare(f"flash_attention f32 lse {label}", lse, lse_ref, LSE_TOL)
+        if not torch.equal(fa.flash_attention(q_, k_, v_, **kw), out):
+            fail(f"flash_attention f32 {label}: two calls on the same inputs differ")
+        return err
+
     qf, kf, vf = qkv(1, 200, 4, 2, 64, dtype=torch.float32)
-    compare("flash_attention f32 causal GQA (1,4,200,64)/(1,2,200,64)",
-            fa.flash_attention(qf, kf, vf), fa.flash_attention_ref(qf, kf, vf), TOL["float32"])
-    compare("flash_attention f32 window 48", fa.flash_attention(qf, kf, vf, window=48),
-            fa.flash_attention_ref(qf, kf, vf, window=48), TOL["float32"])
+    f32_case("causal GQA (1,4,200,64)/(1,2,200,64)", qf, kf, vf)
+    f32_case("window 48", qf, kf, vf, window=48)
+    f32_case("hd 256 window 128 GQA g 2 (2,4,300)", *qkv(2, 300, 4, 2, 256, dtype=torch.float32),
+             window=128)
+    # a base one element off 16 bytes: the wrapper copies q, the same kernel runs
+    qo = randn(1 * 200 * 4 * 64 + 1, dtype=torch.float32)[1:].view(1, 200, 4, 64).transpose(1, 2)
+    f32_case("q base one element off (1,4,200,64)", qo, kf, vf)
     for hd_ in fa.HEAD_DIMS[:-1]:  # the other bf16 instantiations, ragged S = 200
         qh, kh, vh = qkv(1, 200, 4, 2, hd_)
         compare(f"flash_attention bf16 GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
                 fa.flash_attention(qh, kh, vh, window=80),
                 fa.flash_attention_ref(qh, kh, vh, window=80), TOL["bfloat16"])
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
-    b_ms, b_by = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
+    bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
     rows.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
         shape="q (4,8,512,256), k/v (4,1,512,256) bf16, causal", max_abs_err=err,
-        bound_ms=b_ms, bound_by=b_by,
+        **bnd,
         **timings(lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_ref(q, k, v),
                   lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                          enable_gqa=True)),
@@ -522,19 +554,40 @@ def kernel_phase(dev):
                   fa.flash_attention(qg, kg, vg, window=Sg),
                   fa.flash_attention_ref(qg, kg, vg, window=Sg), TOL["bfloat16"])
     pairs = Sg * (Sg + 1) // 2
-    b_ms, b_by = bound(2 * nbytes(qg) + nbytes(kg, vg),
-                       4 * rg.resolved_head_dim * pairs * B * Hg, "bfloat16")
+    bnd = bound(2 * nbytes(qg) + nbytes(kg, vg), 4 * rg.resolved_head_dim * pairs * B * Hg,
+                "bfloat16")
     rows.append(dict(
         name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:75",
         shape="q (4,16,2048,256), k/v (4,1,2048,256) bf16, causal, window 2048",
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, **bnd,
         **timings(lambda: fa.flash_attention(qg, kg, vg, window=Sg),
                   lambda: fa.flash_attention_ref(qg, kg, vg, window=Sg),
                   lambda: F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
                                                          enable_gqa=True), iters=5),
     ))
     del qg, kg, vg
+    # the train_llm surface at gemma-2b's width (heads = KV heads) and
+    # gemma-2b's serve shape, in float32
+    for label, (B_, S_, H_, K_) in (
+            ("q, k/v (8,8,2048,256) f32, causal (train_llm surface)", (8, 2048, H, H)),
+            (f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", (B, S, H, K))):
+        q32, k32, v32 = qkv(B_, S_, H_, K_, hd, dtype=torch.float32)
+        err = f32_case(label, q32, k32, v32)
+        pairs = S_ * (S_ + 1) // 2
+        bnd = bound(2 * nbytes(q32) + nbytes(k32, v32), 4 * hd * pairs * B_ * H_,
+                    "float32 3xTF32")
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:75", shape=label, max_abs_err=err,
+            **bnd,
+            **timings(lambda: fa.flash_attention(q32, k32, v32),
+                      lambda: fa.flash_attention_ref(q32, k32, v32),
+                      lambda: F.scaled_dot_product_attention(q32, k32, v32, is_causal=True,
+                                                             enable_gqa=True), iters=10),
+        ))
+        del q32, k32, v32
     rows += backward_rows(dev, randn, qkv)
 
     # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
@@ -549,7 +602,7 @@ def kernel_phase(dev):
         print(f"  {r['name']} {r['shape']}: {r['ms']:.5f} ms per call, {fmt(r['device_ms'])} on "
               f"the device (plain {r['plain_ms']:.4f}; library {fmt(r['library_ms'])} per call, "
               f"{fmt(r['library_device_ms'])} on the device; bound {r['bound_ms']:.5f} by "
-              f"{r['bound_by']})")
+              f"{r['bound_by']} at {r['bound_rate']})")
     return rows
 
 
@@ -581,13 +634,13 @@ def backward_rows(dev, randn, qkv):
         again = rn.rmsnorm_bwd(x, scale, dy)
         if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
             fail(f"rmsnorm_bwd {name}: two calls on the same inputs differ")
-        b_ms, b_by = bound(3 * nbytes(x) + 2 * nbytes(scale), 10 * x.numel(), "float32")
+        bnd = bound(3 * nbytes(x) + 2 * nbytes(scale), 10 * x.numel(), "float32")
         xg, wg = x.clone().requires_grad_(), scale.to(dt).requires_grad_()
         yg = F.rms_norm(xg, (d,), weight=wg, eps=1e-6)
         rows.append(dict(
             name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:27 (its gradient: jax.grad of the jnp norm)",
-            shape=f"x, dy (2048, 2048) {name}", max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            shape=f"x, dy (2048, 2048) {name}", max_abs_err=err, **bnd,
             **timings(lambda: rn.rmsnorm_bwd(x, scale, dy), lambda: rn.rmsnorm_bwd_ref(x, scale, dy),
                       lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True)),
         ))
@@ -621,9 +674,9 @@ def backward_rows(dev, randn, qkv):
         if not row:
             return
         vis = fa._mask(S_, causal, window, dev).sum().item()  # visible (query, key) pairs
-        pk = str(dtype)[6:]
+        pk = "bfloat16" if dtype == torch.bfloat16 else "float32 3xTF32"
         # the function's own traffic: each input read once, each output written once
-        b_ms, b_by = bound(nbytes(q, k, v, out, dout, lse, *got), 10 * hd_ * vis * B_ * H_, pk)
+        bnd = bound(nbytes(q, k, v, out, dout, lse, *got), 10 * hd_ * vis * B_ * H_, pk)
         split = [(n.replace("void (anonymous namespace)::", "")[:36], round(ms, 5)) for n, ms in
                  device_top(lambda: fa.flash_attention_bwd(*args, causal=causal, window=window))]
         print(f"  flash_attention_bwd {label}: device ms by kernel {split}")
@@ -638,7 +691,7 @@ def backward_rows(dev, randn, qkv):
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces="src/repro/kernels/flash_attention.py:75 (its gradient: jax.grad of "
                      "the jnp attention)",
-            shape=label, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+            shape=label, max_abs_err=max(errs), **bnd,
             **timings(lambda: fa.flash_attention_bwd(*args, causal=causal, window=window),
                       lambda: fa.flash_attention_bwd_ref(*args, causal=causal, window=window),
                       lambda: torch.autograd.grad(og, (qg, kg, vg), dout, retain_graph=True),
@@ -797,13 +850,13 @@ def decode_rows(dev, randn):
               f"{drop_err:.3g} against the limit {DECODE_TOL_BF16}")
         if not exceeds(drop, want, DECODE_TOL_BF16):
             fail(f"flash_decode {shape}: a dropped chunk stays inside {DECODE_TOL_BF16}")
-        b_ms, b_by = bound(2 * nbytes(qd) + 2 * n_valid * K * hd * kc.element_size()
+        bnd = bound(2 * nbytes(qd) + 2 * n_valid * K * hd * kc.element_size()
                            + nbytes(kpos), 4 * hd * H * n_valid, "bfloat16")
         mask, q4 = valid[:, None, None, :], qd[:, :, None]
         rows.append(dict(
             name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
             replaces="src/repro/kernels/decode_attention.py:60", shape=shape, max_abs_err=err,
-            bound_ms=b_ms, bound_by=b_by,
+            **bnd,
             **timings(lambda: da.flash_decode(qd, kc, vc, kpos, pos, window=window),
                       lambda: da.flash_decode_ref(qd, kc, vc, kpos, pos, window=window),
                       lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
@@ -878,13 +931,13 @@ def wkv6_row(randn, dev):
               TOL["bfloat16"], WKV6_TOL_F32)
     r, k, v, wlog, u, st = args
     n_elem = r.numel()  # (b, h, t, n)
-    b_ms, b_by = bound(nbytes(r, k, v, wlog, u) + 2 * nbytes(st) + nbytes(r),
+    bnd = bound(nbytes(r, k, v, wlog, u) + 2 * nbytes(st) + nbytes(r),
                        4 * n_elem * N, "float32")
     return dict(
         name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6.py:73",
         shape=f"r/k/v ({BATCH},{H},{PROMPT},{N}) bf16, wlog/u/state f32", max_abs_err=err,
-        bound_ms=b_ms, bound_by=b_by,
+        **bnd,
         **timings(lambda: rwkv6.wkv6(*args), lambda: rwkv6.wkv6_ref(*args)),
     )
 
@@ -931,14 +984,14 @@ def rglru_row(randn, dev):
         args = inputs(BATCH, 2048, W, dtype)
         err = check(f"({BATCH},2048,{W})", args)
         log_a, m, h0 = args
-        b_ms, b_by = bound(nbytes(log_a, m, h0) + 4 * log_a.numel() + nbytes(h0),
+        bnd = bound(nbytes(log_a, m, h0) + 4 * log_a.numel() + nbytes(h0),
                            3 * log_a.numel(), "float32")
         tag = "f32" if dtype == f32 else "bf16"
         rows.append(dict(
             name="rglru", route="cuda", source="src/repro_torch/csrc/rglru.cu",
             replaces="src/repro/kernels/rglru.py:46",
             shape=f"log_a/m ({BATCH},2048,{W}) {tag}, h0 f32", max_abs_err=err,
-            bound_ms=b_ms, bound_by=b_by,
+            **bnd,
             **timings(lambda: lru.rglru(*args), lambda: lru.rglru_ref(*args)),
         ))
         del args, log_a, m, h0
@@ -1088,7 +1141,8 @@ def profile_serve(model, params, prompt, res) -> None:
 
 def full_width_f32_phase(dev, arch: str, prompt_len: int):
     """A model at full width in float32: the kernel path against the plain
-    path on the same weights. Every kernel is exact to ~1e-6 in float32, so
+    path on the same weights. Every kernel keeps float32's own error (~1e-6;
+    flash_attention's float32 route by three TF32 tensor-core passes), so
     the two must give the same greedy tokens and logits within 1e-3."""
     import dataclasses
 
@@ -1842,6 +1896,18 @@ def surface_library(kernel: str, batch: int, seq_len: int, heads: int, head_dim:
     return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
+def surface_bound(kernel: str, batch: int, seq_len: int, heads: int, head_dim: int) -> dict:
+    """A measured surface's bound at one shard (float32, heads = KV heads):
+    decode reads one query row and the whole cache; prefill attention is
+    causal, its products counted at the float32-accurate tensor-core rate."""
+    elems = batch * heads * seq_len * head_dim
+    if kernel == "decode_attention":
+        return bound(4 * (2 * elems + 2 * batch * heads * head_dim),
+                     4 * head_dim * seq_len * batch * heads, "float32")
+    return bound(4 * 4 * elems, 4 * head_dim * seq_len * (seq_len + 1) // 2 * batch * heads,
+                 "float32 3xTF32")
+
+
 def workloads_phase(card: str) -> dict:
     """The measured step surfaces on the card: the CUDA attention kernels'
     launches on this path, per-shard step times, and one output per case
@@ -1883,12 +1949,14 @@ def workloads_phase(card: str) -> dict:
                                                                head_dim)))
             del fn, got, want
             torch.cuda.empty_cache()
-            rows.append(dict(rec, max_abs_err=err, **per_call))
+            bnd = surface_bound(kernel, batch, seq_len, heads, head_dim)
+            rows.append(dict(rec, max_abs_err=err, **per_call, **bnd))
             print(f"workloads {name} ({kernel}) batch {batch}, seq {seq_len}, heads {heads}, "
                   f"head_dim {head_dim}, f32 on {card}: per-shard step s at n_shards "
                   f"{rec['n_shards']}: {rec['step_time_s']}; {counts[counter]} launches; one "
                   f"call at 1 shard {per_call['kernel_ms']:.5f} ms, the library's "
-                  f"{per_call['library_ms']:.5f} ms")
+                  f"{per_call['library_ms']:.5f} ms, bound {bnd['bound_ms']:.5f} by "
+                  f"{bnd['bound_by']} at {bnd['bound_rate']}")
     print(json.dumps({"workloads": {"card": card, "surfaces": rows, "launches": launches}}))
     return launches
 
@@ -1940,7 +2008,8 @@ def main() -> int:
         if r["launches"] == 0:
             fail(f"{r['name']}: no launch on the serve or train paths")
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate", "library_ms",
+            "library_device_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,6 +38,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A 16-byte copy of which src_bytes (16, or 0 for a row of zeros) are read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Devices a kernel's per-device launch settings are kept for.
 constexpr int kMaxDevices = 64;
 

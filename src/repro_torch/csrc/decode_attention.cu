@@ -77,6 +77,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using rt::cp_async16;
+using rt::cp_async_commit;
+using rt::cp_async_wait;
+
 constexpr int THREADS = 256;
 constexpr int CLUSTER = 8;     // chunks per thread block cluster
 constexpr int MAX_CHUNK = 64;  // two ballots compact a chunk's valid slots
@@ -87,20 +91,6 @@ static_assert(MAX_CHUNK == 64, "the valid-slot compaction uses two warp ballots"
 struct Strides {
   long long qb, qh, kb, kh, ks, vb, vh, vs, pb, ps, ob, oh;
 };
-
-// A 16-byte copy of which src_bytes (16, or 0 for a row of zeros) are read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 8 consecutive floats from 16-byte aligned memory
 __device__ __forceinline__ void load8(const float* p, float* x) {

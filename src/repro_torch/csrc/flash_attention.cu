@@ -1,19 +1,22 @@
 // Blocked causal / sliding-window GQA attention, forward only, for prefill
 // self-attention with positions 0..S-1. Two kernels in one source, chosen
-// by the input type: bfloat16 runs on Hopper's tensor cores (wgmma),
-// float32 on plain FMA. Asked for it (a non-null lse), either also writes
-// each row's float32 log-sum-exp, the input of the backward in
+// by the input type, both on Hopper's tensor cores: bfloat16 on wgmma,
+// float32 on mma.sync as 3xTF32. Asked for it (a non-null lse), either also
+// writes each row's float32 log-sum-exp, the input of the backward in
 // flash_attention_bwd.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention
 // (pallas_call at :99, body _flash_kernel at :26).
 //
-// Bound on the H100: operations at the long served shape. recurrentgemma-9b's
+// Bound on the H100: operations at the long shapes. recurrentgemma-9b's
 // attn_local layers (B=4, H=16, K=1, S=2048, hd=256, window 2048 = S, bf16)
 // do 4·B·H·hd·S(S+1)/2 = 137.5 GFLOP over 142 MB of inputs and output:
 // ~0.139 ms at 989 TFLOP/s against ~0.042 ms at 3.35 TB/s. gemma-2b's shape
 // (B=4, H=8, K=1, S=512) is ~4.3 GFLOP over ~19 MB: bytes and operations
-// both bound it to a few microseconds.
+// both bound it to a few microseconds. In float32 the card's fastest
+// float32-accurate product is three TF32 passes at 495 TFLOP/s, ~165
+// TFLOP/s: the train_llm surface (B=8, H=K=8, S=2048, hd=256, causal) is
+// 137.5 GFLOP, ~0.83 ms.
 //
 // bf16 design (flash_tc_kernel): one block of three warpgroups per
 // (128 query rows, head, batch), two consumers of 64 rows each and one
@@ -47,11 +50,42 @@
 //   recurrentgemma-9b's shape about 0.33 ms on the device, 2.3× the
 //   operations bound (~420 TFLOP/s).
 //
-// float32 design (flash_fwd_kernel, unchanged from the first port): one
-// block per (64 query rows, head, batch), each thread owning a query row's
-// quarter of the columns; K/V tiles of 32 keys staged as float32 in
-// shared memory and multiplied with FMA, so the float32 results stay exact
-// to ~1e-6 (TF32 tensor cores would not be).
+// float32 design (flash_f32_kernel): one block of eight warps per (128
+// query rows, head, batch), each warp owning 16 rows; every product on
+// mma.sync m16n8k8 tf32 (wgmma takes tf32 only K-major from shared memory,
+// and V is MN-major for P·V).
+// - Exactness: one TF32 rounding of each operand leaves ~1e-3 of error, 50x
+//   the float32 tolerance. Each operand x is split as it is loaded into hi
+//   = tf32(x) and lo = tf32(x - hi) (round to nearest, ties away, as
+//   cvt.rna does, by two integer operations), and each product is
+//   hi·hi + hi·lo + lo·hi (lo·lo, ~2^-22 relative, is dropped): the error
+//   of float32 itself (tests/test_torch_flash_f32.py emulates it). The
+//   products and the tiles run in one fixed order, so a call's bits repeat.
+// - Bound: three passes make the tensor-core work 3x the function's, and
+//   every fragment is split by integer ops, ~0.8 splits an mma. A block of
+//   128 rows halves the K/V bytes that each flop needs from L2 against 64
+//   rows (at 64 rows the tensor cores' rate asks ~5 TB/s of L2), and eight
+//   warps give each SM sub-partition two warps to interleave splits, loads
+//   and mma.
+// - Shared memory: Q resident (128 rows), K and V tiles of 32 keys with one
+//   buffer each, filled by 16-byte cp.async: K of tile t + 1 lands during
+//   tile t's softmax and P·V, V of tile t + 1 during tile t + 1's Q·Kᵀ. At
+//   hd 256: 136 + 34 + 33 = 203 KB, one block an SM. Row strides are padded
+//   (Q, K ≡ 16 mod 32 floats; V ≡ 4 mod 16) so that the 16-byte fragment
+//   loads are free of bank conflicts.
+// - Layouts: the mma's k index is relabelled (see flash_f32_kernel), so
+//   that Q, K and V fragments are 16-byte loads and P passes from S's
+//   accumulator layout to P·V's A fragment in place, with no shuffle and
+//   no patch of shared memory.
+// - The online softmax runs in float32 registers (exp2, the scale folded
+//   in); k-tiles above the causal diagonal and before the window are
+//   skipped per warp, and only diagonal, window-edge and ragged tiles are
+//   masked. The heaviest causal q-tiles are issued first. O is hd/2
+//   registers a thread (128 at hd 256).
+// - q, k and v need 16-byte aligned bases and batch, head and sequence
+//   strides that are multiples of 4 floats; the wrapper copies a tensor
+//   that breaks the rule.
+// - Measured: see PERF.md §6 (chip_smoke.py).
 //
 // Both read q, k, v and write o through element strides, so the model's
 // (B, S, H, hd) projections are passed as (B, H, S, hd) views without a
@@ -62,156 +96,366 @@ namespace {
 
 using namespace hopper;
 
-// ---------------------------------------------------------------------------
-// float32: FMA kernel
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;  // 4 threads per query row
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (HD + 1) + 2 * (size_t)BK * (HD + 1) + (size_t)BQ * (BK + 1));
-}
-
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, int H, int K, int S, Strides st,
-                     int causal, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int LDP = BK + 1;
-  constexpr int CPT = HD / 4;  // accumulator columns per thread
-  constexpr int SPT = BK / 4;  // scores per thread per k-block
-  extern __shared__ float smem[];
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int F_BQ = 128;  // query rows per block: eight warps of 16
+constexpr int F_BK = 32;   // keys per k-tile
+constexpr int F_THREADS = 256;
+
+template <int HD>
+struct F32Shape {
+  // Row strides in floats. Q and K: ≡ 16 (mod 32), so that the 8 lanes of
+  // a 16-byte load phase (rows gr, gr + 1; 16 bytes each at 4·tq) cover all
+  // 32 banks; V: ≡ 4 (mod 16), the same for rows 2·tq and columns NU·gr.
+  static constexpr int LDQ = HD % 32 == 0 ? HD + 16 : HD;
+  static constexpr int LDV = HD + 4;
+  // P·V: NU 8-column n-tiles take their B fragments from one load of NU
+  // consecutive floats; NG such groups span the head dim
+  static constexpr int NU = HD >= 32 ? 4 : 2;
+  static constexpr int NG = HD / (8 * NU);
+  static constexpr int K_OFF = F_BQ * LDQ;
+  static constexpr int V_OFF = K_OFF + F_BK * LDQ;
+  static constexpr int SMEM = (int)sizeof(float) * (V_OFF + F_BK * LDV);
+  // blocks an SM for the register budget (O is hd/2 registers a thread):
+  // at hd 32 and 64 the cap of two blocks (128 registers) spills
+  static constexpr int MIN_BLOCKS = HD == 16 ? 2 : 1;
+};
+
+// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds a finite x: a float32 whose low 13 bits
+// are zero. Two integer operations, where the conversion unit would take
+// one at a quarter of the rate.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, hi and lo both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a·b on the tensor cores: a 16 × 8 (row) by b 8 × 8 (col), float32 sum
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// N consecutive floats from 8N-byte aligned shared memory
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  }
+}
+
+// rows r0 .. r0 + ROWS - 1 of an (S, HD) float32 matrix with row stride rs
+// into shared memory rows of LD floats, 16 bytes a cp.async; rows past S
+// arrive as zeros
+template <int HD, int ROWS, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long rs, int r0,
+                                          int S) {
+  constexpr int CPR = HD / 4;  // 16-byte copies a row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += F_THREADS) {
+    const int r = i / CPR, c = 4 * (i % CPR);
+    const bool in = r0 + r < S;
+    rt::cp_async16(dst + r * LD + c, in ? src + (long long)(r0 + r) * rs + c : src, in ? 16 : 0);
+  }
+}
+
+// One block per (128 query rows, head, batch); warp w owns rows 16w .. 16w
+// + 15. Fragments (lane = 4·gr + tq) follow mma.m16n8k8's tf32 layout with
+// the k index relabelled, which leaves a product unchanged when A and B
+// agree on it:
+// - S = Q·Kᵀ, 16 columns of the head dim (two k-steps) per chunk ch: k = tq
+//   and tq + 4 of step 2ch + i are columns 16ch + 4tq + 2i and + 1, so a
+//   thread's A (rows gr, gr + 8) and B (key gr of n-tile j) fragments of
+//   both steps are one 16-byte load each.
+// - O += P·V, keys 8kk .. 8kk + 7 per k-step kk: k = tq and tq + 4 are keys
+//   8kk + 2tq and + 1, which are exactly the columns of S's accumulator
+//   c0, c1 (row gr) and c2, c3 (row gr + 8) in n-tile kk. So P's A fragment
+//   is {c0, c2, c1, c3} of S: no shuffle and no trip through shared memory.
+//   V's column n = gr of n-tile (G, u) is head column 8·NU·G + NU·gr + u,
+//   so the B fragments of the NU n-tiles of group G are one load per key.
+//   The accumulator's c0, c1 then hold head columns 8·NU·G + 2·NU·tq + u
+//   and + NU: each thread writes 2·NU consecutive columns of a row.
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int B, int H, int K, int S, Strides st, int causal,
+                     int window, float scale_log2) {
+  using Sh = F32Shape<HD>;
+  constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV, NU = Sh::NU, NG = Sh::NG;
+  extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
+  float* sK = smem + Sh::K_OFF;
+  float* sV = smem + Sh::V_OFF;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // heaviest causal q-tiles first: the last q-tile of every (b, h) leads
+  const int n_qb = (S + F_BQ - 1) / F_BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int qb = n_qb - 1 - blockIdx.x / (B * H);
+  const int b = bh / H, h = bh % H;
   const int kvh = h / (H / K);
-  const int tid = threadIdx.x;
-  const int r = tid >> 2;    // query row within the block
-  const int quad = tid & 3;  // which quarter of the row's columns / keys
-  const int qpos = q0 + r;
+  const int q0 = qb * F_BQ;
 
-  const T* qbase = q + b * st.qb + h * st.qh;
-  const T* kbase = k + b * st.kb + kvh * st.kh;
-  const T* vbase = v + b * st.vb + kvh * st.vh;
+  // the block's k-tiles
+  const int n_kt = (S + F_BK - 1) / F_BK;
+  const int q_last = min(q0 + F_BQ, S) - 1;
+  const int kt_hi = causal ? min(n_kt, q_last / F_BK + 1) : n_kt;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / F_BK : 0;
 
-  for (int idx = tid; idx < BQ * HD; idx += THREADS) {
-    const int rr = idx / HD, dd = idx % HD;
-    const int p = q0 + rr;
-    sQ[rr * LD + dd] = p < S ? rt::to_f(qbase[(long long)p * st.qs + dd]) : 0.f;
-  }
+  // K and V have a buffer each: K of tile kt + 1 is copied during tile kt's
+  // softmax and P·V, V of tile kt + 1 during tile kt + 1's Q·Kᵀ
+  const float* kbase = k + b * st.kb + kvh * st.kh;
+  const float* vbase = v + b * st.vb + kvh * st.vh;
+  load_rows<HD, F_BQ, LDQ>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_rows<HD, F_BK, LDQ>(sK, kbase, st.ks, kt_lo * F_BK, S);
+  rt::cp_async_commit();
+  load_rows<HD, F_BK, LDV>(sV, vbase, st.vs, kt_lo * F_BK, S);
+  rt::cp_async_commit();
 
-  float acc[CPT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int qw0 = q0 + 16 * warp;       // this warp's first row
+  const int qw1 = min(qw0 + 15, S - 1);  // and last valid row
+  const bool live = qw0 < S;
+  const int wkt_hi = causal ? min(n_kt, qw1 / F_BK + 1) : n_kt;
+  const int wkt_lo = window > 0 ? max(0, qw0 - window + 1) / F_BK : 0;
+  const int qpos0 = qw0 + gr, qpos1 = qpos0 + 8;
+  const float* qa = sQ + (16 * warp + gr) * LDQ + 4 * tq;  // row gr; + 8·LDQ: row gr + 8
+  const float* kr = sK + gr * LDQ + 4 * tq;                 // key gr of n-tile 0
+  const float* vr = sV + 2 * tq * LDV + NU * gr;            // key 2tq of k-step 0
+
+  float oacc[NG][NU][4];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) acc[j] = 0.f;
-  float m = rt::kNegInit;
-  float l = 0.f;
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[G][u][e] = 0.f;
+  float m0 = rt::kNegInit, m1 = rt::kNegInit;  // running max (log2 units), rows gr, gr + 8
+  float l0 = 0.f, l1 = 0.f;                    // this thread's share of the running sums
 
-  const int n_kb = (S + BK - 1) / BK;
-  int kb_hi = n_kb;
-  if (causal) {
-    const int last_q = min(q0 + BQ, S) - 1;
-    kb_hi = min(n_kb, last_q / BK + 1);
-  }
-  int kb_lo = 0;
-  if (window > 0) {
-    const int first_k = q0 - window + 1;  // smallest key any row here may see
-    if (first_k > 0) kb_lo = first_k / BK;
-  }
-
-  for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int cc = idx / HD, dd = idx % HD;
-      const int p = k0 + cc;
-      const bool in = p < S;
-      sK[cc * LD + dd] = in ? rt::to_f(kbase[(long long)p * st.ks + dd]) : 0.f;
-      sV[cc * LD + dd] = in ? rt::to_f(vbase[(long long)p * st.vs + dd]) : 0.f;
-    }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const bool active = live && kt >= wkt_lo && kt < wkt_hi;
+    const bool more = kt + 1 < kt_hi;
+    rt::cp_async_wait<1>();  // Q and K of this tile have landed; V may be in flight
     __syncthreads();
 
-    float s[SPT];
-    bool ok[SPT];
-    float mloc = rt::kNegInit;
+    // S = Q·Kᵀ as hi·hi + (hi·lo + lo·hi), the small terms in their own
+    // accumulator; n-tile j holds keys 8j .. 8j + 7
+    float sc[4][4];
+    if (active) {
+      float cc[4][4];
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const int c = quad + 4 * j;
-      const int kpos = k0 + c;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int dd = 0; dd < HD; ++dd) dot += sQ[r * LD + dd] * sK[c * LD + dd];
-      dot *= scale;
-      bool valid = kpos < S && qpos < S;
-      if (causal) valid = valid && kpos <= qpos;
-      if (window > 0) valid = valid && kpos > qpos - window;
-      ok[j] = valid;
-      s[j] = dot;
-      if (valid) mloc = fmaxf(mloc, dot);
-    }
-    // the 4 threads of a row are adjacent lanes of one warp
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-    mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-    const float m_new = fmaxf(m, mloc);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) {
-      const float p = ok[j] ? expf(s[j] - m_new) : 0.f;
-      sP[r * LDP + quad + 4 * j] = p;
-      psum += p;
+        for (int e = 0; e < 4; ++e) sc[j][e] = cc[j][e] = 0.f;
+#pragma unroll 2
+      for (int ch = 0; ch < HD / 16; ++ch) {
+        const float4 x0 = *reinterpret_cast<const float4*>(qa + 16 * ch);
+        const float4 x1 = *reinterpret_cast<const float4*>(qa + 8 * LDQ + 16 * ch);
+        uint32_t ah[2][4], al[2][4];
+        split_tf32(x0.x, ah[0][0], al[0][0]);
+        split_tf32(x1.x, ah[0][1], al[0][1]);
+        split_tf32(x0.y, ah[0][2], al[0][2]);
+        split_tf32(x1.y, ah[0][3], al[0][3]);
+        split_tf32(x0.z, ah[1][0], al[1][0]);
+        split_tf32(x1.z, ah[1][1], al[1][1]);
+        split_tf32(x0.w, ah[1][2], al[1][2]);
+        split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 y = *reinterpret_cast<const float4*>(kr + 8 * j * LDQ + 16 * ch);
+          uint32_t bh[4], bl[4];
+          split_tf32(y.x, bh[0], bl[0]);
+          split_tf32(y.y, bh[1], bl[1]);
+          split_tf32(y.z, bh[2], bl[2]);
+          split_tf32(y.w, bh[3], bl[3]);
+          mma_tf32(sc[j], ah[0], bh[0], bh[1]);
+          mma_tf32(cc[j], ah[0], bl[0], bl[1]);
+          mma_tf32(cc[j], al[0], bh[0], bh[1]);
+          mma_tf32(sc[j], ah[1], bh[2], bh[3]);
+          mma_tf32(cc[j], ah[1], bl[2], bl[3]);
+          mma_tf32(cc[j], al[1], bh[2], bh[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += cc[j][e];
     }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // the row's P is written by the same 4 lanes that read it
+    __syncthreads();  // every warp is done with this tile's K
+    if (more) {
+      load_rows<HD, F_BK, LDQ>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
+      rt::cp_async_commit();
+    }
 
+    if (active) {
+      // online softmax; sc[j][e]: key 8j + 2tq + (e & 1), row gr + 8·(e >> 1)
+      const int k0 = kt * F_BK;
+      const bool masked = (k0 + F_BK > S) || (causal && k0 + F_BK - 1 > qw0) ||
+                          (window > 0 && k0 <= qw1 - window);
+      float mx0 = rt::kNegInit, mx1 = rt::kNegInit;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[j] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = sP[r * LDP + c];
-      const float* vr = sV + c * LD + quad;
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[j] += p * vr[4 * j];
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale_log2;
+          if (masked) {
+            const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+            const int qp = e < 2 ? qpos0 : qpos1;
+            bool ok = kp < S;
+            if (causal) ok = ok && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+            x = ok ? x : -INFINITY;
+          }
+          sc[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j][0] = exp2f(sc[j][0] - mn0);
+        sc[j][1] = exp2f(sc[j][1] - mn0);
+        sc[j][2] = exp2f(sc[j][2] - mn1);
+        sc[j][3] = exp2f(sc[j][3] - mn1);
+        ps0 += sc[j][0] + sc[j][1];
+        ps1 += sc[j][2] + sc[j][3];
+      }
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int G = 0; G < NG; ++G)
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          oacc[G][u][0] *= a0;
+          oacc[G][u][1] *= a0;
+          oacc[G][u][2] *= a1;
+          oacc[G][u][3] *= a1;
+        }
+    }
+
+    if (more) rt::cp_async_wait<1>();  // this tile's V has landed; the next K may not
+    else rt::cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      // O += P·V as P_hi·V_hi + P_hi·V_lo + P_lo·V_hi, in that order
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[kk][0], ph[0], pl[0]);
+        split_tf32(sc[kk][2], ph[1], pl[1]);
+        split_tf32(sc[kk][1], ph[2], pl[2]);
+        split_tf32(sc[kk][3], ph[3], pl[3]);
+        const float* v0 = vr + 8 * kk * LDV;  // key 8kk + 2tq; + LDV: key 8kk + 2tq + 1
+#pragma unroll
+        for (int G = 0; G < NG; ++G) {
+          float y0[NU], y1[NU];
+          lds<NU>(v0 + 8 * NU * G, y0);
+          lds<NU>(v0 + LDV + 8 * NU * G, y1);
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            uint32_t h0, lo0, h1, lo1;
+            split_tf32(y0[u], h0, lo0);
+            split_tf32(y1[u], h1, lo1);
+            mma_tf32(oacc[G][u], ph, h0, h1);
+            mma_tf32(oacc[G][u], ph, lo0, lo1);
+            mma_tf32(oacc[G][u], pl, h0, h1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this tile's V
+    if (more) {
+      load_rows<HD, F_BK, LDV>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
+      rt::cp_async_commit();
     }
   }
 
-  if (qpos < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = o + b * st.ob + h * st.oh + (long long)qpos * st.os;
+  if (!live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && tq == 0) {
+    // natural-log units: sum_k exp(s·scale) = 2^m · l
+    float* lrow = lse + ((long long)b * H + h) * S;
+    if (qpos0 < S) lrow[qpos0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+    if (qpos1 < S) lrow[qpos1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+  }
+  float* obase = o + b * st.ob + h * st.oh;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) orow[quad + 4 * j] = rt::from_f<T>(acc[j] * inv);
-    if (lse != nullptr && quad == 0)
-      lse[((long long)b * H + h) * S + qpos] = m + logf(fmaxf(l, 1e-30f));
+  for (int G = 0; G < NG; ++G) {
+    const int col = 8 * NU * G + 2 * NU * tq;  // this thread's 2·NU columns
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qp = half ? qpos1 : qpos0;
+      const float inv = half ? inv1 : inv0;
+      if (qp >= S) continue;
+      float* orow = obase + (long long)qp * st.os + col;
+      float x[2 * NU];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        x[u] = oacc[G][u][2 * half] * inv;
+        x[NU + u] = oacc[G][u][2 * half + 1] * inv;
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * NU; i += 4)
+        *reinterpret_cast<float4*>(orow + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
   }
 }
 
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                int K, int S, const Strides& st, int causal, int window, float scale,
                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  // the 16-byte copies and stores: 16-byte aligned bases, every batch, head
+  // and sequence stride a multiple of 4 floats (the wrapper copies a tensor
+  // that breaks the rule)
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const long long strides = st.qb | st.qh | st.qs | st.kb | st.kh | st.ks | st.vb | st.vh |
+                            st.vs | st.ob | st.oh | st.os;
+  if ((bases & 15) || (strides & 3)) return (int)cudaErrorInvalidValue;
+  constexpr int smem = F32Shape<HD>::SMEM;
   static int smem_set[rt::kMaxDevices];
   const cudaError_t attr = rt::max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_fwd_kernel<float, HD>), (int)smem, smem_set);
+      reinterpret_cast<const void*>(flash_f32_kernel<HD>), smem, smem_set);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<float, HD><<<grid, THREADS, smem, stream>>>(
+  const long long blocks = (long long)((S + F_BQ - 1) / F_BQ) * B * H;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  flash_f32_kernel<HD><<<(unsigned)blocks, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, H, K, S, st, causal, window, scale);
+      static_cast<float*>(o), lse, B, H, K, S, st, causal, window,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -492,11 +736,11 @@ LaunchFn pick(int dtype, int hd) {
   const bool bf = dtype == rt::kBF16;
   if (dtype != rt::kF32 && !bf) return nullptr;
   switch (hd) {
-    case 16: return bf ? launch_tc<16> : launch_fma<16>;
-    case 32: return bf ? launch_tc<32> : launch_fma<32>;
-    case 64: return bf ? launch_tc<64> : launch_fma<64>;
-    case 128: return bf ? launch_tc<128> : launch_fma<128>;
-    case 256: return bf ? launch_tc<256> : launch_fma<256>;
+    case 16: return bf ? launch_tc<16> : launch_f32<16>;
+    case 32: return bf ? launch_tc<32> : launch_f32<32>;
+    case 64: return bf ? launch_tc<64> : launch_f32<64>;
+    case 128: return bf ? launch_tc<128> : launch_f32<128>;
+    case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;
   }
 }
@@ -504,9 +748,10 @@ LaunchFn pick(int dtype, int hd) {
 }  // namespace
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v and o in that
-// order; the head_dim axis of every tensor has stride 1. bfloat16 also
-// needs 16-byte aligned q, k, v and every q/k/v stride a multiple of 8
-// elements (the tensor maps' rule); the Python wrapper checks both.
+// order; the head_dim axis of every tensor has stride 1. Both routes also
+// need 16-byte aligned q, k, v and every q/k/v stride a multiple of 16
+// bytes (8 bfloat16 elements: the tensor maps' rule; 4 float32: cp.async's,
+// o's too); the Python wrapper checks (bfloat16) or copies (float32).
 //
 // lse: (B, H, S) float32, each row's log-sum-exp of its scaled, masked
 // scores (the backward's input), or null when the caller does not ask.

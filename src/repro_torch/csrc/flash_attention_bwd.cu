@@ -58,8 +58,8 @@
 // ms on the device at gemma-2b's shape and 1.65 ms at recurrentgemma-9b's,
 // against 0.0995 and 1.14 ms for SDPA's backward.
 //
-// float32 (unchanged from the first port; FMA, exact to ~1e-6, which TF32
-// tensor cores would not be):
+// float32 (unchanged from the first port; FMA, exact to ~1e-6, which one
+// TF32 rounding would not be; the forward's 3xTF32 split would):
 // - flash_bwd_dot_kernel: D as above.
 // - flash_bwd_dkdv_kernel: one block per (16 keys, KV head, batch). K and
 //   V tiles sit in shared memory as float32; the block walks every query

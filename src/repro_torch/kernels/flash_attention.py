@@ -5,12 +5,14 @@ versions.
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas kernel); the plain version is ``repro/kernels/ref.py::attention_ref``
 in torch. Causal / sliding-window GQA attention over positions 0..S-1,
-forward only, with a float32 running max, sum and accumulator. bfloat16
-runs on the tensor cores (wgmma), with the probabilities rounded to
-bfloat16 for P·V as SDPA does; float32 runs on FMA and keeps them in
-float32. The kernel reads q, k and v through their strides (the head_dim
-axis must be contiguous), so callers may pass transposed views. Asked for
-it, the forward also writes each row's log-sum-exp (``lse``, float32
+forward only, with a float32 running max, sum and accumulator. Both types
+run on the tensor cores: bfloat16 on wgmma, with the probabilities
+rounded to bfloat16 for P·V as SDPA does; float32 on mma.sync as 3×TF32
+(each operand split into a TF32 high and low part, three products), which
+keeps float32's own error and the probabilities' float32 values. The
+kernel reads q, k and v through their strides (the head_dim axis must be
+contiguous), so callers may pass transposed views. Asked for it, the
+forward also writes each row's log-sum-exp (``lse``, float32
 ``(B, H, S)``), the backward's input.
 
 The backward (``flash_attention_bwd``) has no Pallas counterpart: the
@@ -20,9 +22,9 @@ order). bfloat16 runs on the tensor cores: a dK/dV kernel per (64 keys,
 query head, batch) writing float32 per-head partials to a scratch buffer
 that a second pass sums over each group in head order, and a dQ kernel per
 (64 query rows, head, batch); P and dS enter the products as a bf16 high
-and low part. float32 runs on FMA, dK/dV summed over a group inside one
-block. ``ops.flash_attention`` binds it to the forward in an autograd
-Function.
+and low part. float32 runs on FMA (no tensor core), dK/dV summed over a
+group inside one block. ``ops.flash_attention`` binds it to the forward in
+an autograd Function.
 """
 from __future__ import annotations
 
@@ -55,10 +57,12 @@ def _check(q, k, v):
 
 
 def tma_ready(t: torch.Tensor) -> bool:
-    """Whether the bfloat16 kernels' TMA tensor maps can read ``t`` in
-    place: a 16-byte aligned base and batch, head and sequence strides that
-    are multiples of 8 elements (16 bytes)."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    """Whether the kernels' 16-byte copies can read ``t`` in place (the
+    bfloat16 kernels' TMA tensor maps, the float32 forward's cp.async): a
+    16-byte aligned base and batch, head and sequence strides that are
+    multiples of 16 bytes (8 bfloat16 or 4 float32 elements)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:3])
 
 
 def tma_copy(t: torch.Tensor) -> torch.Tensor:
@@ -85,6 +89,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
             raise ValueError(f"flash_attention: bfloat16 {name} needs a 16-byte aligned base "
                              f"and batch/head/sequence strides that are multiples of 8, got "
                              f"strides {t.stride()}")
+    if q.dtype == torch.float32:  # the same kernel, on aligned copies where needed
+        q, k, v = (tma_copy(t) for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     strides = _build.strides_arg(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
