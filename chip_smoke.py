@@ -9,9 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a,
    checks in the SASS (cuobjdump) that every instantiation of the
    flash_attention kernels runs on the tensor cores (HGMMA for the bf16
-   forward and backward, HMMA for the float32 forward's 3xTF32), and in
-   ptxas's report that the hd-256 instantiations of the bf16 backward and
-   of the float32 forward do not spill;
+   forward and backward, HMMA for the float32 forward's and backward's
+   3xTF32), and in ptxas's report that the hd-256 instantiations of the
+   backward's kernels and of the float32 forward do not spill;
 3. kernels: each of the seven kernels (the five forward kernels and the
    rmsnorm and flash_attention backward kernels) against its plain torch
    version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
@@ -29,9 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rglru's S = 1, short-tile, unaligned-row, long-sequence and
    extreme-decay cases; the backward kernels at the training shapes
    (rmsnorm_bwd at (2048, 2048) bf16 and f32; flash_attention_bwd at
-   gemma-2b's shape, recurrentgemma-9b's window shape and a float32 shape,
-   and ragged / window / not-causal / head-dim cases), each also run twice
-   and required to give the same bits, and the forward's lse;
+   gemma-2b's shape, recurrentgemma-9b's window shape, a float32 shape and
+   gemma-2b's shape in float32, and ragged / window / not-causal / head-dim
+   / misaligned-dout cases), each also run twice and required to give the
+   same bits, and the forward's lse;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call;
@@ -45,7 +46,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    full width in float32, kernel path against plain path (5 tokens), and a
    reduced float32 model of each family (recurrentgemma with 5 layers, so
    that its remainder stack runs) on the card against the same weights on
-   the CPU;
+   the CPU, each printing the launches of the float32 attention routes it
+   made;
    train: gemma-2b at full width through ``repro_torch.launch.train``
    (bf16 activations, float32 masters and AdamW, batch 4 x 512, 5 steps on
    one repeated batch): the exact launch counts of the run, including the
@@ -55,7 +57,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    FTTrainer's lossless invariant at reduced size under hybrid, agent,
    core and checkpoint, and ``launch.fig15``'s two tables; one hybrid run
    at full width with a predicted failure (one migration of the whole
-   28 GiB state through host memory) bit-identical to a failure-free run;
+   28 GiB state through host memory) bit-identical to a failure-free run.
+   The reduced FT runs must launch both float32 attention routes, forward
+   and backward; they and fig15 print those launches;
 5. paper: the paper's own path, which launches none of the seven kernels
    (their counts must stay 0): ``repro_torch.launch.tables`` on the card
    (an unpinned ``measure_micro``, the failure predictor trained on the
@@ -116,7 +120,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shard timed beside one library call on the same inputs (SDPA, causal;
    masked SDPA for decode) and its bound. Prints the per-shard step times
    beside the card;
-9. prints the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+9. prints the ``kernels`` JSON line (a float32 attention row's launches are
+   its route's, summed over the float32 serve checks, the reduced FT runs,
+   fig15 and the train_llm surfaces; every other row's over the serve and
+   train runs), then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -316,10 +323,11 @@ def timings(kernel, plain, library=None, iters: int = 20) -> dict:
 
 # kernel -> (instantiations, the tensor-core instruction each one's SASS
 # must hold): the bf16 forward at 5 head dims and the bf16 backward's dK/dV
-# and dQ kernels at 5 each on wgmma (HGMMA); the float32 forward at 5 head
-# dims on mma.sync (HMMA)
+# and dQ kernels at 5 each on wgmma (HGMMA); the float32 forward and the
+# float32 backward (its dK/dV and dQ blocks in one kernel) at 5 head dims
+# each on mma.sync (HMMA)
 TENSOR_CORE_KERNELS = {"flash_tc_kernel": (5, "HGMMA"), "flash_bwd_tc_kernel": (10, "HGMMA"),
-                       "flash_f32_kernel": (5, "HMMA")}
+                       "flash_f32_kernel": (5, "HMMA"), "flash_bwd_f32_kernel": (5, "HMMA")}
 
 
 def sass_check(lib_path: Path) -> None:
@@ -383,8 +391,9 @@ def ptxas_report(lib_path: Path, kernel: str) -> list:
 def spill_check(lib_path: Path) -> None:
     """The hd-256 instantiations (``Li256E`` in the mangled name: the
     training and serve shapes) of the bf16 backward's two kernels and of
-    the float32 forward must not spill."""
-    for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1)):
+    the float32 forward and backward must not spill."""
+    for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
+                         ("flash_bwd_f32_kernel", 1)):
         hd256 = [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]]
         if len(hd256) != want:
             fail(f"ptxas: {len(hd256)} hd-256 {kernel} instantiations in the log, want {want}")
@@ -434,6 +443,16 @@ def bound(nbytes: float, ops: float, dtype: str) -> dict:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def f32_launches(what: str) -> dict:
+    """The launches of the float32 attention routes since the last reset,
+    printed under ``what``."""
+    from repro_torch.kernels import ops
+
+    counts = ops.f32_launch_counts()
+    print(f"{what}: float32 route launches {counts}")
+    return counts
 
 
 def ring_kpos(B: int, W: int, pos: int, device):
@@ -578,7 +597,7 @@ def kernel_phase(dev):
         bnd = bound(2 * nbytes(q32) + nbytes(k32, v32), 4 * hd * pairs * B_ * H_,
                     "float32 3xTF32")
         rows.append(dict(
-            name="flash_attention", route="cuda",
+            name="flash_attention", route="cuda", f32_route=True,
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:75", shape=label, max_abs_err=err,
             **bnd,
@@ -611,8 +630,9 @@ def backward_rows(dev, randn, qkv):
     inputs, at the training path's shapes, timed beside the library's
     autograd backward: rmsnorm at (2048, 2048) bf16 and f32; flash
     attention at gemma-2b's shape (bf16, causal), recurrentgemma-9b's
-    window shape and a float32 shape, plus ragged / GQA / head-dim cases.
-    Also the forward's lse against the plain log-sum-exp."""
+    window shape, a float32 shape and gemma-2b's shape in float32, plus
+    ragged / GQA / head-dim / misaligned-dout cases. Also the forward's lse
+    against the plain log-sum-exp."""
     import torch
     import torch.nn.functional as F
 
@@ -655,13 +675,16 @@ def backward_rows(dev, randn, qkv):
     rg = get_arch("recurrentgemma-9b")
 
     def case(label, B_, S_, H_, K_, hd_, dtype=torch.bfloat16, window=0, causal=True,
-             row=False, iters=20):
+             row=False, iters=20, dout_offset=0):
         q, k, v = qkv(B_, S_, H_, K_, hd_, dtype=dtype)
         out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
         _, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
                                             return_lse=True)
         compare(f"flash_attention lse {label}", lse, lse_ref, LSE_TOL)
-        dout = randn(B_, S_, H_, hd_, dtype=dtype).transpose(1, 2)
+        # dout_offset: a view whose base is that many elements off 16 bytes
+        n = B_ * S_ * H_ * hd_
+        dout = randn(n + dout_offset, dtype=dtype)[dout_offset:].view(B_, S_, H_, hd_)
+        dout = dout.transpose(1, 2)
         args = (q, k, v, out, dout, lse)
         got = fa.flash_attention_bwd(*args, causal=causal, window=window)
         want = fa.flash_attention_bwd_ref(*args, causal=causal, window=window)
@@ -687,7 +710,7 @@ def backward_rows(dev, randn, qkv):
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
         og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
         rows.append(dict(
-            name="flash_attention_bwd", route="cuda",
+            name="flash_attention_bwd", route="cuda", f32_route=dtype == torch.float32,
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces="src/repro/kernels/flash_attention.py:75 (its gradient: jax.grad of "
                      "the jnp attention)",
@@ -705,11 +728,19 @@ def backward_rows(dev, randn, qkv):
          window=rg.window, row=True, iters=3)
     case("q (2,4,512,64), k/v (2,2,512,64) f32, causal", 2, 512, 4, 2, 64,
          dtype=torch.float32, row=True)
+    case(f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", BATCH, PROMPT, H, K, hd,
+         dtype=torch.float32, row=True, iters=10)
     case("bf16 window 128 (4,8,512,256)", BATCH, PROMPT, H, K, hd, window=128)
     case("bf16 ragged S=300 g 8", 2, 300, H, K, hd)
     case("f32 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, dtype=torch.float32, window=48)
     case("bf16 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, window=48)
     case("f32 not causal (1,2,100,32)", 1, 100, 2, 2, 32, dtype=torch.float32, causal=False)
+    case("f32 hd 256 window 128 GQA g 2 (2,4,300)", 2, 300, 4, 2, 256, dtype=torch.float32,
+         window=128)
+    case("f32 not causal, window 40, g 1 (1,2,130,256)", 1, 130, 2, 2, 256, dtype=torch.float32,
+         causal=False, window=40)
+    case("f32 dout base one element off (1,4,200,64)/(1,2,200,64)", 1, 200, 4, 2, 64,
+         dtype=torch.float32, dout_offset=1)
     case("bf16 not causal (1,2,100,64)", 1, 100, 2, 2, 64, causal=False)
     case("bf16 not causal, window 40, GQA g 2 (2,4,300,256)", 2, 300, 4, 2, 256, causal=False,
          window=40)
@@ -1143,12 +1174,14 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     """A model at full width in float32: the kernel path against the plain
     path on the same weights. Every kernel keeps float32's own error (~1e-6;
     flash_attention's float32 route by three TF32 tensor-core passes), so
-    the two must give the same greedy tokens and logits within 1e-3."""
+    the two must give the same greedy tokens and logits within 1e-3.
+    Returns the float32 attention routes' launches of the kernel path."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
@@ -1159,7 +1192,9 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     params = model.init(g, dev)
     prompt = torch.randint(0, cfg.vocab, (BATCH, prompt_len), generator=g, device=dev,
                            dtype=torch.int64)
+    ops.reset_launch_counts()
     gen = serve.generate(model, params, prompt, 5)
+    counts = f32_launches(f"full-width f32 {arch}")
     steps = plain_replay(model, params, prompt, gen.tokens, 4)
     worst = 0.0
     for i, ref in enumerate(steps):
@@ -1174,18 +1209,21 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
           f"max |logits diff| {worst:.3g} (tol {LOGITS_TOL_FULL_F32})")
     del model, params, gen, steps
     torch.cuda.empty_cache()
+    return counts
 
 
 def reduced_reference_phase(dev):
     """A reduced float32 model of each family on the card (kernels) against
     the same weights on the CPU (plain versions): gemma, rwkv6, and
     recurrentgemma with 5 layers (its pattern group plus the remainder
-    stack) and a prompt of three windows."""
+    stack) and a prompt of three windows. Returns the float32 attention
+    routes' launches of the card's runs."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
@@ -1196,6 +1234,7 @@ def reduced_reference_phase(dev):
             return [to_cpu(v) for v in t]
         return t.cpu()
 
+    ops.reset_launch_counts()
     for arch, n_layers, prompt_len in (("gemma-2b", 2, 40), ("rwkv6-1.6b", 2, 40),
                                        ("recurrentgemma-9b", 5, 48)):
         cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers)
@@ -1216,6 +1255,7 @@ def reduced_reference_phase(dev):
             fail(f"reduced f32 {arch}: greedy tokens differ between card and CPU")
         print(f"reduced f32 {arch} ({n_layers} layers {model.kinds}): card kernels == CPU "
               f"plain versions within {LOGITS_TOL_F32}, tokens equal")
+    return f32_launches("reduced f32 models")
 
 
 def paper_phase(card: str) -> None:
@@ -1768,7 +1808,8 @@ def profile_train(dev, card: str) -> None:
 
 def train_phase(dev, card: str) -> dict:
     """The training path: full-width steps through ``launch.train`` (its
-    launch counts are returned), gradients against the plain path, a
+    launch counts are returned, with the float32 attention routes' launches
+    of the reduced FT runs and Fig 15), gradients against the plain path, a
     profile of a step, the FT invariant at reduced size and Fig 15's tables,
     then the FT invariant at full width."""
     t0 = time.perf_counter()
@@ -1776,21 +1817,24 @@ def train_phase(dev, card: str) -> dict:
     train_grad_check(dev)
     profile_train(dev, card)
     t1 = time.perf_counter()
-    reduced_ft(card)
-    fig15_phase(card)
+    f32 = reduced_ft(card)
+    for name, n in fig15_phase(card).items():
+        f32[name] += n
     t2 = time.perf_counter()
     full_width_ft(card)
     print(f"train phase: {t1 - t0:.1f} s full-width steps, grads and profile; {t2 - t1:.1f} s "
           f"reduced FT and fig15; {time.perf_counter() - t2:.1f} s full-width FT")
-    return counts
+    return counts, f32
 
 
 def reduced_ft(card: str) -> None:
     """The trainer's lossless invariant on the card at reduced size (float32):
     under each of FT_POLICIES the run with failures ends bit-identical to the
-    failure-free run."""
+    failure-free run. Returns the float32 attention routes' launches, which
+    must include the backward's."""
     from repro_torch.configs import get_arch
     from repro_torch.core.failure import FailureEvent
+    from repro_torch.kernels import ops
     from repro_torch.launch.fig15 import _run
     from repro_torch.launch.train import make_trainer
     from repro_torch.utils.tree import tree_hash
@@ -1798,6 +1842,7 @@ def reduced_ft(card: str) -> None:
     cfg = get_arch(ARCH).reduced()
     fails = [FailureEvent(t=5.0, node=0, predictable=True),
              FailureEvent(t=11.0, node=0, predictable=False)]
+    ops.reset_launch_counts()
     for policy in FT_POLICIES:
         hashes, reps = [], []
         for name, failures in ((policy + "_ref", []), (policy, fails)):
@@ -1816,18 +1861,26 @@ def reduced_ft(card: str) -> None:
         if policy != "checkpoint" and not (rep.migrations >= 1 and rep.steps_reexecuted <= 4):
             fail(f"ft reduced {policy}: migrations {rep.migrations}, reexecuted "
                  f"{rep.steps_reexecuted}")
+    counts = f32_launches("ft reduced")
+    if not all(counts.values()):
+        fail(f"ft reduced: the float32 attention routes were not all launched: {counts}")
+    return counts
 
 
 def fig15_phase(card: str) -> None:
     """Fig 15's four states and the three-policy table on the card, through
-    ``launch.fig15``: every check passing."""
+    ``launch.fig15``: every check passing. Returns the float32 attention
+    routes' launches."""
+    from repro_torch.kernels import ops
     from repro_torch.launch import fig15
 
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
     rc = fig15.main(["--device", "cuda", "--out", str(ROOT / "bench_out_torch")])
     print(f"fig15 on {card}: {time.perf_counter() - t0:.3f} s")
     if rc != 0:
         fail("fig15: a check failed")
+    return f32_launches("fig15")
 
 
 def full_width_ft(card: str) -> None:
@@ -1911,7 +1964,8 @@ def surface_bound(kernel: str, batch: int, seq_len: int, heads: int, head_dim: i
 def workloads_phase(card: str) -> dict:
     """The measured step surfaces on the card: the CUDA attention kernels'
     launches on this path, per-shard step times, and one output per case
-    against its plain version. Returns the launches by kernel."""
+    against its plain version. Returns the float32 attention routes'
+    launches (every surface is float32)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1931,6 +1985,9 @@ def workloads_phase(card: str) -> dict:
                 head_dim=head_dim, n=SURFACE_N, warmup=SURFACE_WARMUP, device="cuda")
             counts = ops.launch_counts()
             launches[counter] += counts[counter]
+            f32 = ops.f32_launch_counts()
+            if name == "train_llm" and f32["flash_attention"] != counts[counter]:
+                fail(f"workloads train_llm: {f32} float32 route launches of {counts[counter]}")
             others = {k: v for k, v in counts.items() if k != counter and v}
             if counts[counter] != expect or rec["launches"] != expect or others:
                 fail(f"workloads {name} {(batch, seq_len, heads, head_dim)}: launches {counts} "
@@ -1958,7 +2015,9 @@ def workloads_phase(card: str) -> dict:
                   f"{per_call['library_ms']:.5f} ms, bound {bnd['bound_ms']:.5f} by "
                   f"{bnd['bound_by']} at {bnd['bound_rate']}")
     print(json.dumps({"workloads": {"card": card, "surfaces": rows, "launches": launches}}))
-    return launches
+    print(f"workloads: float32 route launches {{'flash_attention': "
+          f"{launches['flash_attention']}}} (the train_llm surfaces)")
+    return {"flash_attention": launches["flash_attention"], "flash_attention_bwd": 0}
 
 
 def main() -> int:
@@ -1993,20 +2052,32 @@ def main() -> int:
     for arch, prompt_len in SERVES:
         for name, n in serve_phase(arch, prompt_len, card).items():
             launches[name] += n
+    # the float32 attention routes' launches, summed over the paths that run them
+    f32 = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+    def add_f32(counts):
+        for name, n in counts.items():
+            f32[name] += n
+
     for arch, prompt_len in SERVES:
-        full_width_f32_phase(dev, arch, prompt_len)
-    reduced_reference_phase(dev)
-    for name, n in train_phase(dev, card).items():
+        add_f32(full_width_f32_phase(dev, arch, prompt_len))
+    add_f32(reduced_reference_phase(dev))
+    train_counts, train_f32 = train_phase(dev, card)
+    for name, n in train_counts.items():
         launches[name] += n
+    add_f32(train_f32)
     paper_phase(card)
     figures_phase(card)
     campaign_phase(card)
-    workloads_phase(card)
+    add_f32(workloads_phase(card))
+    print(f"float32 route launches: {f32} (float32 serve checks, reduced FT, fig15, "
+          f"train_llm surfaces)")
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        # a float32 attention row counts its route's launches on the float32 paths
+        r["launches"] = (f32 if r.get("f32_route") else launches)[r["name"]]
         if r["launches"] == 0:
-            fail(f"{r['name']}: no launch on the serve or train paths")
+            fail(f"{r['name']} {r['shape']}: no launch on the paths that run it")
     keys = ("name", "route", "source", "replaces", "shape", "launches", "max_abs_err", "ms",
             "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate", "library_ms",
             "library_device_ms")

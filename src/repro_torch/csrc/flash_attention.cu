@@ -91,10 +91,12 @@
 // (B, S, H, hd) projections are passed as (B, H, S, hd) views without a
 // copy. The division keeps the Pallas kernel's max(l, 1e-30) guard.
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace tf32;
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -126,55 +128,6 @@ struct F32Shape {
   // at hd 32 and 64 the cap of two blocks (128 registers) spills
   static constexpr int MIN_BLOCKS = HD == 16 ? 2 : 1;
 };
-
-// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
-// zero, as cvt.rna.tf32.f32 rounds a finite x: a float32 whose low 13 bits
-// are zero. Two integer operations, where the conversion unit would take
-// one at a quarter of the rate.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to within 2^-22 |x|, hi and lo both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d += a·b on the tensor cores: a 16 × 8 (row) by b 8 × 8 (col), float32 sum
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// N consecutive floats from 8N-byte aligned shared memory
-template <int N>
-__device__ __forceinline__ void lds(const float* p, float (&x)[N]) {
-  if constexpr (N == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  } else {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    x[0] = a.x; x[1] = a.y;
-  }
-}
-
-// rows r0 .. r0 + ROWS - 1 of an (S, HD) float32 matrix with row stride rs
-// into shared memory rows of LD floats, 16 bytes a cp.async; rows past S
-// arrive as zeros
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long rs, int r0,
-                                          int S) {
-  constexpr int CPR = HD / 4;  // 16-byte copies a row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += F_THREADS) {
-    const int r = i / CPR, c = 4 * (i % CPR);
-    const bool in = r0 + r < S;
-    rt::cp_async16(dst + r * LD + c, in ? src + (long long)(r0 + r) * rs + c : src, in ? 16 : 0);
-  }
-}
 
 // One block per (128 query rows, head, batch); warp w owns rows 16w .. 16w
 // + 15. Fragments (lane = 4·gr + tq) follow mma.m16n8k8's tf32 layout with
@@ -223,10 +176,10 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
   // softmax and P·V, V of tile kt + 1 during tile kt + 1's Q·Kᵀ
   const float* kbase = k + b * st.kb + kvh * st.kh;
   const float* vbase = v + b * st.vb + kvh * st.vh;
-  load_rows<HD, F_BQ, LDQ>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  load_rows<HD, F_BK, LDQ>(sK, kbase, st.ks, kt_lo * F_BK, S);
+  load_rows<HD, F_BQ, LDQ, F_THREADS>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, kt_lo * F_BK, S);
   rt::cp_async_commit();
-  load_rows<HD, F_BK, LDV>(sV, vbase, st.vs, kt_lo * F_BK, S);
+  load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, kt_lo * F_BK, S);
   rt::cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -302,7 +255,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
     }
     __syncthreads();  // every warp is done with this tile's K
     if (more) {
-      load_rows<HD, F_BK, LDQ>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
       rt::cp_async_commit();
     }
 
@@ -393,7 +346,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
     }
     __syncthreads();  // every warp is done with this tile's V
     if (more) {
-      load_rows<HD, F_BK, LDV>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
       rt::cp_async_commit();
     }
   }

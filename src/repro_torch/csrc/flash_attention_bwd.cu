@@ -58,19 +58,46 @@
 // ms on the device at gemma-2b's shape and 1.65 ms at recurrentgemma-9b's,
 // against 0.0995 and 1.14 ms for SDPA's backward.
 //
-// float32 (unchanged from the first port; FMA, exact to ~1e-6, which one
-// TF32 rounding would not be; the forward's 3xTF32 split would):
+// float32 (flash_bwd_f32_kernel, its dK/dV and dQ blocks): 3xTF32 on
+// mma.sync m16n8k8, as the float32 forward (wgmma takes tf32 only K-major
+// from shared memory, and three of the five products read an operand
+// MN-major). Bound at gemma-2b's shape in float32: ~10.8 GFLOP in ~0.065 ms
+// at 165 TFLOP/s (three TF32 passes at 495) against ~76 MB in ~0.023 ms.
+// - Exactness: every operand of every product (P and dS too, as they come
+//   out of an accumulator) is split as it is loaded into TF32 hi + lo
+//   (tf32.cuh), each product hi·hi + hi·lo + lo·hi: float32's own error,
+//   where one TF32 rounding would leave ~1e-3.
+// - Fragments: the forward's two patterns cover all five products. Sᵀ =
+//   K·Qᵀ, dPᵀ = V·dOᵀ, S = Q·Kᵀ and dP = dO·Vᵀ read both operands K-major,
+//   one 16-byte load a fragment; dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K
+//   take the accumulator as it stands as the A fragment and read B MN-major
+//   (NU floats a row). Q and dO (dK/dV), K (dQ) are read in both patterns:
+//   every tile is XOR-swizzled (tf32::swz) so that both are free of bank
+//   conflicts with no padding.
 // - flash_bwd_dot_kernel: D as above.
-// - flash_bwd_dkdv_kernel: one block per (16 keys, KV head, batch). K and
-//   V tiles sit in shared memory as float32; the block walks every query
-//   head of its group and, for each, the 32-row query chunks that can see
-//   its keys (causal: from the tile's first key on; window: up to its last
-//   key + window − 1), staging Q and dO chunks. Per chunk it recomputes P
-//   and dS into shared memory, then each thread adds Pᵀ·dO and dSᵀ·Q into
-//   its registers: one column, hd/16 keys (hd/8 accumulators).
-// - flash_bwd_dq_kernel: one block per (32 query rows, head, batch) with
-//   Q and dO resident, walking its visible 16-key tiles; each thread owns
-//   one column of hd/8 rows of dQ.
+// - flash_bwd_f32_kernel: the dK/dV blocks and the dQ blocks in one
+//   launch, alternating, each kind heaviest first: at small shapes neither
+//   fills the card alone.
+// - its dK/dV blocks: one per (64 keys, query head, batch),
+//   eight warps: warps 0-3 own 16 keys each and compute Pᵀ and dV, warps
+//   4-7 the same keys' dPᵀ, dSᵀ and dK, Pᵀ handed over through shared
+//   memory, one named barrier a pair of warps (the bf16 route's split: one
+//   hd/2-register accumulator a thread). K and V resident; Q and dO tiles
+//   of 32 query rows (16 at hd 256: two stages must fit beside K and V,
+//   196 KB) through a two-stage cp.async ring, one block-wide barrier a
+//   tile. Per-head partials as the bf16 route's.
+// - its dQ blocks: one per (64 query rows, head, batch),
+//   eight warps: warp w owns 16 rows and one half of every 32-key tile;
+//   the two halves of a row block are added once at the end, in order. Q
+//   and dO resident, K and V one cp.async buffer each whose copies
+//   alternate with the products that read the other (as the forward's).
+//   192 KB at hd 256.
+// - flash_bwd_sum_kernel<float>: the partials summed in head order.
+// Tiles above the causal diagonal or before the window are skipped per
+// warp; only diagonal, window-edge and ragged tiles are masked. q, k, v, dO
+// need 16-byte aligned bases and batch, head and seq strides that are
+// multiples of 4 floats (the wrapper copies a tensor that breaks the rule).
+// Measured: PERF.md §6 (chip_smoke.py, tools/flash_compare.py).
 //
 // All tensors are read and written through element strides (batch, head,
 // seq), the head_dim axis contiguous; lse and D are (B, H, S) float32. The
@@ -78,51 +105,24 @@
 // and seq strides a multiple of 8 elements (the tensor maps' rule; the
 // Python wrapper copies a tensor that breaks it).
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace tf32;
 
 // ---------------------------------------------------------------------------
-// float32: FMA kernels (and the D pass of both routes)
+// The D pass and the group sum (both routes)
 // ---------------------------------------------------------------------------
 
 constexpr int BW_THREADS = 256;
-constexpr int BW_Q = 32;  // query rows per chunk (dK/dV) or per block (dQ)
-constexpr int BW_K = 16;  // keys per block (dK/dV) or per tile (dQ)
-constexpr int BW_NE = BW_Q * BW_K / BW_THREADS;  // (row, key) scores per thread: 2
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct BwdStrides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os, gb, gh, gs;  // g: dO
   long long dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs;
 };
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
-  bool ok = qpos < S && kpos < S;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
-}
-
-// rows x HD of a (b, head) slice into float shared memory [rows][HD + 1],
-// zeros past S
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss, int p0, int rows,
-                                      int S) {
-  for (int idx = threadIdx.x; idx < rows * HD; idx += BW_THREADS) {
-    const int rr = idx / HD, dd = idx % HD;
-    const int p = p0 + rr;
-    dst[rr * (HD + 1) + dd] = p < S ? rt::to_f(src[(long long)p * ss + dd]) : 0.f;
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ float dot_row(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int dd = 0; dd < HD; ++dd) acc += a[dd] * b[dd];
-  return acc;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(BW_THREADS)
@@ -142,233 +142,553 @@ __global__ void __launch_bounds__(BW_THREADS)
   if (lane == 0) D[row] = acc;
 }
 
-template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) *
-         (2 * (size_t)BW_K * (HD + 1) + 2 * (size_t)BW_Q * (HD + 1) + 2 * BW_Q * (BW_K + 1) +
-          2 * BW_Q);
+// The group sum: dK and dV from each KV head's g per-head partials
+// (part[1] and part[0], (B, H, S, hd) float32) summed in head order, head 0
+// first, then stored once in T (bf16: rounded once). One thread per 4
+// columns of one row of dK or dV.
+__device__ __forceinline__ void store4(float* out, float4 x) {
+  *reinterpret_cast<float4*>(out) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* out, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out) = packed;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(BW_THREADS)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ g,
-                          const float* __restrict__ lse, const float* __restrict__ D,
-                          T* __restrict__ dk, T* __restrict__ dv, int H, int K, int S,
-                          BwdStrides st, int causal, int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int LP = BW_K + 1;
-  constexpr int KPT = BW_K * HD / BW_THREADS;  // keys per thread in the accumulators
-  constexpr int KSTEP = BW_THREADS / HD;       // key stride between them
-  extern __shared__ float smem[];
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+                         int B, int H, int K, int S, int hd, BwdStrides st, long long n4) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 2 * n4) return;
+  const int which = idx >= n4;  // 0: dV, 1: dK
+  long long e = idx - which * n4;
+  const int hd4 = hd >> 2;
+  const int c = (int)(e % hd4) * 4;
+  e /= hd4;
+  const int s = (int)(e % S);
+  e /= S;
+  const int kvh = (int)(e % K);
+  const int b = (int)(e / K);
+  const int g = H / K;
+  const long long head_stride = (long long)S * hd;
+  const float* src =
+      part + ((((long long)which * B + b) * H + (long long)kvh * g) * S + s) * hd + c;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int hh = 1; hh < g; ++hh) {
+    const float4 x = *reinterpret_cast<const float4*>(src + hh * head_stride);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  store4(which ? dk + b * st.dkb + kvh * st.dkh + (long long)s * st.dks + c
+               : dv + b * st.dvb + kvh * st.dvh + (long long)s * st.dvs + c,
+         acc);
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int F_THREADS = 256;  // eight warps
+constexpr int F_KEYS = 64;      // dK/dV: keys a block, four warps of 16 twice over
+constexpr int F_ROWS = 64;      // dQ: query rows a block, four warps of 16 twice over
+constexpr int F_BK = 32;        // dQ: keys a K/V tile, a half of 16 for each warp of a row block
+
+template <int HD>
+struct BwdF32Shape {
+  // tile rows in floats: whole 128-byte lines, so that the swizzle (tf32::swz)
+  // stays inside each row
+  static constexpr int LD = HD < 32 ? 32 : HD;
+  // the accumulating products: NU 8-column n-tiles take their B fragments
+  // from one load of NU consecutive floats; NG such groups span the head dim
+  static constexpr int NU = HD >= 32 ? 4 : 2;
+  static constexpr int NG = HD / (8 * NU);
+  // dK/dV: query rows a streamed Q / dO tile (two stages fit beside the
+  // resident K and V at hd 256 only at 16), and its 8-column n-tiles
+  static constexpr int BQ = HD == 256 ? 16 : 32;
+  static constexpr int NQ = BQ / 8;
+  // dK/dV shared memory (floats): K, V resident; two stages of Q and dO; the
+  // Pᵀ hand-over, 4 pairs of warps × 32 lanes × 4·NQ values
+  static constexpr int KD_V = F_KEYS * LD;
+  static constexpr int KD_RING = 2 * F_KEYS * LD;
+  static constexpr int KD_X = KD_RING + 4 * BQ * LD;
+  static constexpr int KD_SMEM = (int)sizeof(float) * (KD_X + 4 * 32 * 4 * NQ);
+  // dQ shared memory (floats): Q, dO resident; one K and one V tile
+  static constexpr int DQ_G = F_ROWS * LD;
+  static constexpr int DQ_K = 2 * F_ROWS * LD;
+  static constexpr int DQ_V = DQ_K + F_BK * LD;
+  static constexpr int DQ_SMEM = (int)sizeof(float) * (DQ_V + F_BK * LD);
+  static constexpr int SMEM = KD_SMEM > DQ_SMEM ? KD_SMEM : DQ_SMEM;
+};
+
+// sc[j] = (rows gr, gr + 8 of A) · (row 8j + gr of B)ᵀ over the head dim:
+// the score-shaped products S = Q·Kᵀ, dP = dO·Vᵀ, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ,
+// both operands K-major in swizzled tiles. a and b point at row gr of the
+// A rows and of the B rows; o0 and o1 are the columns 4·tq and 16 + 4·tq
+// swizzled for rows ≡ gr (mod 8). 16 head columns (two k-steps, the k
+// index relabelled as in the forward) a chunk, one 16-byte load a
+// fragment; hi·hi in sc, hi·lo + lo·hi in their own accumulator.
+template <int HD, int LD, int NT>
+__device__ __forceinline__ void score_tf32(float (&sc)[NT][4], const float* a, const float* b,
+                                           int o0, int o1) {
+  float cc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = cc[j][e] = 0.f;
+#pragma unroll 2
+  for (int ch = 0; ch < HD / 16; ++ch) {
+    const int off = 32 * (ch >> 1) + ((ch & 1) ? o1 : o0);
+    const float4 x0 = *reinterpret_cast<const float4*>(a + off);
+    const float4 x1 = *reinterpret_cast<const float4*>(a + 8 * LD + off);
+    uint32_t ah[2][4], al[2][4];
+    split_tf32(x0.x, ah[0][0], al[0][0]);
+    split_tf32(x1.x, ah[0][1], al[0][1]);
+    split_tf32(x0.y, ah[0][2], al[0][2]);
+    split_tf32(x1.y, ah[0][3], al[0][3]);
+    split_tf32(x0.z, ah[1][0], al[1][0]);
+    split_tf32(x1.z, ah[1][1], al[1][1]);
+    split_tf32(x0.w, ah[1][2], al[1][2]);
+    split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float4 y = *reinterpret_cast<const float4*>(b + 8 * j * LD + off);
+      uint32_t bh[4], bl[4];
+      split_tf32(y.x, bh[0], bl[0]);
+      split_tf32(y.y, bh[1], bl[1]);
+      split_tf32(y.z, bh[2], bl[2]);
+      split_tf32(y.w, bh[3], bl[3]);
+      mma_tf32(sc[j], ah[0], bh[0], bh[1]);
+      mma_tf32(cc[j], ah[0], bl[0], bl[1]);
+      mma_tf32(cc[j], al[0], bh[0], bh[1]);
+      mma_tf32(sc[j], ah[1], bh[2], bh[3]);
+      mma_tf32(cc[j], ah[1], bl[2], bl[3]);
+      mma_tf32(cc[j], al[1], bh[2], bh[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] += cc[j][e];
+}
+
+// acc[G][u] += A·B over NK k-steps of 8: the accumulating products dV +=
+// Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K. A's k-step kk is the accumulator tile
+// p[kk] as it stands (its columns 8kk + 2tq and + 1 are k = tq and tq + 4:
+// A = {c0, c2, c1, c3}); B is rows 8kk + 2tq and + 1 of a swizzled tile
+// read MN-major, n-tile (G, u) its columns 8·NU·G + NU·gr + u, so one load
+// of NU floats a row and group. b0 and b1 are the offsets of rows 2tq and
+// 2tq + 1, column NU·gr, swizzled. hi·hi, hi·lo, lo·hi in that order.
+template <int LD, int NU, int NG, int NK>
+__device__ __forceinline__ void acc_tf32(float (&acc)[NG][NU][4], const float (&p)[NK][4],
+                                         const float* tile, int b0, int b1) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_tf32(p[kk][0], ph[0], pl[0]);
+    split_tf32(p[kk][2], ph[1], pl[1]);
+    split_tf32(p[kk][1], ph[2], pl[2]);
+    split_tf32(p[kk][3], ph[3], pl[3]);
+    const float* r0 = tile + 8 * kk * LD + b0;
+    const float* r1 = tile + 8 * kk * LD + b1;
+#pragma unroll
+    for (int G = 0; G < NG; ++G) {
+      float y0[NU], y1[NU];
+      lds<NU>(r0 + 8 * NU * G, y0);
+      lds<NU>(r1 + 8 * NU * G, y1);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        uint32_t h0, lo0, h1, lo1;
+        split_tf32(y0[u], h0, lo0);
+        split_tf32(y1[u], h1, lo1);
+        mma_tf32(acc[G][u], ph, h0, h1);
+        mma_tf32(acc[G][u], ph, lo0, lo1);
+        mma_tf32(acc[G][u], pl, h0, h1);
+      }
+    }
+  }
+}
+
+// An accumulator's rows, positions p and p + 8 (those below S), times mul
+// into out (row stride rs): the thread holds columns 8·NU·G + 2·NU·tq + u
+// and + NU, 2·NU consecutive floats of each row
+template <int NU, int NG>
+__device__ __forceinline__ void store_rows(float* out, long long rs, const float (&acc)[NG][NU][4],
+                                           int p, int S, int tq, float mul) {
+#pragma unroll
+  for (int G = 0; G < NG; ++G) {
+    const int col = 8 * NU * G + 2 * NU * tq;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (p + 8 * half >= S) continue;
+      float* row = out + (long long)(p + 8 * half) * rs + col;
+      float x[2 * NU];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        x[u] = acc[G][u][2 * half] * mul;
+        x[NU + u] = acc[G][u][2 * half + 1] * mul;
+      }
+#pragma unroll
+      for (int i = 0; i < 2 * NU; i += 4)
+        *reinterpret_cast<float4*>(row + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+    }
+  }
+}
+
+// dK and dV of block blk: (64 keys, query head h, batch), the first key
+// blocks (which see the most queries when causal) first. Warp w owns keys
+// 16·(w & 3) .. + 15 of the block. Warps 0-3 compute Pᵀ = exp2(Sᵀ·scale·
+// log2e − lse·log2e) from Sᵀ = K·Qᵀ and hold dV += Pᵀ·dO; warps 4-7 compute
+// dPᵀ = V·dOᵀ, take Pᵀ from warp w − 4 through shared memory (one named
+// barrier a pair), form dSᵀ = Pᵀ ∘ (dPᵀ − D) and hold dK += dSᵀ·Q: each
+// warp one 16 × hd accumulator, hd/2 registers a thread. K and V are
+// resident; Q and dO tiles of BQ rows stream through two cp.async stages,
+// the next tile's copy in flight during this tile's products, one
+// block-wide barrier a tile. Writes h's float32 partials: part[0] = dV,
+// part[1] = dK·scale, each (B, H, S, HD).
+template <int HD>
+__device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ D,
+                                           float* __restrict__ part, int B, int H, int K, int S,
+                                           BwdStrides st,
+                                           int causal, int window, float scale,
+                                           float scale_log2, int blk) {
+  using Sh = BwdF32Shape<HD>;
+  constexpr int LD = Sh::LD, NU = Sh::NU, NG = Sh::NG, BQ = Sh::BQ, NQ = Sh::NQ;
+  extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = sK + BW_K * LD;
-  float* sQ = sV + BW_K * LD;
-  float* sG = sQ + BW_Q * LD;
-  float* sP = sG + BW_Q * LD;
-  float* sS = sP + BW_Q * LP;
-  float* sL = sS + BW_Q * LP;
-  float* sD = sL + BW_Q;
+  float* sV = smem + Sh::KD_V;
+  float* ring = smem + Sh::KD_RING;  // stage s: Q at ring + 2s·BQ·LD, dO at + (2s + 1)·BQ·LD
+  float* xbuf = smem + Sh::KD_X;
 
-  const int k0 = blockIdx.x * BW_K;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int grp = H / K;
-  const int tid = threadIdx.x;
-  const int col = tid % HD;
-  const int kj0 = tid / HD;
-
-  stage<T, HD>(sK, k + b * st.kb + kvh * st.kh, st.ks, k0, BW_K, S);
-  stage<T, HD>(sV, v + b * st.vb + kvh * st.vh, st.vs, k0, BW_K, S);
-
-  float acc_k[KPT], acc_v[KPT];
-#pragma unroll
-  for (int m = 0; m < KPT; ++m) acc_k[m] = acc_v[m] = 0.f;
-
-  // the query rows that can see a key of this tile
-  const int k_last = min(k0 + BW_K, S) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S, k_last + window) : S;
-
-  for (int hh = 0; hh < grp; ++hh) {
-    const int h = kvh * grp + hh;
-    const T* qh = q + b * st.qb + h * st.qh;
-    const T* gh = g + b * st.gb + h * st.gh;
-    const float* lh = lse + ((long long)b * H + h) * S;
-    const float* dh = D + ((long long)b * H + h) * S;
-    for (int i0 = (q_lo / BW_Q) * BW_Q; i0 < q_hi; i0 += BW_Q) {
-      __syncthreads();  // the previous chunk is no longer read
-      stage<T, HD>(sQ, qh, st.qs, i0, BW_Q, S);
-      stage<T, HD>(sG, gh, st.gs, i0, BW_Q, S);
-      if (tid < BW_Q) {
-        const int p = i0 + tid;
-        sL[tid] = p < S ? lh[p] : 0.f;
-        sD[tid] = p < S ? dh[p] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < BW_NE; ++r) {
-        const int e = tid + BW_THREADS * r;
-        const int i = e / BW_K, j = e % BW_K;
-        float p = 0.f, ds = 0.f;
-        if (visible(i0 + i, k0 + j, S, causal, window)) {
-          const float sc = dot_row<HD>(sQ + i * LD, sK + j * LD) * scale;
-          p = expf(sc - sL[i]);
-          const float dp = dot_row<HD>(sG + i * LD, sV + j * LD);
-          ds = p * (dp - sD[i]);
-        }
-        sP[i * LP + j] = p;
-        sS[i * LP + j] = ds;
-      }
-      __syncthreads();
-      for (int i = 0; i < BW_Q; ++i) {
-        const float gi = sG[i * LD + col];
-        const float qi = sQ[i * LD + col];
-#pragma unroll
-        for (int m = 0; m < KPT; ++m) {
-          const int j = kj0 + KSTEP * m;
-          acc_v[m] += sP[i * LP + j] * gi;
-          acc_k[m] += sS[i * LP + j] * qi;
-        }
-      }
-    }
-  }
-
-  T* dkb = dk + b * st.dkb + kvh * st.dkh;
-  T* dvb = dv + b * st.dvb + kvh * st.dvh;
-#pragma unroll
-  for (int m = 0; m < KPT; ++m) {
-    const int kpos = k0 + kj0 + KSTEP * m;
-    if (kpos < S) {
-      dkb[(long long)kpos * st.dks + col] = rt::from_f<T>(acc_k[m] * scale);
-      dvb[(long long)kpos * st.dvs + col] = rt::from_f<T>(acc_v[m]);
-    }
-  }
-}
-
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-         (2 * (size_t)BW_Q * (HD + 1) + 2 * (size_t)BW_K * (HD + 1) + BW_Q * (BW_K + 1) +
-          2 * BW_Q);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(BW_THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
-                        const float* __restrict__ lse, const float* __restrict__ D,
-                        T* __restrict__ dq, int H, int K, int S, BwdStrides st, int causal,
-                        int window, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int LP = BW_K + 1;
-  constexpr int RPT = BW_Q * HD / BW_THREADS;  // query rows per thread in the accumulators
-  constexpr int RSTEP = BW_THREADS / HD;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sG = sQ + BW_Q * LD;
-  float* sK = sG + BW_Q * LD;
-  float* sV = sK + BW_K * LD;
-  float* sS = sV + BW_K * LD;
-  float* sL = sS + BW_Q * LP;
-  float* sD = sL + BW_Q;
-
-  const int i0 = blockIdx.x * BW_Q;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int bh = blk % (B * H);
+  const int p0 = blk / (B * H) * F_KEYS;  // first key
+  const int b = bh / H, h = bh % H;
   const int kvh = h / (H / K);
-  const int tid = threadIdx.x;
-  const int col = tid % HD;
-  const int qi0 = tid / HD;
+  const int p_last = min(p0 + F_KEYS, S) - 1;
+  // the query tiles that can see a key of the block
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int t_lo = causal ? p0 / BQ : 0;
+  const int t_hi = window > 0 ? min(n_qt, (p_last + window - 1) / BQ + 1) : n_qt;
+  const float* qh = q + b * st.qb + h * st.qh;
+  const float* gh = g + b * st.gb + h * st.gh;
 
-  stage<T, HD>(sQ, q + b * st.qb + h * st.qh, st.qs, i0, BW_Q, S);
-  stage<T, HD>(sG, g + b * st.gb + h * st.gh, st.gs, i0, BW_Q, S);
-  if (tid < BW_Q) {
-    const int p = i0 + tid;
-    const long long row = ((long long)b * H + h) * S + p;
-    sL[tid] = p < S ? lse[row] : 0.f;
-    sD[tid] = p < S ? D[row] : 0.f;
-  }
+  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sK, k + b * st.kb + kvh * st.kh, st.ks, p0, S);
+  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sV, v + b * st.vb + kvh * st.vh, st.vs, p0, S);
+  load_rows<HD, BQ, LD, F_THREADS, true>(ring, qh, st.qs, t_lo * BQ, S);
+  load_rows<HD, BQ, LD, F_THREADS, true>(ring + BQ * LD, gh, st.gs, t_lo * BQ, S);
+  rt::cp_async_commit();
 
-  float acc[RPT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wg = warp >> 2, wk = warp & 3;
+  const int kw0 = p0 + 16 * wk;          // this warp's first key
+  const int kw1 = min(kw0 + 15, S - 1);  // and last valid key
+  // its query tiles [a_lo, a_hi): none past S
+  const int a_lo = max(t_lo, causal ? kw0 / BQ : 0);
+  const int a_hi =
+      kw0 < S ? min(t_hi, window > 0 ? (kw1 + window - 1) / BQ + 1 : n_qt) : a_lo;
+  const int sa = swz(gr);
+  const int o0 = (4 * tq) ^ sa, o1 = (16 + 4 * tq) ^ sa;
+  const int b0 = 2 * tq * LD + ((NU * gr) ^ swz(2 * tq));
+  const int b1 = (2 * tq + 1) * LD + ((NU * gr) ^ swz(2 * tq + 1));
+  const float* a_rows = (wg == 0 ? sK : sV) + (16 * wk + gr) * LD;
+  // the tile's queries' lse in log2 units (for Pᵀ) or D (for dSᵀ)
+  const float* cvals = (wg == 0 ? lse : D) + ((long long)b * H + h) * S;
+  const float cmul = wg == 0 ? LOG2E : 1.f;
+  float* xw = xbuf + wk * (32 * 4 * NQ) + lane;  // pair wk's hand-over: value i at xw[32·i]
+
+  float acc[NG][NU][4];
 #pragma unroll
-  for (int m = 0; m < RPT; ++m) acc[m] = 0.f;
-
-  // the keys any row of this block can see
-  const int i_last = min(i0 + BW_Q, S) - 1;
-  const int k_lo = window > 0 ? max(0, i0 - window + 1) : 0;
-  const int k_hi = causal ? i_last + 1 : S;
-  const T* kh = k + b * st.kb + kvh * st.kh;
-  const T* vh = v + b * st.vb + kvh * st.vh;
-
-  for (int k0 = (k_lo / BW_K) * BW_K; k0 < k_hi; k0 += BW_K) {
-    __syncthreads();  // the previous tile is no longer read
-    stage<T, HD>(sK, kh, st.ks, k0, BW_K, S);
-    stage<T, HD>(sV, vh, st.vs, k0, BW_K, S);
-    __syncthreads();
+  for (int G = 0; G < NG; ++G)
 #pragma unroll
-    for (int r = 0; r < BW_NE; ++r) {
-      const int e = tid + BW_THREADS * r;
-      const int i = e / BW_K, j = e % BW_K;
-      float ds = 0.f;
-      if (visible(i0 + i, k0 + j, S, causal, window)) {
-        const float sc = dot_row<HD>(sQ + i * LD, sK + j * LD) * scale;
-        const float p = expf(sc - sL[i]);
-        const float dp = dot_row<HD>(sG + i * LD, sV + j * LD);
-        ds = p * (dp - sD[i]);
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[G][u][e] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int i = t - t_lo;
+    const float* sQ = ring + (i & 1) * 2 * BQ * LD;
+    const float* sG = sQ + BQ * LD;
+    rt::cp_async_wait<0>();
+    __syncthreads();  // tile t has landed, and every warp is done with tile t - 1
+    if (t + 1 < t_hi) {
+      float* nQ = ring + ((i + 1) & 1) * 2 * BQ * LD;
+      load_rows<HD, BQ, LD, F_THREADS, true>(nQ, qh, st.qs, (t + 1) * BQ, S);
+      load_rows<HD, BQ, LD, F_THREADS, true>(nQ + BQ * LD, gh, st.gs, (t + 1) * BQ, S);
+      rt::cp_async_commit();
+    }
+    if (t < a_lo || t >= a_hi) continue;
+    const int c0 = t * BQ;  // first query
+    float cv[NQ][2];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int qp = c0 + 8 * j + 2 * tq + u;
+        cv[j][u] = qp < S ? cvals[qp] * cmul : 0.f;
       }
-      sS[i * LP + j] = ds;
+
+    // Sᵀ = K·Qᵀ or dPᵀ = V·dOᵀ; sc[j][e]: key kw0 + gr + 8·(e >> 1), query
+    // c0 + 8j + 2tq + (e & 1)
+    float sc[NQ][4];
+    score_tf32<HD, LD, NQ>(sc, a_rows, (wg == 0 ? sQ : sG) + gr * LD, o0, o1);
+    if (wg == 0) {
+      const bool masked = (c0 + BQ > S) || (kw0 + 16 > S) || (causal && kw0 + 15 > c0) ||
+                          (window > 0 && kw0 <= c0 + BQ - 1 - window);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(sc[j][e] * scale_log2 - cv[j][e & 1]);
+          if (masked) {
+            const int kp = kw0 + gr + 8 * (e >> 1), qp = c0 + 8 * j + 2 * tq + (e & 1);
+            bool ok = qp < S && kp < S;
+            if (causal) ok = ok && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+            p = ok ? p : 0.f;
+          }
+          sc[j][e] = p;
+          xw[32 * (4 * j + e)] = p;
+        }
+      }
+      bar_arrive(1 + wk, 64);
+    } else {
+      bar_sync(1 + wk, 64);  // warp wk's Pᵀ is in the hand-over
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = xw[32 * (4 * j + e)] * (sc[j][e] - cv[j][e & 1]);
+    }
+    // dV += Pᵀ·dO or dK += dSᵀ·Q
+    acc_tf32<LD, NU, NG, NQ>(acc, sc, wg == 0 ? sG : sQ, b0, b1);
+  }
+
+  if (kw0 >= S) return;
+  store_rows<NU, NG>(part + (((long long)wg * B + b) * H + h) * S * HD, HD, acc, kw0 + gr, S,
+                     tq, wg == 0 ? 1.f : scale);
+}
+
+// dQ of block blk: (64 query rows, head, batch), the heaviest causal
+// query tiles (the last) first. Warp w owns rows 16·(w & 3) .. + 15 and
+// keys 16·(w >> 2) .. + 15 of every 32-key tile: it computes dP = dO·Vᵀ and
+// S = Q·Kᵀ, P = exp2(S·scale·log2e − lse·log2e), dS = P ∘ (dP − D) and
+// dQ += dS·K for its half of the keys; the two warps of a row block add
+// their halves once at the end, half 0 first. Q and dO are resident; K
+// and V have one cp.async buffer each, whose copies alternate with the
+// products that read the other: V of tile t + 1 lands during tile t's S
+// and dQ products, K of tile t + 1 during tile t + 1's dP.
+template <int HD>
+__device__ __forceinline__ void dq_block(const float* __restrict__ q,
+                                         const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ D, float* __restrict__ dq,
+                                         int B, int H, int K, int S, BwdStrides st, int causal,
+                                         int window, float scale, float scale_log2, int blk) {
+  using Sh = BwdF32Shape<HD>;
+  constexpr int LD = Sh::LD, NU = Sh::NU, NG = Sh::NG;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sG = smem + Sh::DQ_G;
+  float* sK = smem + Sh::DQ_K;
+  float* sV = smem + Sh::DQ_V;
+
+  const int n_qb = (S + F_ROWS - 1) / F_ROWS;
+  const int bh = blk % (B * H);
+  const int q0 = (n_qb - 1 - blk / (B * H)) * F_ROWS;  // first query row
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / K);
+  // the key tiles that a row of the block can see
+  const int n_kt = (S + F_BK - 1) / F_BK;
+  const int q_last = min(q0 + F_ROWS, S) - 1;
+  const int kt_hi = causal ? min(n_kt, q_last / F_BK + 1) : n_kt;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / F_BK : 0;
+  const float* kbase = k + b * st.kb + kvh * st.kh;
+  const float* vbase = v + b * st.vb + kvh * st.vh;
+
+  load_rows<HD, F_ROWS, LD, F_THREADS, true>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_rows<HD, F_ROWS, LD, F_THREADS, true>(sG, g + b * st.gb + h * st.gh, st.gs, q0, S);
+  load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, kt_lo * F_BK, S);
+  rt::cp_async_commit();
+  load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, kt_lo * F_BK, S);
+  rt::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp & 3, half = warp >> 2;
+  const int qw0 = q0 + 16 * wr;          // this warp's first row
+  const int qw1 = min(qw0 + 15, S - 1);  // and last valid row
+  const bool live = qw0 < S;
+  const int qpos0 = qw0 + gr, qpos1 = qpos0 + 8;
+  const long long row0 = ((long long)b * H + h) * S;
+  const int sa = swz(gr);
+  const int o0 = (4 * tq) ^ sa, o1 = (16 + 4 * tq) ^ sa;
+  const int b0 = 2 * tq * LD + ((NU * gr) ^ swz(2 * tq));
+  const int b1 = (2 * tq + 1) * LD + ((NU * gr) ^ swz(2 * tq + 1));
+  const float* aQ = sQ + (16 * wr + gr) * LD;
+  const float* aG = sG + (16 * wr + gr) * LD;
+  const float* kh = sK + 16 * half * LD;  // this warp's keys of the K tile
+  const float* vh = sV + 16 * half * LD;  // and of the V tile
+
+  float acc[NG][NU][4];
+#pragma unroll
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[G][u][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const bool more = kt + 1 < kt_hi;
+    const int kw0 = kt * F_BK + 16 * half;  // this warp's first key
+    const bool active = live && kw0 < S && (!causal || kw0 <= qw1) &&
+                        (window <= 0 || kw0 + 15 > qw0 - window);
+    rt::cp_async_wait<1>();  // Q, dO and this tile's V have landed; its K may be in flight
+    __syncthreads();
+    // dP = dO·Vᵀ; dp[j][e]: row qw0 + gr + 8·(e >> 1), key kw0 + 8j + 2tq + (e & 1)
+    float dp[2][4];
+    if (active) score_tf32<HD, LD, 2>(dp, aG, vh + gr * LD, o0, o1);
+    __syncthreads();  // every warp is done with this tile's V
+    if (more) {
+      load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
+      rt::cp_async_commit();
+      rt::cp_async_wait<1>();  // this tile's K has landed; the next V may not
+    } else {
+      rt::cp_async_wait<0>();
     }
     __syncthreads();
-    for (int j = 0; j < BW_K; ++j) {
-      const float kj = sK[j * LD + col];
+    if (active) {
+      float sc[2][4];
+      score_tf32<HD, LD, 2>(sc, aQ, kh + gr * LD, o0, o1);  // S = Q·Kᵀ
+      // the rows' lse in log2 units and D, read where they are used (held
+      // across the loop, they spill the hd-256 instantiation)
+      const float l0 = qpos0 < S ? lse[row0 + qpos0] * LOG2E : 0.f;
+      const float l1 = qpos1 < S ? lse[row0 + qpos1] * LOG2E : 0.f;
+      const float d0 = qpos0 < S ? D[row0 + qpos0] : 0.f;
+      const float d1 = qpos1 < S ? D[row0 + qpos1] : 0.f;
+      const bool masked = (kw0 + 16 > S) || (qw0 + 16 > S) || (causal && kw0 + 15 > qw0) ||
+                          (window > 0 && kw0 <= qw1 - window);
 #pragma unroll
-      for (int m = 0; m < RPT; ++m) acc[m] += sS[(qi0 + RSTEP * m) * LP + j] * kj;
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool r1 = e >= 2;
+          float p = exp2f(sc[j][e] * scale_log2 - (r1 ? l1 : l0));
+          if (masked) {
+            const int kp = kw0 + 8 * j + 2 * tq + (e & 1), qp = r1 ? qpos1 : qpos0;
+            bool ok = qp < S && kp < S;
+            if (causal) ok = ok && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+            p = ok ? p : 0.f;
+          }
+          sc[j][e] = p * (dp[j][e] - (r1 ? d1 : d0));  // dS
+        }
+      }
+      acc_tf32<LD, NU, NG, 2>(acc, sc, kh, b0, b1);  // dQ += dS·K
+    }
+    __syncthreads();  // every warp is done with this tile's K
+    if (more) {
+      load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
+      rt::cp_async_commit();
     }
   }
 
-  T* dqb = dq + b * st.dqb + h * st.dqh;
+  // half 1's dQ through shared memory (the K and V buffers: 64·LD floats),
+  // added to half 0's
+  float* xq = sK + (threadIdx.x & 127);
+  if (half == 1) {
 #pragma unroll
-  for (int m = 0; m < RPT; ++m) {
-    const int qpos = i0 + qi0 + RSTEP * m;
-    if (qpos < S) dqb[(long long)qpos * st.dqs + col] = rt::from_f<T>(acc[m] * scale);
+    for (int G = 0; G < NG; ++G)
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xq[128 * ((G * NU + u) * 4 + e)] = acc[G][u][e];
   }
+  __syncthreads();
+  if (half == 1 || !live) return;
+#pragma unroll
+  for (int G = 0; G < NG; ++G)
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[G][u][e] += xq[128 * ((G * NU + u) * 4 + e)];
+  store_rows<NU, NG>(dq + b * st.dqb + h * st.dqh, st.dqs, acc, qpos0, S, tq, scale);
+}
+
+// dQ, dK and dV in one launch of 2·ceil(S/64)·B·H blocks: even blocks are
+// dK/dV blocks, odd blocks dQ blocks, each list heaviest first, so that
+// the two kinds share the card (at small shapes neither fills it alone).
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ D,
+                         float* __restrict__ part, float* __restrict__ dq, int B, int H, int K,
+                         int S, BwdStrides st,
+                         int causal, int window, float scale, float scale_log2) {
+  const int blk = (int)(blockIdx.x >> 1);
+  if (blockIdx.x & 1)
+    dq_block<HD>(q, k, v, g, lse, D, dq, B, H, K, S, st, causal, window, scale, scale_log2, blk);
+  else
+    dkdv_block<HD>(q, k, v, g, lse, D, part, B, H, K, S, st, causal, window, scale, scale_log2,
+                   blk);
 }
 
 template <int HD>
-int launch_fma(const void* q, const void* k, const void* v, const void* o, const void* g,
-               const float* lse, float* D, float* /*part*/, void* dq, void* dk, void* dv, int B,
+int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* g,
+               const float* lse, float* D, float* part, void* dq, void* dk, void* dv, int B,
                int H, int K, int S, const BwdStrides& st, int causal, int window, float scale,
                cudaStream_t stream) {
-  using T = float;
-  static int dkdv_set[rt::kMaxDevices], dq_set[rt::kMaxDevices];
-  cudaError_t e = rt::max_dynamic_smem(
-      reinterpret_cast<const void*>(flash_bwd_dkdv_kernel<T, HD>), (int)dkdv_smem<HD>(),
-      dkdv_set);
+  // the 16-byte copies of q, k, v, dO and stores of dq, dk, dv: 16-byte
+  // aligned bases, every batch, head and seq stride a multiple of 4 floats
+  // (the wrapper copies an input that breaks the rule)
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(g) |
+                          reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                          reinterpret_cast<uintptr_t>(dv);
+  const long long strides = st.qb | st.qh | st.qs | st.kb | st.kh | st.ks | st.vb | st.vh |
+                            st.vs | st.gb | st.gh | st.gs | st.dqb | st.dqh | st.dqs | st.dkb |
+                            st.dkh | st.dks | st.dvb | st.dvh | st.dvs;
+  if ((bases & 15) || (strides & 3) || part == nullptr) return (int)cudaErrorInvalidValue;
+  using Sh = BwdF32Shape<HD>;
+  static int smem_set[rt::kMaxDevices];
+  cudaError_t e = rt::max_dynamic_smem(reinterpret_cast<const void*>(flash_bwd_f32_kernel<HD>),
+                                       Sh::SMEM, smem_set);
   if (e != cudaSuccess) return (int)e;
-  e = rt::max_dynamic_smem(reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, HD>),
-                           (int)dq_smem<HD>(), dq_set);
-  if (e != cudaSuccess) return (int)e;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
   const long long rows = (long long)B * H * S;
   const long long dot_blocks = (rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32);
-  if (dot_blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  flash_bwd_dot_kernel<T><<<(unsigned)dot_blocks, BW_THREADS, 0, stream>>>(
-      static_cast<const T*>(o), gt, D, H, S, HD, st, rows);
+  static_assert(F_KEYS == F_ROWS, "as many dK/dV blocks as dQ blocks");
+  const long long blocks = 2LL * ((S + F_KEYS - 1) / F_KEYS) * B * H;
+  const long long n4 = (long long)B * K * S * (HD / 4);
+  const long long sum_blocks = (2 * n4 + 255) / 256;
+  if (dot_blocks > 2147483647LL || blocks > 2147483647LL || sum_blocks > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(g);
+  flash_bwd_dot_kernel<float><<<(unsigned)dot_blocks, BW_THREADS, 0, stream>>>(
+      static_cast<const float*>(o), gt, D, H, S, HD, st, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_kernel<T, HD><<<dim3((S + BW_K - 1) / BW_K, K, B), BW_THREADS,
-                                 dkdv_smem<HD>(), stream>>>(
-      qt, kt, vt, gt, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), H, K, S, st, causal,
-      window, scale);
+  flash_bwd_f32_kernel<HD><<<(unsigned)blocks, F_THREADS, Sh::SMEM, stream>>>(
+      qt, kt, vt, gt, lse, D, part, static_cast<float*>(dq), B, H, K, S, st, causal, window,
+      scale, scale * LOG2E);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_kernel<T, HD><<<dim3((S + BW_Q - 1) / BW_Q, H, B), BW_THREADS, dq_smem<HD>(),
-                               stream>>>(qt, kt, vt, gt, lse, D, static_cast<T*>(dq), H, K, S,
-                                         st, causal, window, scale);
+  flash_bwd_sum_kernel<float><<<(unsigned)sum_blocks, 256, 0, stream>>>(
+      part, static_cast<float*>(dk), static_cast<float*>(dv), B, H, K, S, HD, st, n4);
   return (int)cudaGetLastError();
 }
 
@@ -385,7 +705,6 @@ constexpr int TB_PRODUCER_REGS = 24;
 constexpr int TB_CONSUMER_REGS = 240;
 constexpr int BAR_X_FULL = 1;   // named barrier: P is in the hand-over buffer
 constexpr int BAR_X_EMPTY = 2;  // named barrier: warpgroup 1 has read it
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 struct BwdShape {
@@ -674,46 +993,6 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
   }
 }
 
-// dK and dV: each KV head's g partials (part[1] and part[0], (B, H, S, hd)
-// float32) summed over its group in head order, head 0 first, then
-// rounded once to bf16. One thread per 4 columns of one row of dK or dV.
-__global__ void __launch_bounds__(256)
-    flash_bwd_sum_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int B, int H, int K, int S, int hd,
-                         BwdStrides st, long long n4) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * n4) return;
-  const int which = idx >= n4;  // 0: dV, 1: dK
-  long long e = idx - which * n4;
-  const int hd4 = hd >> 2;
-  const int c = (int)(e % hd4) * 4;
-  e /= hd4;
-  const int s = (int)(e % S);
-  e /= S;
-  const int kvh = (int)(e % K);
-  const int b = (int)(e / K);
-  const int g = H / K;
-  const long long head_stride = (long long)S * hd;
-  const float* src =
-      part + ((((long long)which * B + b) * H + (long long)kvh * g) * S + s) * hd + c;
-  float4 acc = *reinterpret_cast<const float4*>(src);
-  for (int hh = 1; hh < g; ++hh) {
-    const float4 x = *reinterpret_cast<const float4*>(src + hh * head_stride);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  __nv_bfloat16* out = which ? dk + b * st.dkb + kvh * st.dkh + (long long)s * st.dks + c
-                             : dv + b * st.dvb + kvh * st.dvh + (long long)s * st.dvs + c;
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z, acc.w);
-  uint2 packed;
-  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(out) = packed;
-}
-
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* g,
               const float* lse, float* D, float* part, void* dq, void* dk, void* dv, int B,
@@ -757,7 +1036,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
       B, H, K, S, causal, window, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_sum_kernel<<<(unsigned)sum_blocks, 256, 0, stream>>>(
+  flash_bwd_sum_kernel<__nv_bfloat16><<<(unsigned)sum_blocks, 256, 0, stream>>>(
       part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, H, K, S, HD, st,
       n4);
   return (int)cudaGetLastError();
@@ -771,11 +1050,11 @@ LaunchFn pick(int dtype, int hd) {
   const bool bf = dtype == rt::kBF16;
   if (dtype != rt::kF32 && !bf) return nullptr;
   switch (hd) {
-    case 16: return bf ? launch_tc<16> : launch_fma<16>;
-    case 32: return bf ? launch_tc<32> : launch_fma<32>;
-    case 64: return bf ? launch_tc<64> : launch_fma<64>;
-    case 128: return bf ? launch_tc<128> : launch_fma<128>;
-    case 256: return bf ? launch_tc<256> : launch_fma<256>;
+    case 16: return bf ? launch_tc<16> : launch_f32<16>;
+    case 32: return bf ? launch_tc<32> : launch_f32<32>;
+    case 64: return bf ? launch_tc<64> : launch_f32<64>;
+    case 128: return bf ? launch_tc<128> : launch_f32<128>;
+    case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;
   }
 }
@@ -785,8 +1064,8 @@ LaunchFn pick(int dtype, int hd) {
 // strides: 24 element strides, (batch, head, seq) for q, k, v, o, dO, dq,
 // dk and dv in that order; the head_dim axis of every tensor has stride 1.
 // lse: (B, H, S) float32 from the forward; D: (B, H, S) float32 scratch;
-// part: bfloat16 only, (2, B, H, S, hd) float32 scratch for the per-head
-// dV and dK partials (null for float32).
+// part: (2, B, H, S, hd) float32 scratch for the per-head dV and dK
+// partials.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout, const void* lse, void* D,
                                       void* part, void* dq, void* dk, void* dv, int B, int H,

@@ -18,13 +18,13 @@ forward also writes each row's log-sum-exp (``lse``, float32
 The backward (``flash_attention_bwd``) has no Pallas counterpart: the
 reference trains by ``jax.grad`` of its jnp attention. It gives dQ, dK and
 dV, bit-identical from run to run (no atomics; every sum in a fixed
-order). bfloat16 runs on the tensor cores: a dK/dV kernel per (64 keys,
-query head, batch) writing float32 per-head partials to a scratch buffer
-that a second pass sums over each group in head order, and a dQ kernel per
-(64 query rows, head, batch); P and dS enter the products as a bf16 high
-and low part. float32 runs on FMA (no tensor core), dK/dV summed over a
-group inside one block. ``ops.flash_attention`` binds it to the forward in
-an autograd Function.
+order). Both types run on the tensor cores, a dK/dV kernel per (64 keys,
+query head, batch) and a dQ kernel per (64 query rows, head, batch), with
+float32 per-head dK/dV partials in a scratch buffer that a second pass sums
+over each group in head order. bfloat16 runs on wgmma, P and dS entering
+the products as a bf16 high and low part; float32 on mma.sync as 3×TF32,
+like the forward. ``ops.flash_attention`` binds it to the forward in an
+autograd Function.
 """
 from __future__ import annotations
 
@@ -39,6 +39,9 @@ NEG_INF = -1.0e30
 #: launches of the CUDA kernels since the last reset (see ``ops.launch_counts``)
 launches = 0
 bwd_launches = 0
+#: the float32 routes' share of them (see ``ops.f32_launch_counts``)
+f32_launches = 0
+f32_bwd_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -58,7 +61,7 @@ def _check(q, k, v):
 
 def tma_ready(t: torch.Tensor) -> bool:
     """Whether the kernels' 16-byte copies can read ``t`` in place (the
-    bfloat16 kernels' TMA tensor maps, the float32 forward's cp.async): a
+    bfloat16 kernels' TMA tensor maps, the float32 kernels' cp.async): a
     16-byte aligned base and batch, head and sequence strides that are
     multiples of 16 bytes (8 bfloat16 or 4 float32 elements)."""
     step = 16 // t.element_size()
@@ -77,7 +80,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
     in q's dtype, as a view of a (B, S, H, hd) buffer: the model's next
     step, the output projection, reads that layout without a copy. With
     ``return_lse``, returns (out, lse (B, H, S) float32)."""
-    global launches
+    global launches, f32_launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: the CUDA kernel takes CUDA tensors on one device")
     B, H, K, S, hd = _check(q, k, v)
@@ -103,6 +106,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
     )
     _build.check(err, "flash_attention")
     launches += 1
+    if q.dtype == torch.float32:
+        f32_launches += 1
     return out if lse is None else (out, lse)
 
 
@@ -110,11 +115,12 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     """CUDA kernel. q, o, dout: (B, H, S, hd); k/v: (B, K, S, hd), one dtype;
     lse: (B, H, S) float32 from the forward. Returns (dq, dk, dv) in the
     inputs' dtype, each a view of a (B, S, heads, hd) buffer (the layout of
-    the model's projections). The bfloat16 kernels read q, k, v and dout
-    through TMA tensor maps: any of the four that a map cannot read in place
-    (:func:`tma_ready`) is copied first, and the route does not change. o is
-    read by element strides, as on the float32 route."""
-    global bwd_launches
+    the model's projections). The kernels read q, k, v and dout with 16-byte
+    copies (bfloat16: TMA tensor maps; float32: cp.async): any of the four
+    that they cannot read in place (:func:`tma_ready`; autograd's dout is
+    often a strided view) is copied first, and the route does not change.
+    o is read by element strides."""
+    global bwd_launches, f32_bwd_launches
     if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
         raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
     B, H, K, S, hd = _check(q, k, v)
@@ -125,11 +131,9 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(B, H, S)}")
     q, k, v, o, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, dout))
-    part = None
-    if q.dtype == torch.bfloat16:
-        q, k, v, dout = (tma_copy(t) for t in (q, k, v, dout))
-        # the per-head float32 dV and dK partials that the second pass sums
-        part = torch.empty((2, B, H, S, hd), dtype=torch.float32, device=q.device)
+    q, k, v, dout = (tma_copy(t) for t in (q, k, v, dout))
+    # the per-head float32 dV and dK partials that the second pass sums
+    part = torch.empty((2, B, H, S, hd), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -139,13 +143,15 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
                                    for s in t.stride()[:3]))
     err = _build.lib().rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), None if part is None else part.data_ptr(),
+        lse.data_ptr(), D.data_ptr(), part.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, K, S, hd, strides, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _build.dtype_code(q), _build.stream_arg(q.device),
     )
     _build.check(err, "flash_attention_bwd")
     bwd_launches += 1
+    if q.dtype == torch.float32:
+        f32_bwd_launches += 1
     return dq, dk, dv
 
 

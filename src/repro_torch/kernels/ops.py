@@ -138,11 +138,22 @@ _COUNTERS = {"rmsnorm": (rn, "launches"), "flash_attention": (fa, "launches"),
              "flash_attention_bwd": (fa, "bwd_launches")}
 
 
+# the float32 routes' share of two of those counts
+_F32_COUNTERS = {"flash_attention": (fa, "f32_launches"),
+                 "flash_attention_bwd": (fa, "f32_bwd_launches")}
+
+
 def launch_counts() -> Dict[str, int]:
     """CUDA kernel launches per kernel since the last reset."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
+def f32_launch_counts() -> Dict[str, int]:
+    """Launches of the flash-attention kernels' float32 routes since the last
+    reset (a part of :func:`launch_counts`' counts)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _F32_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTERS.values():
+    for mod, attr in (*_COUNTERS.values(), *_F32_COUNTERS.values()):
         setattr(mod, attr, 0)

@@ -7,13 +7,15 @@ one NVIDIA card.
 
 OTHER_TREE is a checkout of another commit (``git archive <commit> | tar -x
 -C build/parent``, a directory that .gitignore lists). A variant is this
-tree with a few literal edits of ``csrc/flash_attention.cu`` (VARIANTS),
-copied to ``build/flash_variants/<name>/``. The trees run in turns, then in
+tree with a few literal edits of ``csrc/flash_attention.cu`` or of the
+TF32 helpers it includes, ``csrc/tf32.cuh`` (VARIANTS), copied to
+``build/flash_variants/<name>/``. The trees run in turns, then in
 the reverse order (OTHER, THIS, THIS, OTHER), each in a process of its own
 that builds its own library from its own ``src/``. A process holds each
-float32 forward row against the plain version (max |kernel - plain|) and
-times every row of ROWS on the device alone (``chip_smoke.device_ms``, the
-profiler) and per call (``chip_smoke.time_ms``, CUDA events); against
+float32 row, forward and backward, against the plain version (max |kernel -
+plain|; the backward's over dq, dk and dv) and times every row of ROWS on
+the device alone (``chip_smoke.device_ms``, the profiler) and per call
+(``chip_smoke.time_ms``, CUDA events); against
 another commit it also times the ``train_llm`` measured step surface at
 gemma-2b's width at one shard (host clock). Inputs come from one seed, so
 every tree sees the same numbers. Prints the card, one JSON line a
@@ -43,12 +45,14 @@ ROWS = {
     "2e bwd bf16 gemma-2b (4,8,512,256)/(4,1)": ("bwd", "bfloat16", (4, 512, 8, 1, 256), 0),
     "2e' bwd bf16 recurrentgemma-9b w2048": ("bwd", "bfloat16", (4, 2048, 16, 1, 256), 2048),
     "2e'' bwd f32 (2,4,512,64)/(2,2)": ("bwd", "float32", (2, 512, 4, 2, 64), 0),
+    "2e''' bwd f32 gemma-2b (4,8,512,256)/(4,1)": ("bwd", "float32", (4, 512, 8, 1, 256), 0),
 }
 F32_FWD = [name for name, (kernel, dtype, _, _) in ROWS.items()
            if kernel == "fwd" and dtype == "float32"]
 
 SPLIT = "  lo = tf32_rna(x - __uint_as_float(hi));"
-# name -> [(text in csrc/flash_attention.cu, replacement)]
+# name -> [(text in csrc/flash_attention.cu, or in the file VARIANT_FILES names, replacement)]
+VARIANT_FILES = {"lo unmasked": "tf32.cuh"}
 VARIANTS = {
     # 64 query rows and 4 warps a block: one warp a sub-partition
     "bq64": [("constexpr int F_BQ = 128;", "constexpr int F_BQ = 64;"),
@@ -97,6 +101,9 @@ for name, (kernel, dtype, (B, S, H, K, hd), window) in {rows!r}.items():
         o, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
         dout = view(H)
         fn = lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse, window=window)
+        if dtype == "float32":
+            want = fa.flash_attention_bwd_ref(q, k, v, o, dout, lse, window=window)
+            row["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(fn(), want))
     iters = 5 if S * H >= 2048 * 16 else 20
     out[name] = dict(row, device_ms=cs.device_ms(fn, iters), ms=cs.time_ms(fn, iters))
 if {surface!r}:
@@ -114,11 +121,11 @@ def make_variant(name: str) -> Path:
         shutil.rmtree(dst)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = dst / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
+    cu = dst / "src" / "repro_torch" / "csrc" / VARIANT_FILES.get(name, "flash_attention.cu")
     text = cu.read_text()
     for old, new in VARIANTS[name]:
         if text.count(old) < 1:
-            raise SystemExit(f"variant {name}: {old!r} is not in csrc/flash_attention.cu")
+            raise SystemExit(f"variant {name}: {old!r} is not in csrc/{cu.name}")
         text = text.replace(old, new)
     cu.write_text(text)
     return dst
@@ -159,7 +166,7 @@ def main() -> int:
     results = {label: [] for label in trees}
     for label in order:
         results[label].append(run(trees[label], label, rows, surface))
-    print("median device ms / ms per call (max |kernel - plain| of the float32 forward)")
+    print("median device ms / ms per call (max |kernel - plain| of the float32 rows)")
     for name in rows:
         print(f"  {name}")
         for label in trees:
