@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash_attention kernels runs on the tensor cores (HGMMA for the bf16
    forward and backward, HMMA for the float32 forward's and backward's
    3xTF32), and in ptxas's report that the hd-256 instantiations of the
-   backward's kernels and of the float32 forward do not spill;
+   backward's kernels and of the float32 forward, and all 5 of the
+   rmsnorm backward's warp kernel, do not spill;
 3. kernels: each of the seven kernels (the five forward kernels and the
    rmsnorm and flash_attention backward kernels) against its plain torch
    version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
@@ -28,14 +29,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one wave, and
    rglru's S = 1, short-tile, unaligned-row, long-sequence and
    extreme-decay cases; the backward kernels at the training shapes
-   (rmsnorm_bwd at (2048, 2048) bf16 and f32; flash_attention_bwd at
-   gemma-2b's shape, recurrentgemma-9b's window shape, a float32 shape and
-   gemma-2b's shape in float32, and ragged / window / not-causal / head-dim
-   / misaligned-dout cases), each also run twice and required to give the
-   same bits, and the forward's lse;
+   (rmsnorm_bwd at (2048, 2048) bf16 and f32, its device time split by
+   kernel, and at (2048, 4096), 2049 rows, a width and a base the warp
+   kernel does not take, ragged float32 widths; flash_attention_bwd at
+   gemma-2b's shape, recurrentgemma-9b's window shape, a float32 shape,
+   gemma-2b's shape in float32 and the train_llm surface's (8, 8, 2048,
+   256) in float32 (untimed; the kernel and the float32 plain version each
+   also against the plain formulas in float64), and ragged / window /
+   not-causal / head-dim / misaligned-dout cases), each also run twice and
+   required to give the same bits, and the forward's lse;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
-   exists, one PyTorch library call;
+   exists, one PyTorch library call. A profiler trace counts only the
+   kernels after a marker kernel that follows one extra call, and only
+   when it holds every kernel its calls launched (``trace_complete``);
+   after three that do not, the run fails;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512) and
    recurrentgemma-9b (prompt 2048, its window) at full width, random
    weights from a seed, through ``repro_torch.launch.serve``: 4 requests,
@@ -270,44 +278,99 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
-    """Device time per call: the kernels' own time in a torch.profiler trace
-    of ``iters`` calls, summed and divided by ``iters``. Unlike time_ms it
-    leaves out the host's launch gaps. A trace now and then records no
-    device activity at all: up to three traces are taken, and None is
-    returned when none of them shows device time."""
+TRACE_TRIES = 3  # profiler traces of a timed function before the run fails
+
+
+def fn_name(fn) -> str:
+    """A timed function's name and where it is defined (a lambda's line)."""
+    code = getattr(fn, "__code__", None)
+    where = f" at {Path(code.co_filename).name}:{code.co_firstlineno}" if code else ""
+    return f"{getattr(fn, '__qualname__', repr(fn))}{where}"
+
+
+MARK_CYCLES = 1_000_000  # the marker kernel's spin, ~0.6 ms
+
+
+def kernel_trace(fn, calls: int):
+    """One torch.profiler trace of ``calls`` calls of ``fn``: (their CUDA
+    kernel events, their device us, [(kernel, events, device us)]). The
+    trace makes one call more first, then launches a marker kernel
+    (torch.cuda._sleep's spin kernel); only the events after the marker
+    count, so kernels that a trace drops at its start fall on the extra
+    call. A trace that lost the marker counts no events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = after_marker([e for e in prof.events() if e.device_type.name == "CUDA"])
+    return sum(n for _, n, _ in rows), sum(us for _, _, us in rows), rows
+
+
+def after_marker(device_events) -> list:
+    """[(kernel, events, device us)] of the device events (torch.profiler
+    FunctionEvents) that start after the trace's one marker kernel ends;
+    [] when the trace does not hold exactly one marker."""
+    marks = [e for e in device_events if "spin_kernel" in e.name]
+    if len(marks) != 1:
+        return []
+    rows = {}
+    for e in device_events:
+        if e.time_range.start >= marks[0].time_range.end:
+            n, us = rows.get(e.name, (0, 0.0))
+            rows[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return [(name, n, us) for name, (n, us) in rows.items()]
+
+
+def trace_complete(events: int, iters: int, k: int, device_us: float) -> bool:
+    """Whether a trace of ``iters`` calls that each launch ``k`` kernels
+    (counted in a trace of one call) holds every one of them: exactly
+    ``iters * k`` kernel events and some device time. A trace that missed
+    kernels reads a time that is too low."""
+    return k > 0 and device_us > 0 and events == iters * k
+
+
+def complete_trace(fn, iters: int):
+    """(device us, [(kernel, events, device us)]) of a trace of ``iters``
+    calls of ``fn`` that holds all their kernels (``trace_complete``): a
+    trace of one call counts them, then the trace is taken; up to
+    TRACE_TRIES times, after which the run fails, naming ``fn``."""
+    name = fn_name(fn)
+    for _ in range(TRACE_TRIES):
+        k = kernel_trace(fn, 1)[0]
+        events, us, rows = kernel_trace(fn, iters)
+        if trace_complete(events, iters, k, us):
+            return us, rows
+        print(f"  trace of {name}: {events} kernel events where {iters} x {k} were launched, "
+              f"{us} device us; taken again")
+    fail(f"{name}: {TRACE_TRIES} torch.profiler traces missed kernels")
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: the kernels' own time in a torch.profiler trace
+    of ``iters`` calls, summed and divided by ``iters``. Unlike time_ms it
+    leaves out the host's launch gaps. Only a trace that holds every kernel
+    of the calls counts (``complete_trace``)."""
     for _ in range(warmup):
         fn()
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type.name == "CUDA")
-        if us > 0:
-            return us / 1e3 / iters
-    return None
+    us, _ = complete_trace(fn, iters)
+    return us / 1e3 / iters
 
 
 def device_top(fn, iters: int = 3, k: int = 6):
     """The ``k`` CUDA kernels with the most device time in a torch.profiler
-    trace of ``iters`` calls of ``fn``: [(name, ms per call)]."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    trace of ``iters`` calls of ``fn`` that holds them all: [(name, ms per
+    call)]."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    _, rows = complete_trace(fn, iters)
+    rows = [(key, us / 1e3 / iters) for key, _, us in rows if us > 0]
     return sorted(rows, key=lambda r: -r[1])[:k]
 
 
@@ -388,16 +451,26 @@ def ptxas_report(lib_path: Path, kernel: str) -> list:
     return out
 
 
+# the rmsnorm backward's warp kernel: 1 or 2 16-byte packs a lane in bf16,
+# 1, 2 or 4 in float32
+RMSNORM_BWD_WARP_KERNELS = 5
+
+
 def spill_check(lib_path: Path) -> None:
     """The hd-256 instantiations (``Li256E`` in the mangled name: the
     training and serve shapes) of the bf16 backward's two kernels and of
-    the float32 forward and backward must not spill."""
-    for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
-                         ("flash_bwd_f32_kernel", 1)):
-        hd256 = [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]]
-        if len(hd256) != want:
-            fail(f"ptxas: {len(hd256)} hd-256 {kernel} instantiations in the log, want {want}")
-        for name, regs, stores, loads in hd256:
+    the float32 forward and backward, and every instantiation of the
+    rmsnorm backward's warp kernel, must not spill."""
+    checks = [(kernel, want, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
+               "hd-256 ")
+              for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
+                                   ("flash_bwd_f32_kernel", 1))]
+    checks.append(("rmsnorm_bwd_warp_kernel", RMSNORM_BWD_WARP_KERNELS,
+                   ptxas_report(lib_path, "rmsnorm_bwd_warp_kernel"), ""))
+    for kernel, want, found, which in checks:
+        if len(found) != want:
+            fail(f"ptxas: {len(found)} {which}{kernel} instantiations in the log, want {want}")
+        for name, regs, stores, loads in found:
             if stores or loads:
                 fail(f"ptxas: {name} spills ({stores} bytes stored, {loads} loaded)")
 
@@ -625,14 +698,49 @@ def kernel_phase(dev):
     return rows
 
 
+def attention_bwd_f64(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
+    """The plain backward's formulas (``flash_attention_bwd_ref``) in
+    float64 on the card, one batch row at a time: the yardstick that tells
+    the kernel's rounding from the float32 plain version's. (dq, dk, dv)
+    in float64."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, S, hd = q.shape
+    g = H // k.shape[1]
+    f64 = torch.float64
+    mask = fa._mask(S, causal, window, q.device)
+    out = ([], [], [])
+    for b in range(B):
+        qf, of, gf, lf = (t[b].to(f64) for t in (q, o, dout, lse))
+        kk = torch.repeat_interleave(k[b], g, dim=0).to(f64)
+        vv = torch.repeat_interleave(v[b], g, dim=0).to(f64)
+        s = torch.einsum("hqd,hkd->hqk", qf, kk) / math.sqrt(hd)
+        p = torch.where(mask, torch.exp(s - lf[..., None]), torch.zeros((), dtype=f64,
+                                                                        device=q.device))
+        del s
+        dv = torch.einsum("hqk,hqd->hkd", p, gf)
+        dp = torch.einsum("hqd,hkd->hqk", gf, vv)
+        ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
+        del p, dp
+        dq = torch.einsum("hqk,hkd->hqd", ds, kk) / math.sqrt(hd)
+        dk = torch.einsum("hqk,hqd->hkd", ds, qf) / math.sqrt(hd)
+        for acc, t in zip(out, (dq, dk.reshape(-1, g, S, hd).sum(dim=1),
+                                dv.reshape(-1, g, S, hd).sum(dim=1))):
+            acc.append(t)
+    return tuple(torch.stack(t) for t in out)
+
+
 def backward_rows(dev, randn, qkv):
     """The two backward kernels against their plain versions on the same
     inputs, at the training path's shapes, timed beside the library's
-    autograd backward: rmsnorm at (2048, 2048) bf16 and f32; flash
-    attention at gemma-2b's shape (bf16, causal), recurrentgemma-9b's
-    window shape, a float32 shape and gemma-2b's shape in float32, plus
-    ragged / GQA / head-dim / misaligned-dout cases. Also the forward's lse
-    against the plain log-sum-exp."""
+    autograd backward: rmsnorm at (2048, 2048) bf16 and f32, plus wider,
+    ragged and misaligned cases; flash attention at gemma-2b's shape (bf16,
+    causal), recurrentgemma-9b's window shape, a float32 shape and
+    gemma-2b's shape in float32, plus the train_llm surface's shape in
+    float32 (untimed) and ragged / GQA / head-dim / misaligned-dout cases.
+    Also the forward's lse against the plain log-sum-exp."""
     import torch
     import torch.nn.functional as F
 
@@ -644,16 +752,33 @@ def backward_rows(dev, randn, qkv):
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     rows = []
     print("kernel rmsnorm_bwd")
+
+    def norm_case(label, x, dy, scale):
+        """rmsnorm_bwd against its plain version: dx at the dtype's
+        tolerance, dscale at float32's; two calls must give the same bits.
+        Returns the max |kernel - plain| of dx."""
+        name = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        split = rn.bwd_warp_split(x.shape[-1], x.element_size())
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, scale))
+        route = f"warp kernel, packs a lane / warps a row {split}" if split and aligned \
+            else "block kernel"
+        got, want = rn.rmsnorm_bwd(x, scale, dy), rn.rmsnorm_bwd_ref(x, scale, dy)
+        err = compare(f"rmsnorm_bwd dx {name} {label} ({route})", got[0], want[0],
+                      BWD_TOL[str(x.dtype)[6:]])
+        compare(f"rmsnorm_bwd dscale {name} {label}", got[1], want[1], BWD_TOL["float32"])
+        again = rn.rmsnorm_bwd(x, scale, dy)
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            fail(f"rmsnorm_bwd {name} {label}: two calls on the same inputs differ")
+        return err
+
     for dt in (torch.bfloat16, torch.float32):
         name = "bf16" if dt == torch.bfloat16 else "f32"
         x, dy, scale = randn(BATCH * PROMPT, d, dtype=dt), randn(BATCH * PROMPT, d, dtype=dt), \
             randn(d, dtype=torch.float32)
-        got, want = rn.rmsnorm_bwd(x, scale, dy), rn.rmsnorm_bwd_ref(x, scale, dy)
-        err = compare(f"rmsnorm_bwd dx {name} (2048, 2048)", got[0], want[0], BWD_TOL[str(dt)[6:]])
-        compare(f"rmsnorm_bwd dscale {name} (2048, 2048)", got[1], want[1], BWD_TOL["float32"])
-        again = rn.rmsnorm_bwd(x, scale, dy)
-        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
-            fail(f"rmsnorm_bwd {name}: two calls on the same inputs differ")
+        err = norm_case("(2048, 2048)", x, dy, scale)
+        split = [(n.replace("void (anonymous namespace)::", "")[:48], round(ms, 5)) for n, ms in
+                 device_top(lambda: rn.rmsnorm_bwd(x, scale, dy))]
+        print(f"  rmsnorm_bwd {name} (2048, 2048): device ms by kernel {split}")
         bnd = bound(3 * nbytes(x) + 2 * nbytes(scale), 10 * x.numel(), "float32")
         xg, wg = x.clone().requires_grad_(), scale.to(dt).requires_grad_()
         yg = F.rms_norm(xg, (d,), weight=wg, eps=1e-6)
@@ -664,18 +789,28 @@ def backward_rows(dev, randn, qkv):
             **timings(lambda: rn.rmsnorm_bwd(x, scale, dy), lambda: rn.rmsnorm_bwd_ref(x, scale, dy),
                       lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True)),
         ))
-    for shape in ((37, 100), (3, 5, 4096), (1, 64)):  # ragged widths, one block, many blocks
-        x, dy = randn(*shape, dtype=torch.float32), randn(*shape, dtype=torch.float32)
-        scale = randn(shape[-1], dtype=torch.float32)
-        got, want = rn.rmsnorm_bwd(x, scale, dy), rn.rmsnorm_bwd_ref(x, scale, dy)
-        compare(f"rmsnorm_bwd dx f32 {shape}", got[0], want[0], BWD_TOL["float32"])
-        compare(f"rmsnorm_bwd dscale f32 {shape}", got[1], want[1], BWD_TOL["float32"])
+    # recurrentgemma-9b's / deepseek-7b's width (a row over eight warps), a
+    # last block and slot partly empty (2049 rows), rows over six and three
+    # warps (phi-3-vision's width 3072; 384 in float32), widths the warp
+    # kernel does not take (100; 8192: sixteen warps) and a base one element
+    # off 16 bytes (the block kernel), ragged float32 widths, one block, many
+    # blocks
+    cases = [("(2048, 4096)", (2048, 4096), dt) for dt in (torch.bfloat16, torch.float32)]
+    cases += [("(2049, 2048)", (2049, 2048), dt) for dt in (torch.bfloat16, torch.float32)]
+    cases += [("(300, 3072)", (300, 3072), torch.bfloat16), ("(37, 384)", (37, 384), torch.float32)]
+    cases += [("(64, 100)", (64, 100), torch.bfloat16), ("(16, 8192)", (16, 8192), torch.bfloat16)]
+    cases += [(str(shape), shape, torch.float32) for shape in ((37, 100), (3, 5, 4096), (1, 64))]
+    for label, shape, dt in cases:
+        norm_case(label, randn(*shape, dtype=dt), randn(*shape, dtype=dt),
+                  randn(shape[-1], dtype=torch.float32))
+    xo = randn(64 * d + 1)[1:].view(64, d)
+    norm_case("(64, 2048) x base one element off", xo, randn(64, d), randn(d, dtype=torch.float32))
 
     print("kernel flash_attention_bwd")
     rg = get_arch("recurrentgemma-9b")
 
     def case(label, B_, S_, H_, K_, hd_, dtype=torch.bfloat16, window=0, causal=True,
-             row=False, iters=20, dout_offset=0):
+             row=False, iters=20, dout_offset=0, f64=False):
         q, k, v = qkv(B_, S_, H_, K_, hd_, dtype=dtype)
         out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
         _, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -694,6 +829,15 @@ def backward_rows(dev, randn, qkv):
         again = fa.flash_attention_bwd(*args, causal=causal, window=window)
         if not all(torch.equal(a, b) for a, b in zip(again, got)):
             fail(f"flash_attention_bwd {label}: two calls on the same inputs differ")
+        if f64:  # whose rounding: the kernel's and the plain version's error in float64
+            exact = attention_bwd_f64(*args, causal=causal, window=window)
+            for n, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+                print(f"  flash_attention_bwd {n} {label}: max |kernel - float64| "
+                      f"{float((a.double() - e).abs().max()):.3g}, max |plain - float64| "
+                      f"{float((b.double() - e).abs().max()):.3g}, max |float64| "
+                      f"{float(e.abs().max()):.3g}")
+            del exact
+        del want, again
         if not row:
             return
         vis = fa._mask(S_, causal, window, dev).sum().item()  # visible (query, key) pairs
@@ -730,6 +874,12 @@ def backward_rows(dev, randn, qkv):
          dtype=torch.float32, row=True)
     case(f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", BATCH, PROMPT, H, K, hd,
          dtype=torch.float32, row=True, iters=10)
+    # the train_llm surface's shape (8, 8, 2048, 256): a dK / dV row sums up
+    # to 2048 queries (512 a head at gemma-2b's shape); held, not timed (the
+    # plain version's four score matrices are 4.3 GB)
+    case("f32 causal (8,8,2048,256) (train_llm surface)", 8, 2048, H, H, hd,
+         dtype=torch.float32, f64=True)
+    torch.cuda.empty_cache()
     case("bf16 window 128 (4,8,512,256)", BATCH, PROMPT, H, K, hd, window=128)
     case("bf16 ragged S=300 g 8", 2, 300, H, K, hd)
     case("f32 window 48 GQA g 2 (1,4,200,64)", 1, 200, 4, 2, 64, dtype=torch.float32, window=48)

@@ -190,8 +190,10 @@ def test_rmsnorm_bwd_ref_matches_autograd_and_jax(shape):
 
 def test_rmsnorm_bwd_blocks_cover_every_row():
     for rows in (1, 7, 511, 512, 513, 2048, 100003):
-        blocks, per = rn.bwd_blocks(rows)
-        assert blocks <= rn.BWD_MAX_BLOCKS and blocks * per >= rows > (blocks - 1) * per
+        for d in (64, 2048, 4096):
+            blocks, per, slots = rn.bwd_plan(rows, d)
+            assert blocks <= rn.BWD_MAX_BLOCKS and per % slots == 0
+            assert blocks * per >= rows > (blocks - 1) * per
 
 
 # ---------------------------------------------------------------------------
