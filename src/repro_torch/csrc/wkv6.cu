@@ -56,21 +56,11 @@
 // outlives the call. kernels/rwkv6.py::launch_plan mirrors Tile<N>.
 #include <type_traits>
 
-#include "common.cuh"
+#include "wkv6.cuh"
 
 namespace {
 
-constexpr int TT = 32;  // tokens per staged tile
-constexpr int U = 8;    // tokens whose sums over lanes go out together
-
-// A thread carries an R x C tile of the state (R rows of C columns); the
-// G = N / R threads of a column group are adjacent lanes; a block owns a
-// slab of JC columns of one (b, h). (R, C, JC) per head size:
-template <int N> struct Tile;
-template <> struct Tile<8> { static constexpr int R = 2, C = 1, JC = 8; };
-template <> struct Tile<16> { static constexpr int R = 4, C = 1, JC = 16; };
-template <> struct Tile<32> { static constexpr int R = 4, C = 4, JC = 32; };
-template <> struct Tile<64> { static constexpr int R = 4, C = 4, JC = 16; };
+using namespace wkv6;
 
 template <int N>
 struct Plan {
@@ -89,56 +79,6 @@ struct Plan {
   static_assert(SMEM <= 48 * 1024, "the tile fits the static shared memory limit");
   static_assert(TT % U == 0, "a tile is whole batches of tokens");
 };
-
-struct Strides {
-  long long rb, rh, rs, kb, kh, ks, vb, vh, vs, wb, wh, ws, yb, yh, ys;
-};
-
-// The M floats at src (aligned to their vector) into registers
-template <int M>
-__device__ __forceinline__ void load_vec(float (&dst)[M], const float* src) {
-  if constexpr (M % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < M / 4; ++q) {
-      const float4 x = reinterpret_cast<const float4*>(src)[q];
-      dst[4 * q] = x.x, dst[4 * q + 1] = x.y, dst[4 * q + 2] = x.z, dst[4 * q + 3] = x.w;
-    }
-  } else if constexpr (M % 2 == 0) {
-#pragma unroll
-    for (int q = 0; q < M / 2; ++q) {
-      const float2 x = reinterpret_cast<const float2*>(src)[q];
-      dst[2 * q] = x.x, dst[2 * q + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < M; ++q) dst[q] = src[q];
-  }
-}
-
-// Sums a[u][c] over the G lanes of a column group, for U tokens at once: a
-// butterfly in which the first log2(C) steps also halve the values a lane
-// carries (it keeps the columns whose bit matches its own and sends the
-// others), so that lane g ends with column g % C's sum in a[u][0]. Each
-// step's U * m shuffles are independent: their latencies overlap.
-template <int U, int C, int G>
-__device__ __forceinline__ void group_sums(float (&a)[U][C], int g) {
-#pragma unroll
-  for (int o = 1, m = C; m > 1; o <<= 1, m >>= 1) {
-    const bool hi = g & o;
-#pragma unroll
-    for (int x = 0; x < U; ++x)
-#pragma unroll
-      for (int q = 0; q < m / 2; ++q) {
-        const float keep = hi ? a[x][2 * q + 1] : a[x][2 * q];
-        const float send = hi ? a[x][2 * q] : a[x][2 * q + 1];
-        a[x][q] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-      }
-  }
-#pragma unroll
-  for (int o = C; o < G; o <<= 1)
-#pragma unroll
-    for (int x = 0; x < U; ++x) a[x][0] += __shfl_xor_sync(0xffffffffu, a[x][0], o);
-}
 
 template <typename T, int N>
 __global__ void __launch_bounds__(Plan<N>::THREADS)
@@ -344,6 +284,17 @@ int plan_n(int N, int* out) {
 
 }  // namespace
 
+int wkv6::launch_forward(int dtype, int N, const void* r, const void* k, const void* v,
+                         const void* wlog, const void* u, const void* s_in, void* y,
+                         void* s_out, int B, int H, int S, const Strides& st,
+                         cudaStream_t stream) {
+  if (dtype == rt::kF32)
+    return dispatch_n<float>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, stream);
+  if (dtype == rt::kBF16)
+    return dispatch_n<__nv_bfloat16>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 // strides: r, k, v, wlog, y, each (batch, head, token) in elements; the
 // head_dim axis has stride 1. u is (H, N) and the states (B, H, N, N),
 // contiguous float32.
@@ -352,14 +303,10 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v, const void* 
                        int S, int N, const long long* strides, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const long long* p = strides;
-  Strides st{p[0], p[1], p[2],  p[3],  p[4],  p[5],  p[6], p[7],
-             p[8], p[9], p[10], p[11], p[12], p[13], p[14]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kF32)
-    return dispatch_n<float>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, s);
-  if (dtype == rt::kBF16)
-    return dispatch_n<__nv_bfloat16>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, s);
-  return (int)cudaErrorInvalidValue;
+  wkv6::Strides st{p[0], p[1], p[2],  p[3],  p[4],  p[5],  p[6], p[7],
+                   p[8], p[9], p[10], p[11], p[12], p[13], p[14]};
+  return wkv6::launch_forward(dtype, N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The (dtype, N) instantiation's launch plan, into out[4]: threads per

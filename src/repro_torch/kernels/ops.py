@@ -5,20 +5,22 @@ hand-written kernel, which raises if it cannot build or launch; a CPU
 tensor runs the plain torch version. There is no fallback from one to the
 other. :func:`plain_versions` forces the plain versions for tensors on the
 card too: it exists only to hold the kernels against them on the same
-inputs (``chip_smoke.py``); no entry point uses it.
+inputs (``chip_smoke.py``); no entry point uses it. It holds for the whole
+process, so that the backward, which autograd runs on a thread of its
+own for CUDA tensors (recomputing the checkpointed blocks there), takes
+the plain versions as well.
 
 Under autograd (grad mode on and an input that requires grad),
-``rmsnorm`` and ``flash_attention`` run as autograd Functions whose
-forward is the forward kernel and whose backward is the hand-written
-backward kernel (the plain versions of both on the CPU). ``flash_decode``,
-``wkv6`` and ``rglru`` have no backward kernel yet: on their kernel path
-they raise rather than hand back an output with no gradient (training
-rwkv6 and recurrentgemma is ROADMAP Queue 1, item 9).
+``rmsnorm``, ``flash_attention`` and ``wkv6`` run as autograd Functions
+whose forward is the forward kernel and whose backward is the
+hand-written backward kernel (the plain versions of both on the CPU).
+``flash_decode`` and ``rglru`` have no backward kernel yet: on their
+kernel path they raise rather than hand back an output with no gradient
+(training recurrentgemma is ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 from typing import Dict
 
 import torch
@@ -26,25 +28,27 @@ import torch
 from repro_torch.kernels import decode_attention, flash_attention as fa, rglru as lru
 from repro_torch.kernels import rmsnorm as rn, rwkv6
 
-_FORCE_PLAIN = contextvars.ContextVar("repro_torch_force_plain", default=False)
+#: open ``plain_versions`` blocks (process-wide: autograd's threads see it)
+_force_plain = 0
 
-NO_BACKWARD = ("has no backward kernel yet: training rwkv6 and recurrentgemma needs the wkv6 "
-               "and rglru_scan backward kernels (ROADMAP.md Queue 1, item 9)")
+NO_BACKWARD = ("has no backward kernel yet: training recurrentgemma needs the rglru_scan "
+               "backward kernel (ROADMAP.md Queue 1, item 9)")
 
 
 @contextlib.contextmanager
 def plain_versions():
     """Run the plain torch versions even for CUDA tensors (reference runs)."""
-    token = _FORCE_PLAIN.set(True)
+    global _force_plain
+    _force_plain += 1
     try:
         yield
     finally:
-        _FORCE_PLAIN.reset(token)
+        _force_plain -= 1
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
-        return not _FORCE_PLAIN.get()
+        return not _force_plain
     if t.device.type == "cpu":
         return False
     raise ValueError(f"repro_torch kernels run on cuda or cpu tensors, not {t.device}")
@@ -92,6 +96,22 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _WKV6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, wlog, u, state, kernel):
+        ctx.save_for_backward(r, k, v, wlog, u, state)
+        ctx.kernel = kernel
+        fwd = rwkv6.wkv6 if kernel else rwkv6.wkv6_ref
+        return fwd(r, k, v, wlog, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate_T):  # dstate_T: zeros where the final state is dropped
+        r, k, v, wlog, u, state = ctx.saved_tensors
+        bwd = rwkv6.wkv6_bwd if ctx.kernel else rwkv6.wkv6_bwd_ref
+        grads = bwd(r, k, v, wlog, u, state, dy.to(r.dtype), dstate_T)
+        return (*grads, None)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     kernel = _use_kernel(x)
     if _needs_grad(x, scale):
@@ -118,8 +138,10 @@ def flash_decode(q, k, v, kpos, pos: int, *, window: int = 0):
 
 
 def wkv6(r, k, v, wlog, u, state):
-    if _use_kernel(r):
-        _refuse_grad("wkv6", r, k, v, wlog, u, state)
+    kernel = _use_kernel(r)
+    if _needs_grad(r, k, v, wlog, u, state):
+        return _WKV6.apply(r, k, v, wlog, u, state, kernel)
+    if kernel:
         return rwkv6.wkv6(r, k, v, wlog, u, state)
     return rwkv6.wkv6_ref(r, k, v, wlog, u, state)
 
@@ -135,7 +157,7 @@ def rglru(log_a, m, h0):
 _COUNTERS = {"rmsnorm": (rn, "launches"), "flash_attention": (fa, "launches"),
              "flash_decode": (decode_attention, "launches"), "wkv6": (rwkv6, "launches"),
              "rglru": (lru, "launches"), "rmsnorm_bwd": (rn, "bwd_launches"),
-             "flash_attention_bwd": (fa, "bwd_launches")}
+             "flash_attention_bwd": (fa, "bwd_launches"), "wkv6_bwd": (rwkv6, "bwd_launches")}
 
 
 # the float32 routes' share of two of those counts

@@ -1,5 +1,5 @@
-"""WKV6 (RWKV-6 / Finch): the CUDA kernel ``csrc/wkv6.cu`` and its plain
-version.
+"""WKV6 (RWKV-6 / Finch): the CUDA kernels ``csrc/wkv6.cu`` (forward) and
+``csrc/wkv6_bwd.cu`` (backward), and their plain versions.
 
 Replaces ``src/repro/kernels/rwkv6.py::wkv6`` (the Pallas kernel); the
 plain version is the chunked form of ``repro/models/rwkv6.py::wkv6_chunked``
@@ -14,6 +14,13 @@ their strides, so the model passes its (B, S, H, N) projections as views.
 A block owns a slab of columns of one (b, h)'s state, a thread an R x C
 tile of it (``TILES``), and the block stages ``TILE`` tokens at a time
 (:func:`launch_plan`).
+
+The backward (:func:`wkv6_bwd`) takes the forward's inputs, dy and the
+final state's gradient dS_T and returns dr, dk, dv, dwlog, du and dstate:
+two passes over row slabs of the state (token order for dr, reverse order
+for dk and dwlog), the forward kernel run backward in time for dv and
+dstate, and du summed over the batch in order; its plain version
+(:func:`wkv6_bwd_ref`) is autograd through :func:`wkv6_ref` in float32.
 """
 from __future__ import annotations
 
@@ -23,18 +30,21 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
+#: calls of the CUDA forward and backward since the last reset (see
+#: ``ops.launch_counts``)
 launches = 0
+bwd_launches = 0
 
-#: head sizes csrc/wkv6.cu instantiates: the reduced and the full rwkv6-1.6b's
+#: head sizes csrc/wkv6.cu and wkv6_bwd.cu instantiate: the reduced and the full rwkv6-1.6b's
 #: (16, 64) and the others tests/test_kernels.py sweeps (8, 32)
 HEAD_SIZES = (8, 16, 32, 64)
 _CHUNK = 64  # tokens per chunk of the plain version
 
 #: tokens per staged tile of csrc/wkv6.cu
 TILE = 32
-#: csrc/wkv6.cu's Tile<N>: per head size, the rows R and columns C of the
-#: state a thread carries and the columns JC of a block's slab
+#: csrc/wkv6.cuh's Tile<N>: per head size, the rows R and columns C of the
+#: state a thread carries and the columns JC of a block's slab (the
+#: backward's row passes take it transposed)
 TILES = {8: (2, 1, 8), 16: (4, 1, 16), 32: (4, 4, 32), 64: (4, 4, 16)}
 
 
@@ -73,6 +83,12 @@ def _check(r, k, v, wlog, u, state):
     return B, H, S, N
 
 
+def _check_cuda(name, *ts):
+    dev = ts[0].device
+    if not (ts[0].is_cuda and all(t.device == dev for t in ts)):
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors on one device")
+
+
 def wkv6(r, k, v, wlog, u, state):
     """CUDA kernel. r/k/v: (B, H, S, N) float32 or bfloat16 (any strides with
     a contiguous N axis); wlog: the same shape in float32 (log decay <= 0);
@@ -80,9 +96,8 @@ def wkv6(r, k, v, wlog, u, state):
     y (B, H, S, N) in r's dtype, as a view of a (B, S, H, N) buffer, which
     the model's group norm reads without a copy; the state (B, H, N, N)."""
     global launches
+    _check_cuda("wkv6", r, k, v, wlog, u, state)
     dev = r.device
-    if not (r.is_cuda and all(t.device == dev for t in (k, v, wlog, u, state))):
-        raise ValueError("wkv6: the CUDA kernel takes CUDA tensors on one device")
     B, H, S, N = _check(r, k, v, wlog, u, state)
     if N not in HEAD_SIZES:
         raise ValueError(f"wkv6: head size {N} not in {HEAD_SIZES}")
@@ -133,3 +148,67 @@ def wkv6_ref(r, k, v, wlog, u, state):
         s_state = s_state * torch.exp(ld[:, :, -1])[..., None] + kscale.transpose(-1, -2) @ vb
         ys.append(y)
     return torch.cat(ys, dim=2).to(r.dtype), s_state
+
+
+def _like_y(shape, dtype, device):
+    """An empty (B, H, S, N) tensor laid out as (B, S, H, N), as the forward's y."""
+    B, H, S, N = shape
+    return torch.empty((B, S, H, N), dtype=dtype, device=device).transpose(1, 2)
+
+
+def wkv6_bwd(r, k, v, wlog, u, state, dy, dstate_T):
+    """CUDA backward of :func:`wkv6`. r/k/v/wlog/u/state as the forward
+    takes them; dy: y's gradient in r's dtype (any strides; a head axis
+    that is not contiguous is copied); dstate_T: the final state's gradient
+    (B, H, N, N) float32. Returns (dr, dk, dv) in r's dtype, dwlog float32,
+    each (B, H, S, N) as views of (B, S, H, N) buffers, du (H, N) and
+    dstate (B, H, N, N) float32. Four launches (two row passes, the forward
+    kernel backward in time, du's sum over b), no atomics."""
+    global bwd_launches
+    _check_cuda("wkv6_bwd", r, k, v, wlog, u, state, dy, dstate_T)
+    dev = r.device
+    B, H, S, N = _check(r, k, v, wlog, u, state)
+    if N not in HEAD_SIZES:
+        raise ValueError(f"wkv6_bwd: head size {N} not in {HEAD_SIZES}")
+    if dy.shape != r.shape or dstate_T.shape != state.shape:
+        raise ValueError(f"wkv6_bwd: dy {tuple(dy.shape)} must be {tuple(r.shape)} and "
+                         f"dstate_T {tuple(dstate_T.shape)} {tuple(state.shape)}")
+    if dy.dtype != r.dtype:
+        raise TypeError("wkv6_bwd: dy must be in r's dtype")
+    if not (wlog.dtype == u.dtype == state.dtype == dstate_T.dtype == torch.float32):
+        raise TypeError("wkv6_bwd: wlog, u, state and dstate_T must be float32")
+    for name, t in (("r", r), ("k", k), ("v", v), ("wlog", wlog)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"wkv6_bwd: {name}'s head axis must have stride 1")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    u, state, dstate_T = u.contiguous(), state.contiguous(), dstate_T.contiguous()
+    dr, dk, dv = (_like_y(r.shape, r.dtype, dev) for _ in range(3))
+    dwlog = _like_y(r.shape, torch.float32, dev)
+    du = torch.empty((H, N), dtype=torch.float32, device=dev)
+    dstate = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    # A (B, H, S, N), A_T and the du partials (B, H, N) each
+    scratch = torch.empty((B * H * (S + 2) * N,), dtype=torch.float32, device=dev)
+    views = (r, k, v, dy, wlog, dr, dk, dv, dwlog)
+    strides = _build.strides_arg(*(s for t in views for s in t.stride()[:3]))
+    err = _build.lib().rt_wkv6_bwd(
+        *(t.data_ptr() for t in (r, k, v, dy, wlog, u, state, dstate_T, dr, dk, dv, dwlog, du,
+                                 dstate, scratch)),
+        B, H, S, N, strides, _build.dtype_code(r), _build.stream_arg(dev),
+    )
+    _build.check(err, "wkv6_bwd")
+    bwd_launches += 1
+    return dr, dk, dv, dwlog, du, dstate
+
+
+def wkv6_bwd_ref(r, k, v, wlog, u, state, dy, dstate_T):
+    """Plain version of :func:`wkv6_bwd`: ``torch.autograd.grad`` through
+    :func:`wkv6_ref` in float32, the route the reference's gradient takes
+    (``jax.grad`` of the chunked form). The same outputs and dtypes."""
+    f32 = torch.float32
+    with torch.enable_grad():
+        leaves = [t.detach().to(f32).requires_grad_() for t in (r, k, v, wlog, u, state)]
+        y, s_out = wkv6_ref(*leaves)
+        grads = torch.autograd.grad((y, s_out), leaves, (dy.to(f32), dstate_T.to(f32)))
+    dr, dk, dv, dwlog, du, dstate = grads
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dwlog, du, dstate

@@ -9,8 +9,11 @@ and the decay LoRA (w0 + tanh(x A) B) is kept.
 
 Parameter dtypes follow the reference's use: ``w0``, ``u``, ``ln_scale``
 and ``ln_bias`` enter float32 arithmetic uncast, so they stay float32;
-every other weight is stored in the activation dtype (the reference casts
-it with ``.astype(x.dtype)`` at use).
+every other weight is cast to the activation dtype at use, as the
+reference casts it with ``.astype(x.dtype)``: serving stores it in that
+dtype already (the cast is then a no-op), training keeps float32 masters.
+Under autograd the prefill's wkv6 runs the CUDA forward and backward
+kernels on the card (``ops.wkv6``).
 """
 from __future__ import annotations
 
@@ -76,7 +79,7 @@ def _shifted(x: torch.Tensor, shift: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _lerp(x, xprev, mu):
-    return x + (xprev - x) * mu
+    return x + (xprev - x) * mu.to(x.dtype)
 
 
 def wkv6_step(r, k, v, wlog, u, state):
@@ -101,14 +104,14 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor]
     xprev = _shifted(x, shift)
 
     def proj(w, xm):
-        return (xm @ w.reshape(d, H * N)).view(B, S, H, N)
+        return (xm @ w.to(x.dtype).reshape(d, H * N)).view(B, S, H, N)
 
     xr, xk = _lerp(x, xprev, p["mu_r"]), _lerp(x, xprev, p["mu_k"])
     xv, xg = _lerp(x, xprev, p["mu_v"]), _lerp(x, xprev, p["mu_g"])
     xw = _lerp(x, xprev, p["mu_w"])
     r, k, v = proj(p["wr"], xr), proj(p["wk"], xk), proj(p["wv"], xv)
     g = F.silu(proj(p["wg"], xg))
-    lora = torch.tanh(xw @ p["wA"]) @ p["wB"]
+    lora = torch.tanh(xw @ p["wA"].to(x.dtype)) @ p["wB"].to(x.dtype)
     wlog = -torch.exp(p["w0"] + lora.to(torch.float32)).view(B, S, H, N)
 
     if decode:
@@ -125,7 +128,7 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor]
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
     yn = ((yf - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, S, d)
     yn = yn * p["ln_scale"] + p["ln_bias"]
-    out = (yn.to(x.dtype) * g.reshape(B, S, d)) @ p["wo"]
+    out = (yn.to(x.dtype) * g.reshape(B, S, d)) @ p["wo"].to(x.dtype)
     return out, x[:, -1].contiguous(), wkv_state
 
 
@@ -133,6 +136,7 @@ def channelmix_apply(p: Params, x: torch.Tensor,
                      shift: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     xprev = _shifted(x, shift)
     xk, xr = _lerp(x, xprev, p["mu_k"]), _lerp(x, xprev, p["mu_r"])
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    r = torch.sigmoid(xr @ p["wr"])
-    return r * (k @ p["wv"]), x[:, -1].contiguous()
+    dt = x.dtype
+    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    r = torch.sigmoid(xr @ p["wr"].to(dt))
+    return r * (k @ p["wv"].to(dt)), x[:, -1].contiguous()

@@ -2,7 +2,8 @@
 (reduced gemma-2b: 2 layers, d 64, head dim 16, float32, MQA with 4 query
 heads): the loss, every gradient leaf, the backward kernels' plain
 versions, each optimizer's update on identical gradients, one train step
-end to end; and the refusals of the kernels that have no backward yet.
+end to end; and the refusals of the kernels that have no backward yet
+(rwkv6's training: tests/test_torch_rwkv_train.py).
 
 On the CPU the port's attention and norms run their plain forward and
 backward versions inside the same autograd Functions that run the CUDA
@@ -327,23 +328,21 @@ def test_synthetic_batches_are_deterministic_in_seed_and_step():
     assert a.min() >= 0 and a.max() < 100
 
 
-@pytest.mark.parametrize("name", ["flash_decode", "wkv6", "rglru"])
+@pytest.mark.parametrize("name", ["flash_decode", "rglru"])
 def test_kernels_without_backward_raise_under_grad(name, monkeypatch):
-    """On the kernel path (forced here on CPU tensors) the three kernels
+    """On the kernel path (forced here on CPU tensors) the two kernels
     that have no backward refuse inputs that need a gradient, instead of
     handing back an output with no grad_fn."""
     monkeypatch.setattr(ops, "_use_kernel", lambda t: True)
     x = torch.zeros((1, 2, 4, 16), requires_grad=True)
     calls = {"flash_decode": lambda: ops.flash_decode(x[:, :, 0], x[:, :1], x[:, :1],
                                                       torch.zeros((1, 4), dtype=torch.int32), 3),
-             "wkv6": lambda: ops.wkv6(x, x, x, x, torch.zeros((2, 16)),
-                                      torch.zeros((1, 2, 16, 16))),
              "rglru": lambda: ops.rglru(x[0], x[0], x[0, :, 0])}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 9"):
         calls[name]()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_loss_refuses_blocks_without_backward_kernels(arch):
     model = build_model(get_arch(arch).reduced())
     params = model.init(torch.Generator().manual_seed(0), "cpu", param_dtype=torch.float32)

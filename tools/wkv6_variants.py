@@ -4,7 +4,8 @@
   python3 tools/wkv6_variants.py [variant ...]     (default: all of VARIANTS)
 
 A variant is the port's source (``src/repro_torch``) with a few literal
-edits of ``csrc/wkv6.cu``, copied to ``build/wkv6_variants/<name>/`` (``main``
+edits of ``csrc/wkv6.cu`` or ``csrc/wkv6.cuh`` (the tiles, which the
+backward's row passes share), copied to ``build/wkv6_variants/<name>/`` (``main``
 is the tree as it is). Each runs in a process of its own, which builds its
 own library: ptxas's registers for the bf16 N = 64 kernel, then (tile
 variants) y and the state against the plain version at rwkv6-1.6b's
@@ -25,7 +26,8 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "wkv6_variants"
 TILE64 = "template <> struct Tile<64> { static constexpr int R = 4, C = 4, JC = 16; };"
 
-# name -> (checked against the plain version, [(text in csrc/wkv6.cu, replacement)])
+# name -> (checked against the plain version, [(text in csrc/wkv6.cu or wkv6.cuh,
+# replacement)])
 VARIANTS = {
     "main": (True, []),
     "tile 8x4, slab 32": (True, [(TILE64, TILE64.replace("R = 4", "R = 8").replace("16", "32"))]),
@@ -90,13 +92,13 @@ def variant_src(name: str, edits) -> Path:
     shutil.rmtree(dst.parent, ignore_errors=True)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = dst / "repro_torch" / "csrc" / "wkv6.cu"
-    text = cu.read_text()
+    files = [dst / "repro_torch" / "csrc" / f for f in ("wkv6.cu", "wkv6.cuh")]
     for old, new in edits:
-        if text.count(old) != 1:
-            sys.exit(f"{name}: the text to edit is not in csrc/wkv6.cu exactly once: {old!r}")
-        text = text.replace(old, new)
-    cu.write_text(text)
+        found = [f for f in files if f.read_text().count(old) == 1]
+        if len(found) != 1:
+            sys.exit(f"{name}: the text to edit is not in csrc/wkv6.cu{{,h}} exactly once: "
+                     f"{old!r}")
+        found[0].write_text(found[0].read_text().replace(old, new))
     return dst
 
 
