@@ -12,10 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward, HMMA for the float32 forward's and backward's
    3xTF32), and in ptxas's report that the hd-256 instantiations of the
    backward's kernels and of the float32 forward, all 5 of the rmsnorm
-   backward's warp kernel and the 4 N-64 ones of the wkv6 backward's row
-   kernel do not spill;
-3. kernels: each of the eight kernels (the five forward kernels and the
-   rmsnorm, flash_attention and wkv6 backward kernels) against its plain
+   backward's warp kernel, the 4 N-64 ones of the wkv6 backward's row
+   kernel and all 4 of the rglru backward do not spill;
+3. kernels: each of the nine kernels (the five forward kernels and the
+   rmsnorm, flash_attention, wkv6 and rglru backward kernels) against its plain
    torch version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
@@ -41,8 +41,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    training shape (4, 32, 512, 64) in bf16 and in float32 (the float32
    kernel and plain version each also against the formulas in float64),
    and ragged, short-tile, S = 1, wlog = -8, contiguous-dy and the
-   reference test's shapes), each also run twice and required to give the
-   same bits, and the forward's lse;
+   reference test's shapes; rglru_bwd at recurrentgemma-9b's training
+   shape (4, 512, 4096) in float32 and at the forward's (4, 2048, 4096) in
+   float32 and with bf16 log_a, a nonzero h0 and dh_final, the float32
+   kernel and plain version each also against the formulas in float64,
+   and the forward's edge cases), each also run twice and required to give
+   the same bits, and the forward's lse;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call. A profiler trace counts only the
@@ -61,7 +65,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that its remainder stack runs) on the card against the same weights on
    the CPU, each printing the launches of the float32 attention routes it
    made;
-   train: gemma-2b and rwkv6-1.6b at full width through
+   train: gemma-2b and rwkv6-1.6b at full width and depth and
+   recurrentgemma-9b at full width and 9 layers through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
    AdamW, batch 4 x 512, 5 steps on one repeated batch): the exact launch
    counts of the run, including the backward kernels (every block
@@ -70,12 +75,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    leaf (rwkv6's in float32 activations, its bf16 readings printed:
    GRAD_F32_ARCHS); a profile of a step; the FTTrainer's lossless invariant at
    reduced size under hybrid, agent, core and checkpoint (gemma) and
-   hybrid (rwkv6), and ``launch.fig15``'s two tables; one hybrid run of gemma-2b
-   at full width with a predicted failure (one migration of the whole
-   28 GiB state through host memory) bit-identical to a failure-free run.
-   The reduced FT runs must launch both float32 attention routes, forward
-   and backward; they and fig15 print those launches;
-5. paper: the paper's own path, which launches none of the eight kernels
+   hybrid (rwkv6, recurrentgemma), and ``launch.fig15``'s two tables; one
+   hybrid run of gemma-2b at full width with a predicted failure (one
+   migration of the whole 28 GiB state through host memory) bit-identical
+   to a failure-free run. Each phase ends by collecting and emptying the
+   allocator's cache; before each full-width training run the device
+   memory still allocated is printed, and more than LEFTOVER_BYTES fails
+   the run. The reduced FT runs must launch both float32 attention routes,
+   forward and backward; they and fig15 print those launches;
+5. paper: the paper's own path, which launches none of the nine kernels
    (their counts must stay 0): ``repro_torch.launch.tables`` on the card
    (an unpinned ``measure_micro``, the failure predictor trained on the
    card), every check of Tables 1-2 and of the predictor passing; the
@@ -93,10 +101,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. figures: the paper's Figures 8-13 through ``repro_torch.launch.figures``
    on the card (the migrated payload a float32 tensor there) at
    FIGURE_TRIALS trials a point, as in the paper: every one of the 10
-   paper-claim checks passing, the three CSVs written, the eight kernels'
+   paper-claim checks passing, the three CSVs written, the nine kernels'
    counts staying 0. Prints each sweep's seconds;
 7. campaign: the paper's job under streams of failures, which launches
-   none of the eight kernels either (their counts must stay 0). All 17
+   none of the nine kernels either (their counts must stay 0). All 17
    registered families under all seven strategies, at CAMPAIGN_SEEDS seeds
    (FLEET_CHECK_SEEDS for fleet_stress): the replay fold on the card
    against ``CampaignEngine`` trial for trial (the reference tests'
@@ -204,6 +212,12 @@ WKV6_TOL_STRONG_DECAY = 1e-4
 # suffix sums), plus one bf16 step (2^-7 of the value) for bf16 dr/dk/dv
 WKV6_BWD_REL = 1e-4
 WKV6_BWD_NAMES = ("dr", "dk", "dv", "dwlog", "du", "dstate")
+# the rglru backward against its plain version, per output: atol 1e-4 of the
+# plain output's largest magnitude (tests/test_torch_rglru_train.py's limit
+# against jax.vjp: the reverse recurrence summed in another order), plus one
+# bf16 step (2^-7 of the value) for bf16 dlog_a and dm
+RGLRU_BWD_REL = 1e-4
+RGLRU_BWD_NAMES = ("dlog_a", "dm", "dh0")
 # the paper phase: the card-trained predictor against the CPU-trained one,
 # float32 sums in another order (tests/test_torch_paper.py holds the port to
 # the JAX predictor with the same limit); the genome's size (the paper's
@@ -241,8 +255,13 @@ SURFACE_SHARDS = (1, 2, 4)
 SURFACE_N, SURFACE_WARMUP = 2, 1
 # the train phase: TRAIN_ARCHS at full width, bf16 activations, float32
 # masters and AdamW moments, batch 4 x 512, TRAIN_STEPS steps on one
-# repeated batch through ``repro_torch.launch.train``
-TRAIN_ARCHS = ("gemma-2b", "rwkv6-1.6b")
+# repeated batch through ``repro_torch.launch.train``. Each is (arch, layers):
+# None keeps the full depth. recurrentgemma-9b's 38 layers (~9.4 B
+# parameters) need ~113 GB of masters and moments, more than the card's
+# 80 GB: it runs 9, three (rec, rec, attn) groups (~3.02 B parameters,
+# ~34 GiB of state), through the launcher's make_trainer (it has no depth
+# flag).
+TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
 # the FT invariant at reduced size (tests/test_trainer_integration.py's
 # schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
@@ -274,11 +293,41 @@ LOSS_TOL_TRAIN = 1e-3
 # printed beside it.
 GRAD_F32_ARCHS = ("rwkv6-1.6b",)
 GRAD_TOL_F32 = 0.1
+# device memory that may still be allocated before a full-width training
+# run: a full-width state is 19-34 GiB, so more than this is a leak
+LEFTOVER_BYTES = 2 ** 30
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def free_device_memory() -> None:
+    """Frees what a finished phase held on the card: a collection first (a
+    trainer's runtime, hosts and shards refer to one another, so only the
+    cycle collector frees them), then the allocator's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_free_memory(what: str) -> None:
+    """Before a full-width training run: frees what earlier work left
+    unreferenced, prints the device memory still allocated and fails beyond
+    LEFTOVER_BYTES, naming the run, so that a leak shows here and not as an
+    out-of-memory error inside the run."""
+    import torch
+
+    free_device_memory()
+    held = torch.cuda.memory_allocated()
+    print(f"  device memory allocated before {what}: {held / 2**30:.3f} GiB")
+    if held > LEFTOVER_BYTES:
+        fail(f"{held / 2**30:.2f} GiB of device memory survive from earlier work before {what} "
+             f"(limit {LEFTOVER_BYTES / 2**30:.0f} GiB)")
 
 
 def card_line() -> str:
@@ -487,8 +536,8 @@ def spill_check(lib_path: Path) -> None:
     """The hd-256 instantiations (``Li256E`` in the mangled name: the
     training and serve shapes) of the bf16 backward's two kernels and of
     the float32 forward and backward, every instantiation of the rmsnorm
-    backward's warp kernel and the N-64 ones (``Li64E``) of the wkv6
-    backward's row kernel must not spill."""
+    backward's warp kernel and of the rglru backward, and the N-64 ones
+    (``Li64E``) of the wkv6 backward's row kernel must not spill."""
     checks = [(kernel, want, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
                "hd-256 ")
               for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
@@ -498,6 +547,8 @@ def spill_check(lib_path: Path) -> None:
     # the wkv6 backward's two row passes at N = 64 (rwkv6-1.6b), bf16 and f32
     checks.append(("wkv6_bwd_rows_kernel", 4, [r for r in ptxas_report(
         lib_path, "wkv6_bwd_rows_kernel") if "Li64E" in r[0]], "N-64 "))
+    # the rglru backward: float32 and bf16 log_a, 16- and 4-byte copies
+    checks.append(("rglru_bwd_kernel", 4, ptxas_report(lib_path, "rglru_bwd_kernel"), ""))
     for kernel, want, found, which in checks:
         if len(found) != want:
             fail(f"ptxas: {len(found)} {which}{kernel} instantiations in the log, want {want}")
@@ -719,6 +770,7 @@ def kernel_phase(dev):
     rows.append(wkv6_row(randn, dev))
     rows.append(wkv6_bwd_row(randn, dev))
     rows += rglru_row(randn, dev)
+    rows += rglru_bwd_rows(randn, dev)
     def fmt(t):
         return "none" if t is None else f"{t:.5f}"
 
@@ -1354,6 +1406,117 @@ def rglru_row(randn, dev):
     return rows
 
 
+def rglru_bwd_f64(log_a, h_seq, h0, dh_seq, dh_final):
+    """The rglru backward's formulas in float64 on the card, token by token
+    in reverse order: the yardstick that tells the kernel's rounding from
+    the float32 plain version's. (dlog_a, dm, dh0) in float64."""
+    import torch
+
+    f64 = torch.float64
+    a, h_seq, dh = torch.exp(log_a.to(f64)), h_seq.to(f64), dh_seq.to(f64)
+    dlog_a, dm = torch.empty_like(a), torch.empty_like(a)
+    c = dh_final.to(f64)
+    for t in reversed(range(a.shape[1])):
+        g = dh[:, t] + c
+        c = a[:, t] * g
+        dm[:, t] = g
+        dlog_a[:, t] = c * (h_seq[:, t - 1] if t else h0.to(f64))
+    return dlog_a, dm, c
+
+
+def rglru_bwd_rows(randn, dev):
+    """The rglru backward against its plain version, with a nonzero h0 and
+    dh_final, at recurrentgemma-9b's training shape (4, 512, 4096) in
+    float32 and at the forward row's (4, 2048, 4096) in float32 and with
+    bf16 log_a, each timed beside its bound (the float32 kernel and plain
+    version also against the formulas in float64); then the forward row's
+    edge cases: the reference's test shapes, S = 1, short tiles, partial
+    slabs, rows that are not 16-byte aligned, bases one element off, no
+    decay and full decay, a long sequence. Every case twice, the same bits.
+    No single PyTorch call computes it."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rglru as lru
+
+    print("kernel rglru_bwd")
+    W = get_arch("recurrentgemma-9b").lru_width
+    f32, bf = torch.float32, torch.bfloat16
+
+    def inputs(B_, S_, W_, dtype=f32, extreme=False):
+        """The forward row's distributions (``extreme``: every third
+        channel's log_a -30, the next one's 0); h_seq the plain forward's."""
+        log_a = (-torch.exp(0.5 * randn(B_, S_, W_, dtype=f32))).to(dtype)
+        if extreme:
+            log_a[..., 0::3] = -30.0
+            log_a[..., 1::3] = 0.0
+        m, h0 = randn(B_, S_, W_, dtype=dtype), randn(B_, W_, dtype=f32)
+        h_seq, _ = lru.rglru_ref(log_a, m, h0)
+        return log_a, h_seq, h0, randn(B_, S_, W_, dtype=f32), randn(B_, W_, dtype=f32)
+
+    def off_by_one(t):
+        """t's values on a base one element past an aligned allocation."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        return flat[1:].view(t.shape).copy_(t)
+
+    def check(label, args):
+        log_a, h_seq, _, dh_seq, _ = args
+        la_ptr = log_a.data_ptr() if log_a.data_ptr() % 4 == 0 else 0  # else copied: aligned
+        vec = lru.copy_bytes(log_a.shape[-1], log_a.element_size(), la_ptr, h_seq.data_ptr(),
+                             dh_seq.data_ptr())
+        label = f"{'bf16' if log_a.dtype == bf else 'f32'} {label}, {vec}-byte copies"
+        got, want = lru.rglru_bwd(*args), lru.rglru_bwd_ref(*args)
+        errs = []
+        for name, a, b in zip(RGLRU_BWD_NAMES, got, want):
+            tol = (RGLRU_BWD_REL * float(b.float().abs().max()),
+                   2.0 ** -7 if a.dtype == bf else 0.0)
+            errs.append(compare(f"rglru_bwd {name} {label}", a, b, tol))
+        if not all(torch.equal(a, b) for a, b in zip(lru.rglru_bwd(*args), got)):
+            fail(f"rglru_bwd {label}: two calls on the same inputs differ")
+        return max(errs), got, want
+
+    rows = []
+    for S_, dtype in ((512, f32), (2048, f32), (2048, bf)):
+        args = inputs(BATCH, S_, W, dtype)
+        shape = f"({BATCH},{S_},{W})"
+        err, got, want = check(shape, args)
+        if dtype == f32:
+            for name, a, b, e in zip(RGLRU_BWD_NAMES, got, want, rglru_bwd_f64(*args)):
+                print(f"  rglru_bwd {name} f32 {shape}: max |kernel - float64| "
+                      f"{float((a.double() - e).abs().max()):.3g}, max |plain - float64| "
+                      f"{float((b.double() - e).abs().max()):.3g}, max |float64| "
+                      f"{float(e.abs().max()):.3g}")
+        del got, want
+        log_a, h_seq, h0, dh_seq, dh_final = args
+        # log_a, h_seq, dh_seq, h0 and dh_final read once; dlog_a, dm (log_a's
+        # type) and dh0 written once; ~5 flops an element
+        bnd = bound(nbytes(log_a, h_seq, dh_seq, h0, dh_final, log_a, log_a, h0),
+                    5 * log_a.numel(), "float32")
+        tag = "f32" if dtype == f32 else "bf16"
+        rows.append(dict(
+            name="rglru_bwd", route="cuda", source="src/repro_torch/csrc/rglru.cu",
+            replaces="src/repro/kernels/rglru.py:46 (its gradient: jax.grad of "
+                     "src/repro/models/rglru.py:56 rglru_scan)",
+            shape=f"log_a {shape} {tag}, h_seq/dh_seq f32, h0/dh_final f32", max_abs_err=err,
+            **bnd, **timings(lambda: lru.rglru_bwd(*args), lambda: lru.rglru_bwd_ref(*args)),
+        ))
+        del args, log_a, h_seq, h0, dh_seq, dh_final
+    for dtype in (f32, bf):
+        for shape in ((1, 64, 32), (2, 128, 64), (2, 192, 128),  # tests/test_kernels.py
+                      (2, 300, 96), (2, 1, 64), (2, 200, 48)):  # ragged, S = 1, short tile
+            check(f"{shape}", inputs(*shape, dtype))
+        for W_ in (98, 99, 100):  # rows not 16-byte aligned; bf16 99: odd rows
+            check(f"unaligned rows (2,130,{W_})", inputs(2, 130, W_, dtype))
+        log_a, h_seq, h0, dh_seq, dh_final = inputs(2, 130, 64, dtype)
+        check("(2,130,64), log_a on a base one element off",
+              (off_by_one(log_a), h_seq, h0, dh_seq, dh_final))
+        check("(2,130,64), h_seq and dh_seq on bases one element off",
+              (log_a, off_by_one(h_seq), h0, off_by_one(dh_seq), dh_final))
+        check("log_a -30 and 0 (2,256,160)", inputs(2, 256, 160, dtype, extreme=True))
+    check("long (1,16384,64) on two slabs", inputs(1, 16384, 64))
+    return rows
+
+
 def plain_replay(model, params, prompt, tokens, n_steps: int):
     """The same weights through the plain versions on the card, fed the
     kernel run's greedy tokens: logits of the prefill and n_steps decodes."""
@@ -1382,7 +1545,7 @@ def want_launches(model) -> dict:
     return {"rmsnorm": (2 * len(kinds) + 1) * NEW, "flash_attention": n_attn,
             "flash_decode": n_attn * (NEW - 1), "wkv6": kinds.count("rwkv"),
             "rglru": kinds.count("rec"), "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
-            "wkv6_bwd": 0}
+            "wkv6_bwd": 0, "rglru_bwd": 0}
 
 
 def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
@@ -1990,19 +2153,40 @@ def train_launches(kinds, steps: int) -> dict:
     """The exact launches of ``steps`` train steps with remat of a model
     whose layers are of the block ``kinds``: every block's forward runs
     twice (once more in the backward), the final norm once, each backward
-    kernel once per norm, attention or rwkv layer."""
+    kernel once per norm, attention, rwkv or rec layer."""
     n, n_attn = len(kinds), sum(k in ("attn", "attn_local") for k in kinds)
-    n_rwkv = kinds.count("rwkv")
+    n_rwkv, n_rec = kinds.count("rwkv"), kinds.count("rec")
     return {"rmsnorm": steps * (4 * n + 1), "flash_attention": steps * 2 * n_attn,
-            "flash_decode": 0, "wkv6": steps * 2 * n_rwkv, "rglru": 0,
+            "flash_decode": 0, "wkv6": steps * 2 * n_rwkv, "rglru": steps * 2 * n_rec,
             "rmsnorm_bwd": steps * (2 * n + 1), "flash_attention_bwd": steps * n_attn,
-            "wkv6_bwd": steps * n_rwkv}
+            "wkv6_bwd": steps * n_rwkv, "rglru_bwd": steps * n_rec}
 
 
-def full_width_train(card: str, arch: str) -> dict:
-    """``arch`` at full width through ``launch.train``: TRAIN_STEPS steps on
-    one repeated batch. The loss must fall and every kernel of the path must
-    launch exactly as ``train_launches`` says."""
+def train_config(arch: str, layers):
+    """``arch``'s registered config, its depth cut to ``layers`` unless None."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def train_label(cfg) -> str:
+    from repro_torch.configs import get_arch
+
+    cut = cfg.n_layers != get_arch(cfg.name).n_layers
+    return f"{cfg.name} ({cfg.n_layers} layers)" if cut else cfg.name
+
+
+def full_width_train(card: str, cfg) -> dict:
+    """``cfg`` (a registered config, or one with its depth cut) at full
+    width through ``launch.train``: TRAIN_STEPS steps on one repeated
+    batch, through the launcher's flags (a registered config) or its
+    ``make_trainer`` and ``summary`` (a cut). The loss must fall and every
+    kernel of the path must launch exactly as ``train_launches`` says."""
+    import shutil
+
     import torch
 
     from repro_torch.configs import get_arch
@@ -2010,12 +2194,26 @@ def full_width_train(card: str, arch: str) -> dict:
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
+    arch = train_label(cfg)
+    check_free_memory(f"train {arch}")
     ops.reset_launch_counts()
-    res = train.run(["--arch", arch, "--full", "--steps", str(TRAIN_STEPS), "--batch",
-                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--repeat-batch",
-                     "--policy", "none", "--json"])
+    if cfg == get_arch(cfg.name):
+        res = train.run(["--arch", cfg.name, "--full", "--steps", str(TRAIN_STEPS), "--batch",
+                         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--repeat-batch",
+                         "--policy", "none", "--json"])
+    else:
+        torch.cuda.reset_peak_memory_stats()
+        tr, losses = train.make_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, policy="none",
+                                        repeat_batch=True, device="cuda")
+        try:
+            rep = tr.run(TRAIN_STEPS, failures=[])
+        finally:
+            shutil.rmtree(tr.store.root, ignore_errors=True)
+        res = train.summary(arch, "none", rep, losses, TRAIN_BATCH, TRAIN_SEQ,
+                            torch.cuda.max_memory_allocated())
+        del tr, losses
     counts = ops.launch_counts()
-    want = train_launches(build_model(get_arch(arch)).kinds, TRAIN_STEPS)
+    want = train_launches(build_model(cfg).kinds, TRAIN_STEPS)
     print(f"train {arch} launches {counts} (want {want})")
     if counts != want:
         fail(f"train {arch}: kernel launch counts {counts} != {want}")
@@ -2029,11 +2227,11 @@ def full_width_train(card: str, arch: str) -> dict:
           f"{res['step_s_median']:.4f}, tokens/s {res['tokens_per_s']:.1f}, peak "
           f"max_memory_allocated {res['peak_device_bytes'] / 2**30:.2f} GiB, losses {losses}")
     print(json.dumps({"train": res, "card": card, "launches": counts}))
-    torch.cuda.empty_cache()
+    free_device_memory()
     return counts
 
 
-def train_grad_check(dev, arch: str) -> None:
+def train_grad_check(dev, cfg) -> None:
     """One step's gradients at full width on the kernel path against the same
     step under ``ops.plain_versions()``, leaf by leaf: in bf16 activations
     within GRAD_TOL_BF16, or for GRAD_F32_ARCHS in float32 activations
@@ -2043,7 +2241,6 @@ def train_grad_check(dev, arch: str) -> None:
 
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
@@ -2070,8 +2267,9 @@ def train_grad_check(dev, arch: str) -> None:
                       for n, a, b in zip(got[2], got[1], want[1]))
         return rels[-1][0], rels[-1][1], rels[len(rels) // 2][0]
 
-    cfg = get_arch(arch)
-    f32 = arch in GRAD_F32_ARCHS
+    arch = train_label(cfg)
+    check_free_memory(f"train grads {arch}")
+    f32 = cfg.name in GRAD_F32_ARCHS
     tol = GRAD_TOL_F32 if f32 else GRAD_TOL_BF16
     runs = {"bf16": cfg}
     if f32:
@@ -2102,22 +2300,22 @@ def train_grad_check(dev, arch: str) -> None:
             print(f"train grads {arch} bf16 {side} vs f32 plain: largest {rel:.4g} at {leaf}, "
                   f"median {med:.4g}")
     del got, held
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
-def profile_train(dev, card: str, arch: str) -> None:
+def profile_train(dev, card: str, cfg) -> None:
     """Where a full-width train step spends its time: device time of one
     step (torch.profiler) as a share of its unprofiled wall time, and the
     kernels with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import token_batches
     from repro_torch.models import build_model
     from repro_torch.train.step import make_train_step
 
-    cfg = get_arch(arch)
+    arch = train_label(cfg)
+    check_free_memory(f"profile train {arch}")
     ts, init_state = make_train_step(build_model(cfg))
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -2143,7 +2341,7 @@ def profile_train(dev, card: str, arch: str) -> None:
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
     del state
-    torch.cuda.empty_cache()
+    free_device_memory()
 
 
 def train_phase(dev, card: str) -> dict:
@@ -2151,20 +2349,22 @@ def train_phase(dev, card: str) -> dict:
     ``launch.train`` (their launch counts are returned, summed, with the
     float32 attention routes' launches of the reduced FT runs and Fig 15),
     gradients against the plain path and a profile of a step; the FT
-    invariant at reduced size (rwkv6 under hybrid) and Fig 15's tables;
-    then the FT invariant at full width (gemma-2b)."""
+    invariant at reduced size (rwkv6 and recurrentgemma under hybrid) and
+    Fig 15's tables; then the FT invariant at full width (gemma-2b)."""
     counts, spent = {}, []
-    for arch in TRAIN_ARCHS:
+    for arch, layers in TRAIN_ARCHS:
         t0 = time.perf_counter()
-        for name, n in full_width_train(card, arch).items():
+        cfg = train_config(arch, layers)
+        for name, n in full_width_train(card, cfg).items():
             counts[name] = counts.get(name, 0) + n
-        train_grad_check(dev, arch)
-        profile_train(dev, card, arch)
-        spent.append(f"{time.perf_counter() - t0:.1f} s {arch} full-width steps, grads and "
-                     f"profile")
+        train_grad_check(dev, cfg)
+        profile_train(dev, card, cfg)
+        spent.append(f"{time.perf_counter() - t0:.1f} s {train_label(cfg)} full-width steps, "
+                     f"grads and profile")
     t1 = time.perf_counter()
     f32 = reduced_ft(card)
-    reduced_ft(card, "rwkv6-1.6b", ("hybrid",))
+    for arch in RECURRENT_KERNELS:
+        reduced_ft(card, arch, ("hybrid",))
     for name, n in fig15_phase(card).items():
         f32[name] += n
     t2 = time.perf_counter()
@@ -2174,12 +2374,18 @@ def train_phase(dev, card: str) -> dict:
     return counts, f32
 
 
+# the recurrent families trained at reduced size under hybrid, and the
+# forward and backward kernels of their scans
+RECURRENT_KERNELS = {"rwkv6-1.6b": ("wkv6", "wkv6_bwd"),
+                     "recurrentgemma-9b": ("rglru", "rglru_bwd")}
+
+
 def reduced_ft(card: str, arch: str = ARCH, policies=FT_POLICIES) -> dict:
     """The trainer's lossless invariant on the card at reduced size (float32):
     under each of ``policies`` the run with failures ends bit-identical to
     the failure-free run. For gemma returns the float32 attention routes'
-    launches, which must include the backward's; rwkv6's runs must launch
-    the wkv6 forward and backward kernels."""
+    launches, which must include the backward's; a recurrent family's runs
+    must launch its scan's forward and backward kernels (RECURRENT_KERNELS)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.failure import FailureEvent
     from repro_torch.kernels import ops
@@ -2213,8 +2419,9 @@ def reduced_ft(card: str, arch: str = ARCH, policies=FT_POLICIES) -> dict:
     if arch != ARCH:
         counts = ops.launch_counts()
         print(f"ft reduced {arch}: launches {counts}")
-        if not (counts["wkv6"] and counts["wkv6_bwd"]):
-            fail(f"ft reduced {arch}: the wkv6 kernels were not both launched: {counts}")
+        if not all(counts[name] for name in RECURRENT_KERNELS[arch]):
+            fail(f"ft reduced {arch}: the {RECURRENT_KERNELS[arch]} kernels were not both "
+                 f"launched: {counts}")
         return counts
     counts = f32_launches("ft reduced")
     if not all(counts.values()):
@@ -2245,8 +2452,6 @@ def full_width_ft(card: str) -> None:
     bit-identical."""
     import shutil
 
-    import torch
-
     from repro_torch.configs import get_arch
     from repro_torch.core.failure import FailureEvent
     from repro_torch.launch.train import make_trainer
@@ -2257,6 +2462,7 @@ def full_width_ft(card: str) -> None:
     fails = [FailureEvent(t=FT_FULL_FAIL_T, node=0, predictable=True, lead_s=FT_FULL_LEAD_S)]
     for policy, failures in (("hybrid_ref", []), ("hybrid", fails)):
         t0 = time.perf_counter()
+        check_free_memory(f"ft full width {ARCH} {policy}")
         tr, _ = make_trainer(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, policy=policy,
                              ckpt_every=FT_FULL_STEPS, device="cuda")
         state_bytes = tree_bytes(tr.state)
@@ -2274,7 +2480,7 @@ def full_width_ft(card: str) -> None:
               f"{rep.overhead_fraction:.6f}, moved {[(e['bytes'], round(e['migrate_s'], 3)) for e in moved]} "
               f"(bytes, s); {time.perf_counter() - t0:.1f} s in all")
         del tr
-        torch.cuda.empty_cache()
+        free_device_memory()
     if reps[1].migrations != 1:
         fail(f"ft full width: {reps[1].migrations} migrations, want 1")
     if hashes[0] != hashes[1]:

@@ -101,12 +101,12 @@ __device__ __forceinline__ int row_offset(long long g) {
     return (int)(g & (Plan<T, VEC>::E - 1));
 }
 
-// Starts the copies of n token rows of the slab, the first at element g0
-// of log_a and m, into the tiles sa and sm.
-template <typename T, int VEC>
-__device__ __forceinline__ void fetch_tile(T* sa, T* sm, const T* __restrict__ log_a,
-                                           const T* __restrict__ m, long long g0, int n, int W,
-                                           int nvalid, int lane) {
+// Starts the copies of n token rows of the slab, the first at element g0,
+// from each of the NA arrays src[k] into its tile dst[k] (rows PITCH
+// elements apart): the arrays share every copy's offsets.
+template <typename T, int VEC, int NA>
+__device__ __forceinline__ void fetch_rows(T* const (&dst)[NA], const T* const (&src)[NA],
+                                           long long g0, int n, int W, int nvalid, int lane) {
   using P = Plan<T, VEC>;
   for (int i = lane; i < n * P::NCH; i += 32) {
     const int r = i / P::NCH, j = i % P::NCH;
@@ -115,8 +115,8 @@ __device__ __forceinline__ void fetch_tile(T* sa, T* sm, const T* __restrict__ l
     const long long left = g + nvalid - c0;  // slab elements from c0 on
     if (left <= 0) continue;
     const int bytes = left >= P::E ? VEC : (int)left * (int)sizeof(T);
-    cp_async<VEC>(sa + r * P::PITCH + j * P::E, log_a + c0, bytes);
-    cp_async<VEC>(sm + r * P::PITCH + j * P::E, m + c0, bytes);
+#pragma unroll
+    for (int k = 0; k < NA; ++k) cp_async<VEC>(dst[k] + r * P::PITCH + j * P::E, src[k] + c0, bytes);
   }
 }
 
@@ -161,8 +161,9 @@ __global__ void __launch_bounds__(SLAB)
     if (tile < n_tiles) {
       T* sa = ring + (tile % STAGES) * 2 * P::TILE;
       const int t0 = tile * P::TT;
-      fetch_tile<T, VEC>(sa, sa + P::TILE, log_a, m, base + (long long)t0 * W,
-                         min(P::TT, S - t0), W, nvalid, lane);
+      const long long g = base + (long long)t0 * W;
+      const int n = min(P::TT, S - t0);
+      fetch_rows<T, VEC, 2>({sa, sa + P::TILE}, {log_a, m}, g, n, W, nvalid, lane);
     }
     cp_async_commit();  // an empty group past the end keeps the count uniform
   };
@@ -220,6 +221,171 @@ int blocks_per_sm(int* out) {
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// Backward. For h_t = a_t h_{t-1} + m_t with a_t = exp(log_a_t) and
+// h_{-1} = h0, given dh_seq and dh_final (the gradients of every h_t and of
+// the final h):
+//   g_{S-1} = dh_seq_{S-1} + dh_final,   g_t = dh_seq_t + a_{t+1} g_{t+1},
+//   dm_t = g_t,   dlog_a_t = g_t a_t h_{t-1},   dh0 = a_0 g_0,
+// with h_{t-1} read from the forward's h_seq (h0 at t = 0). dlog_a is never
+// taken as g_t (h_t - m_t): that difference cancels where the decay is
+// strong (a_t h_{t-1} << m_t).
+//
+// Replaces: no Pallas kernel. The reference's gradient is jax.grad of
+// src/repro/models/rglru.py::rglru_scan (an associative scan); this is the
+// backward of the forward kernel above, which replaces
+// src/repro/kernels/rglru.py::rglru_scan (pallas_call at :59).
+//
+// Bound on the H100: memory. log_a, h_seq and dh_seq are read once and
+// dlog_a and dm written once: 20 bytes per (b, t, channel) in float32. At
+// the training shape (B=4, S=512, W=4096) that is ~168 MB, ~50 us at
+// 3.35 TB/s (prefill shape, S=2048: ~671 MB, ~200 us); the arithmetic is
+// ~5 flops per element.
+//
+// Design: the forward's, run in reverse token order. A block is one warp
+// and owns a slab of SLAB channels of one batch row; lane c carries
+// c_t = a_t g_t of its channel in a register from dh_final (so that
+// g_t = dh_seq_t + c_{t+1} and dlog_a_t = c_t h_{t-1}: one add and one
+// multiply on the chain per token), and writes dh0 = c_0 at the end. A
+// ring of STAGES tiles of BWD_TT = 32 tokens (128 bytes of a float32
+// channel) is walked from the last tile to the first, each tile the
+// slab's rows of log_a, dh_seq and h_seq one token earlier (the rows of
+// h_{t-1}); the first tile's row of h_{-1} is h0, written from a register
+// (each lane reads only its own channel). Before it consumes a tile the
+// warp starts the copies of the tile STAGES - 1 further back, and the
+// shared loads and exps of 8 tokens go out before their chain. dlog_a and
+// dm are streamed out in log_a's type, one coalesced row per warp and
+// token. One launch; no atomics, no scratch, no block waits for another:
+// two calls give the same bits. Copies, partial slabs, short tiles and
+// unaligned rows are the forward's (Plan, fetch_rows), per array.
+constexpr int BWD_TT = 32;  // tokens in a backward tile
+
+template <typename T, int VEC>
+struct BwdPlan {
+  using A = Plan<T, VEC>;      // log_a's rows
+  using F = Plan<float, VEC>;  // the rows of h_seq and dh_seq
+  static constexpr int F_TILE = BWD_TT * F::PITCH;  // floats of one float32 tile
+  static constexpr int A_TILE = BWD_TT * A::PITCH;  // elements of log_a's tile
+  // a stage: the h tile, the dh tile, then log_a's (every tile 16-byte sized)
+  static constexpr int STAGE = 2 * F_TILE * 4 + A_TILE * (int)sizeof(T);
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(A_TILE * sizeof(T) % 16 == 0, "tiles stay 16-byte aligned");
+  static_assert(SMEM <= 48 * 1024, "the ring fits the default dynamic shared memory limit");
+};
+
+__device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16(v)));
+}
+
+// Tokens r, r - 1, .., r - U + 1 of a tile whose first token row starts at
+// element g: the shared loads and exps of all U first, then the chain.
+template <typename T, int VEC, int U>
+__device__ __forceinline__ void consume_bwd(const T* sa, const float* sh, const float* sd, int r,
+                                            long long g, int W, int lane, int nvalid, float& c,
+                                            T* __restrict__ dlog_a, T* __restrict__ dm) {
+  using P = BwdPlan<T, VEC>;
+  float a[U], hp[U], d[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int rr = r - u;
+    a[u] = expf(rt::to_f(
+        sa[rr * P::A::PITCH + row_offset<T, VEC>(g + (long long)rr * W) + lane]));
+    hp[u] = sh[rr * P::F::PITCH + lane];
+    d[u] = sd[rr * P::F::PITCH + lane];
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float gt = d[u] + c;  // g_t
+    c = a[u] * gt;              // a_t g_t
+    if (lane < nvalid) {
+      const long long o = g + (long long)(r - u) * W + lane;
+      store_cs(dm + o, gt);
+      store_cs(dlog_a + o, c * hp[u]);
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(SLAB)
+    rglru_bwd_kernel(const T* __restrict__ log_a, const float* __restrict__ h_seq,
+                     const float* __restrict__ h0, const float* __restrict__ dh_seq,
+                     const float* __restrict__ dh_final, T* __restrict__ dlog_a,
+                     T* __restrict__ dm, float* __restrict__ dh0, int S, int W) {
+  using P = BwdPlan<T, VEC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x;
+  const int w0 = blockIdx.x * SLAB;
+  const long long b = blockIdx.y;
+  const int nvalid = min(SLAB, W - w0);
+  const long long base = b * S * (long long)W + w0;  // element (b, 0, w0)
+  const int n_tiles = (S + BWD_TT - 1) / BWD_TT;
+
+  // the i-th tile consumed is tile n_tiles - 1 - i, in slot i % STAGES
+  auto slot = [&](int i) { return reinterpret_cast<float*>(smem_raw + (i % STAGES) * P::STAGE); };
+  auto fetch = [&](int i) {
+    if (i < n_tiles) {
+      float* sh = slot(i);
+      const int t0 = (n_tiles - 1 - i) * BWD_TT;
+      const int n = min(BWD_TT, S - t0);
+      const long long g = base + (long long)t0 * W;
+      fetch_rows<T, VEC, 1>({reinterpret_cast<T*>(sh + 2 * P::F_TILE)}, {log_a}, g, n, W,
+                            nvalid, lane);
+      fetch_rows<float, VEC, 1>({sh + P::F_TILE}, {dh_seq}, g, n, W, nvalid, lane);
+      // h_{t-1} of the tile's tokens: h_seq's rows t0 - 1 .. t0 + n - 2,
+      // but for the first tile's row 0 (h0, written when it is consumed)
+      const int skip = t0 == 0;
+      fetch_rows<float, VEC, 1>({sh + skip * P::F::PITCH}, {h_seq},
+                                g + (long long)(skip - 1) * W, n - skip, W, nvalid, lane);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count uniform
+  };
+
+  const long long bw = b * W + w0 + lane;
+  float c = lane < nvalid ? dh_final[bw] : 0.f;
+  const float h_init = lane < nvalid ? h0[bw] : 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    fetch(i + STAGES - 1);
+    cp_async_wait<STAGES - 1>();  // this lane's copies of tile i have landed
+    __syncwarp();                 // and every other lane's
+    float* sh = slot(i);
+    const float* sd = sh + P::F_TILE;
+    const T* sa = reinterpret_cast<const T*>(sh + 2 * P::F_TILE);
+    const int t0 = (n_tiles - 1 - i) * BWD_TT;
+    const int n = min(BWD_TT, S - t0);
+    const long long g = base + (long long)t0 * W;
+    if (t0 == 0) sh[lane] = h_init;  // h_{-1}: this lane's channel, read by this lane only
+    int r = n - 1;
+    for (; r >= UNROLL - 1; r -= UNROLL)
+      consume_bwd<T, VEC, UNROLL>(sa, sh, sd, r, g, W, lane, nvalid, c, dlog_a, dm);
+    for (; r >= 0; --r) consume_bwd<T, VEC, 1>(sa, sh, sd, r, g, W, lane, nvalid, c, dlog_a, dm);
+    __syncwarp();  // the slot is read before the next iteration refills it
+  }
+  if (lane < nvalid) dh0[bw] = c;
+}
+
+template <typename T, int VEC>
+int launch_bwd(const void* log_a, const void* h_seq, const void* h0, const void* dh_seq,
+               const void* dh_final, void* dlog_a, void* dm, void* dh0, int B, int S, int W,
+               cudaStream_t stream) {
+  static int carveout_set[rt::kMaxDevices];
+  const cudaError_t e = rt::func_attribute(
+      reinterpret_cast<const void*>(rglru_bwd_kernel<T, VEC>),
+      cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared,
+      carveout_set);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((W + SLAB - 1) / SLAB), (unsigned)B);
+  rglru_bwd_kernel<T, VEC><<<grid, SLAB, BwdPlan<T, VEC>::SMEM, stream>>>(
+      static_cast<const T*>(log_a), static_cast<const float*>(h_seq),
+      static_cast<const float*>(h0), static_cast<const float*>(dh_seq),
+      static_cast<const float*>(dh_final), static_cast<T*>(dlog_a), static_cast<T*>(dm),
+      static_cast<float*>(dh0), S, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // log_a, m, h_seq: (B, S, W); h0, h_final: (B, W); all contiguous. log_a
@@ -249,5 +415,28 @@ extern "C" int rt_rglru_blocks_per_sm(int dtype, int vec, int* out) {
   if (dtype == rt::kF32 && vec == 4) return blocks_per_sm<float, 4>(out);
   if (dtype == rt::kBF16 && vec == 16) return blocks_per_sm<__nv_bfloat16, 16>(out);
   if (dtype == rt::kBF16 && vec == 4) return blocks_per_sm<__nv_bfloat16, 4>(out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: log_a, h_seq (the forward's), dh_seq, dlog_a, dm: (B, S, W);
+// h0, dh_final, dh0: (B, W); all contiguous. log_a, dlog_a and dm in
+// `dtype`; the rest float32. vec: 16 where W * elem is a multiple of 16 and
+// the bases of log_a, h_seq and dh_seq are 16-byte aligned, else 4 (bases
+// 4-byte aligned).
+extern "C" int rt_rglru_bwd(const void* log_a, const void* h_seq, const void* h0,
+                            const void* dh_seq, const void* dh_final, void* dlog_a, void* dm,
+                            void* dh0, int B, int S, int W, int dtype, int vec, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kF32 && vec == 16)
+    return launch_bwd<float, 16>(log_a, h_seq, h0, dh_seq, dh_final, dlog_a, dm, dh0, B, S, W, s);
+  if (dtype == rt::kF32 && vec == 4)
+    return launch_bwd<float, 4>(log_a, h_seq, h0, dh_seq, dh_final, dlog_a, dm, dh0, B, S, W, s);
+  if (dtype == rt::kBF16 && vec == 16)
+    return launch_bwd<__nv_bfloat16, 16>(log_a, h_seq, h0, dh_seq, dh_final, dlog_a, dm, dh0, B,
+                                         S, W, s);
+  if (dtype == rt::kBF16 && vec == 4)
+    return launch_bwd<__nv_bfloat16, 4>(log_a, h_seq, h0, dh_seq, dh_final, dlog_a, dm, dh0, B,
+                                        S, W, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,6 +48,7 @@ SIGNATURES = {
     "rt_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P],
     "rt_wkv6_bwd": [*[_P] * 15, _I, _I, _I, _I, _STRIDES, _I, _P],
     "rt_rglru": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_rglru_bwd": [*[_P] * 8, _I, _I, _I, _I, _I, _P],
     "rt_rglru_blocks_per_sm": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "rt_wkv6_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
 }

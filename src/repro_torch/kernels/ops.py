@@ -11,12 +11,12 @@ own for CUDA tensors (recomputing the checkpointed blocks there), takes
 the plain versions as well.
 
 Under autograd (grad mode on and an input that requires grad),
-``rmsnorm``, ``flash_attention`` and ``wkv6`` run as autograd Functions
-whose forward is the forward kernel and whose backward is the
+``rmsnorm``, ``flash_attention``, ``wkv6`` and ``rglru`` run as autograd
+Functions whose forward is the forward kernel and whose backward is the
 hand-written backward kernel (the plain versions of both on the CPU).
-``flash_decode`` and ``rglru`` have no backward kernel yet: on their
-kernel path they raise rather than hand back an output with no gradient
-(training recurrentgemma is ROADMAP Queue 1, item 9).
+``flash_decode`` has no backward kernel: it runs only in decode steps,
+which are never trained, and on its kernel path it raises rather than
+hand back an output with no gradient (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from repro_torch.kernels import rmsnorm as rn, rwkv6
 #: open ``plain_versions`` blocks (process-wide: autograd's threads see it)
 _force_plain = 0
 
-NO_BACKWARD = ("has no backward kernel yet: training recurrentgemma needs the rglru_scan "
-               "backward kernel (ROADMAP.md Queue 1, item 9)")
+NO_BACKWARD = ("has no backward kernel: it runs only in decode steps, which are never trained "
+               "(ROADMAP.md Queue 1, item 9)")
 
 
 @contextlib.contextmanager
@@ -112,6 +112,25 @@ class _WKV6(torch.autograd.Function):
         return (*grads, None)
 
 
+class _RGLRU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_a, m, h0, kernel):
+        fwd = lru.rglru if kernel else lru.rglru_ref
+        h_seq, h_final = fwd(log_a, m, h0)
+        ctx.save_for_backward(log_a, h0, h_seq)
+        ctx.kernel = kernel
+        return h_seq, h_final
+
+    @staticmethod
+    def backward(ctx, dh_seq, dh_final):  # dh_final: zeros where the final h is dropped
+        log_a, h0, h_seq = ctx.saved_tensors
+        bwd = lru.rglru_bwd if ctx.kernel else lru.rglru_bwd_ref
+        f32 = torch.float32
+        dlog_a, dm, dh0 = bwd(log_a.contiguous(), h_seq, h0.to(f32).contiguous(),
+                              dh_seq.to(f32).contiguous(), dh_final.to(f32).contiguous())
+        return dlog_a, dm, dh0.to(h0.dtype), None
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     kernel = _use_kernel(x)
     if _needs_grad(x, scale):
@@ -147,8 +166,10 @@ def wkv6(r, k, v, wlog, u, state):
 
 
 def rglru(log_a, m, h0):
-    if _use_kernel(log_a):
-        _refuse_grad("rglru", log_a, m, h0)
+    kernel = _use_kernel(log_a)
+    if _needs_grad(log_a, m, h0):
+        return _RGLRU.apply(log_a, m, h0, kernel)
+    if kernel:
         return lru.rglru(log_a, m, h0)
     return lru.rglru_ref(log_a, m, h0)
 
@@ -157,7 +178,8 @@ def rglru(log_a, m, h0):
 _COUNTERS = {"rmsnorm": (rn, "launches"), "flash_attention": (fa, "launches"),
              "flash_decode": (decode_attention, "launches"), "wkv6": (rwkv6, "launches"),
              "rglru": (lru, "launches"), "rmsnorm_bwd": (rn, "bwd_launches"),
-             "flash_attention_bwd": (fa, "bwd_launches"), "wkv6_bwd": (rwkv6, "bwd_launches")}
+             "flash_attention_bwd": (fa, "bwd_launches"), "wkv6_bwd": (rwkv6, "bwd_launches"),
+             "rglru_bwd": (lru, "bwd_launches")}
 
 
 # the float32 routes' share of two of those counts

@@ -18,8 +18,7 @@ Block kinds and their caches:
   rec         RG-LRU temporal block + FFN          {"h" float32, "conv"}
   rwkv        RWKV6 time-mix + channel-mix         {"wkv" float32, "shift_t", "shift_c"}
 
-``loss`` trains the attention and ``rwkv`` kinds; ``rec`` blocks raise (the
-RG-LRU scan kernel has no backward yet).
+``loss`` trains every kind.
 """
 from __future__ import annotations
 
@@ -37,9 +36,6 @@ from repro_torch.models import rwkv6 as R
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
 _PATTERN_KINDS = ("rec", "attn")
-_TRAINABLE = ("attn", "attn_local", "rwkv")
-_NOT_TRAINABLE = ("cannot train yet: the rglru_scan kernel has no backward "
-                  "(ROADMAP.md Queue 1, item 9: recurrentgemma training)")
 #: the cross-entropy's chunk of positions (the reference's ``_chunked_ce``)
 CE_CHUNK = 512
 
@@ -216,9 +212,12 @@ class ModelDef:
     # -- training -------------------------------------------------------------
     def _block_train(self, kind: str, lp, x, positions):
         h = L.norm_apply(lp["ln1"], x)
-        if kind == "rwkv":  # the prefill's block from a zero state, no cache
+        # the recurrent kinds: the prefill's block from a zero state, no cache
+        if kind == "rwkv":
             x = x + R.timemix_apply(lp["tm"], h, self.cfg)[0]
             return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))[0]
+        if kind == "rec":
+            return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, self.cfg)[0])
         a = L.attention_train(lp["attn"], h, self.cfg, positions, _window(self.cfg, kind))
         return self._ffn_half(lp, x + a)
 
@@ -230,11 +229,8 @@ class ModelDef:
         recomputed in the backward (the reference's ``jax.checkpoint(piece)``),
         and with ``cfg.remat`` every block is recomputed in the backward too.
         The reference adds 0.01 x the MoE aux term, 0 for these dense models.
-        Attention, wkv6 and the norms run the CUDA kernels, forward and
-        backward, on the card."""
-        bad = sorted(set(self.kinds) - set(_TRAINABLE))
-        if bad:
-            raise NotImplementedError(f"{self.cfg.name}: {'/'.join(bad)} blocks {_NOT_TRAINABLE}")
+        Attention, wkv6, the RG-LRU scan and the norms run the CUDA kernels,
+        forward and backward, on the card."""
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         B, S = tokens.shape

@@ -12,7 +12,10 @@ reference.
 
 Parameter dtypes follow the reference's use: the gate weights and biases
 ``wa``, ``ba``, ``wi``, ``bi`` and ``lam`` enter float32 products uncast,
-so they stay float32; every other weight is stored in the activation dtype.
+so they stay float32; every other weight is stored in the activation dtype
+for serving and cast to it at use, as the reference casts it, so that
+training's float32 masters run the same arithmetic. Under autograd the
+scan's backward is the CUDA rglru backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     conv_state: (B, cw-1, lru), the last cw-1 inputs of the previous call
     (zeros for a fresh sequence). Returns (out, the new conv_state)."""
     cw = w.shape[0]
+    w, b = w.to(u.dtype), b.to(u.dtype)
     if conv_state is None:
         conv_state = torch.zeros_like(u[:, :1]).expand(-1, cw - 1, -1)
     up = torch.cat([conv_state, u], dim=1)  # (B, S+cw-1, lru)
@@ -79,7 +83,8 @@ def rglru_block_apply(p: Params, x: torch.Tensor, cfg, h_state: Optional[torch.T
     B = x.shape[0]
     if h_state is None:
         h_state = torch.zeros((B, p["wx"].shape[1]), dtype=torch.float32, device=x.device)
-    u, conv_state = causal_conv(x @ p["wx"], p["conv_w"], p["conv_b"], conv_state)
+    dt = x.dtype
+    u, conv_state = causal_conv(x @ p["wx"].to(dt), p["conv_w"], p["conv_b"], conv_state)
 
     uf = u.to(torch.float32)
     r = torch.sigmoid(uf @ p["wa"] + p["ba"])
@@ -93,5 +98,5 @@ def rglru_block_apply(p: Params, x: torch.Tensor, cfg, h_state: Optional[torch.T
     else:
         hs, h_state = ops.rglru(log_a, m, h_state)
 
-    gate = L.gelu(x @ p["wy"])
-    return (hs.to(x.dtype) * gate) @ p["wo"], h_state, conv_state
+    gate = L.gelu(x @ p["wy"].to(dt))
+    return (hs.to(dt) * gate) @ p["wo"].to(dt), h_state, conv_state

@@ -260,7 +260,8 @@ def _c_params(name):
 
 @pytest.mark.parametrize("name", ["rt_flash_attention_bwd", "rt_flash_attention", "rt_rmsnorm",
                                   "rt_rmsnorm_bwd", "rt_flash_decode", "rt_wkv6", "rt_wkv6_bwd",
-                                  "rt_rglru", "rt_rglru_blocks_per_sm", "rt_wkv6_plan"])
+                                  "rt_rglru", "rt_rglru_bwd", "rt_rglru_blocks_per_sm",
+                                  "rt_wkv6_plan"])
 def test_c_entry_points_match_their_ctypes_signatures(name):
     """ctypes passes every argument as the wrapper's SIGNATURES say: one
     kind too few or in the wrong place would cut a pointer or shift the

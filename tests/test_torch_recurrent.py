@@ -110,7 +110,8 @@ def test_reduced_recurrent_f32_matches_jax(case):
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1), err_msg=f"step {step}")
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "flash_decode": 0,
                                    "wkv6": 0, "rglru": 0, "rmsnorm_bwd": 0,
-                                   "flash_attention_bwd": 0, "wkv6_bwd": 0}
+                                   "flash_attention_bwd": 0, "wkv6_bwd": 0,
+                                   "rglru_bwd": 0}
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -328,23 +328,14 @@ def test_synthetic_batches_are_deterministic_in_seed_and_step():
     assert a.min() >= 0 and a.max() < 100
 
 
-@pytest.mark.parametrize("name", ["flash_decode", "rglru"])
+@pytest.mark.parametrize("name", ["flash_decode"])
 def test_kernels_without_backward_raise_under_grad(name, monkeypatch):
-    """On the kernel path (forced here on CPU tensors) the two kernels
-    that have no backward refuse inputs that need a gradient, instead of
-    handing back an output with no grad_fn."""
+    """On the kernel path (forced here on CPU tensors) flash_decode, the
+    kernel that has no backward (decode is never trained), refuses inputs
+    that need a gradient, instead of handing back an output with no
+    grad_fn."""
     monkeypatch.setattr(ops, "_use_kernel", lambda t: True)
     x = torch.zeros((1, 2, 4, 16), requires_grad=True)
-    calls = {"flash_decode": lambda: ops.flash_decode(x[:, :, 0], x[:, :1], x[:, :1],
-                                                      torch.zeros((1, 4), dtype=torch.int32), 3),
-             "rglru": lambda: ops.rglru(x[0], x[0], x[0, :, 0])}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 9"):
-        calls[name]()
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_loss_refuses_blocks_without_backward_kernels(arch):
-    model = build_model(get_arch(arch).reduced())
-    params = model.init(torch.Generator().manual_seed(0), "cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 9"):
-        model.loss(params, {"tokens": np.zeros((1, 8), dtype=np.int32)})
+    with pytest.raises(NotImplementedError,
+                       match=rf"{name} has no backward kernel.*ROADMAP\.md Queue 1, item 9"):
+        ops.flash_decode(x[:, :, 0], x[:, :1], x[:, :1], torch.zeros((1, 4), dtype=torch.int32), 3)
