@@ -12,8 +12,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward, HMMA for the float32 forward's and backward's
    3xTF32), and in ptxas's report that the hd-256 instantiations of the
    backward's kernels and of the float32 forward, all 5 of the rmsnorm
-   backward's warp kernel, the 4 N-64 ones of the wkv6 backward's row
-   kernel and all 4 of the rglru backward do not spill;
+   backward's warp kernel, the N-64 ones of the wkv6 backward's kernels
+   (its row passes, chunk contributions and scan) and all 4 of the rglru
+   backward do not spill;
 3. kernels: each of the nine kernels (the five forward kernels and the
    rmsnorm, flash_attention, wkv6 and rglru backward kernels) against its plain
    torch version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
@@ -40,8 +41,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    not-causal / head-dim / misaligned-dout cases; wkv6_bwd at rwkv6-1.6b's
    training shape (4, 32, 512, 64) in bf16 and in float32 (the float32
    kernel and plain version each also against the formulas in float64),
-   and ragged, short-tile, S = 1, wlog = -8, contiguous-dy and the
-   reference test's shapes; rglru_bwd at recurrentgemma-9b's training
+   its five launches' plan against ``rwkv6.bwd_plan`` with the warps an SM
+   resident, its device time split by kernel, and ragged, short-tile, S =
+   1, chunk-boundary (S = C + 1, 2C - 1, 3C), wlog = -8 (against float64,
+   over several chunks), contiguous-dy and the reference test's shapes;
+   rglru_bwd at recurrentgemma-9b's training
    shape (4, 512, 4096) in float32 and at the forward's (4, 2048, 4096) in
    float32 and with bf16 log_a, a nonzero h0 and dh_final, the float32
    kernel and plain version each also against the formulas in float64,
@@ -212,6 +216,10 @@ WKV6_TOL_STRONG_DECAY = 1e-4
 # suffix sums), plus one bf16 step (2^-7 of the value) for bf16 dr/dk/dv
 WKV6_BWD_REL = 1e-4
 WKV6_BWD_NAMES = ("dr", "dk", "dv", "dwlog", "du", "dstate")
+# warps an SM the wkv6 backward's row passes must keep resident (its
+# chunked design at the training shape: the first pass's blocks of 2 warps
+# at 168 registers, 12; the second's of 8 warps at 128, 16)
+WKV6_BWD_ROW_WARPS = 12
 # the rglru backward against its plain version, per output: atol 1e-4 of the
 # plain output's largest magnitude (tests/test_torch_rglru_train.py's limit
 # against jax.vjp: the reverse recurrence summed in another order), plus one
@@ -537,16 +545,19 @@ def spill_check(lib_path: Path) -> None:
     training and serve shapes) of the bf16 backward's two kernels and of
     the float32 forward and backward, every instantiation of the rmsnorm
     backward's warp kernel and of the rglru backward, and the N-64 ones
-    (``Li64E``) of the wkv6 backward's row kernel must not spill."""
+    (``Li64E``) of the wkv6 backward's kernels must not spill."""
     checks = [(kernel, want, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
                "hd-256 ")
               for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
                                    ("flash_bwd_f32_kernel", 1))]
     checks.append(("rmsnorm_bwd_warp_kernel", RMSNORM_BWD_WARP_KERNELS,
                    ptxas_report(lib_path, "rmsnorm_bwd_warp_kernel"), ""))
-    # the wkv6 backward's two row passes at N = 64 (rwkv6-1.6b), bf16 and f32
-    checks.append(("wkv6_bwd_rows_kernel", 4, [r for r in ptxas_report(
-        lib_path, "wkv6_bwd_rows_kernel") if "Li64E" in r[0]], "N-64 "))
+    # the wkv6 backward's kernels at N = 64 (rwkv6-1.6b): the two row
+    # passes and the chunk contributions in bf16 and f32, and the scan
+    for kernel, want in (("wkv6_bwd_rows_kernel", 4), ("wkv6_bwd_chunk_kernel", 2),
+                         ("wkv6_bwd_scan_kernel", 1)):
+        checks.append((kernel, want, [r for r in ptxas_report(lib_path, kernel)
+                                      if "Li64E" in r[0]], "N-64 "))
     # the rglru backward: float32 and bf16 log_a, 16- and 4-byte copies
     checks.append(("rglru_bwd_kernel", 4, ptxas_report(lib_path, "rglru_bwd_kernel"), ""))
     for kernel, want, found, which in checks:
@@ -1238,15 +1249,44 @@ def wkv6_bwd_f64(r, k, v, wlog, u, state, dy, ds_T):
     return dr, dk, dv, dw, du, D
 
 
+def wkv6_bwd_plan_check(dev, B: int, H: int, S: int, N: int) -> None:
+    """The wkv6 backward's five launches at (B, H, S, N): the built
+    kernels' own plan (blocks, threads, static shared bytes, blocks resident
+    on one SM) against ``rwkv6.bwd_plan``, the Python mirror that sizes the
+    scratch, in both dtypes; printed with the warps resident an SM. Fails
+    if they differ or if a row pass has fewer than WKV6_BWD_ROW_WARPS warps
+    resident."""
+    import torch
+
+    from repro_torch.kernels import rwkv6
+
+    want = rwkv6.bwd_plan(B, H, S, N)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = rwkv6.device_bwd_plan(dtype, B, H, S, N)
+        print(f"  wkv6_bwd plan at ({B},{H},{S},{N}) {dtype}, {want['chunks']} chunks of "
+              f"{rwkv6.BWD_CHUNK}:")
+        for name, (blocks, threads, smem, per_sm) in got.items():
+            print(f"    {name}: {blocks} blocks of {threads} threads, {smem} B shared, "
+                  f"{per_sm} blocks = {per_sm * threads // 32} warps resident an SM")
+            if (blocks, threads, smem) != want["launches"][name]:
+                fail(f"wkv6_bwd {dtype} {name}: the kernel's plan {(blocks, threads, smem)} "
+                     f"differs from bwd_plan's {want['launches'][name]}")
+            if name.startswith("rows") and per_sm * threads // 32 < WKV6_BWD_ROW_WARPS:
+                fail(f"wkv6_bwd {dtype} {name}: {per_sm * threads // 32} warps resident an "
+                     f"SM, fewer than {WKV6_BWD_ROW_WARPS}")
+
+
 def wkv6_bwd_row(randn, dev):
     """The wkv6 backward against its plain version (autograd through the
     chunked form in float32) at rwkv6-1.6b's training shape (4, 32, 512,
     64), r/k/v/dy as the (B, S, H, N) views the model passes, with a
     nonzero state and dS_T: bf16 (timed) and float32 (the kernel and the
-    plain version each also against the formulas in float64); then ragged,
-    short-tile, S = 1, wlog = -8, contiguous-dy and the reference test's
-    shapes. Every case twice, the same bits. No single PyTorch call
-    computes it."""
+    plain version each also against the formulas in float64); its plan
+    (``wkv6_bwd_plan_check``); then ragged, short-tile, S = 1, the chunk
+    boundaries (S = C + 1, 2C - 1 and 3C with C = ``rwkv6.BWD_CHUNK``, in
+    both dtypes), wlog = -8 over several chunks, contiguous-dy and the
+    reference test's shapes. Every case twice, the same bits. Prints the
+    device time split by kernel. No single PyTorch call computes it."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1295,6 +1335,7 @@ def wkv6_bwd_row(randn, dev):
         return max(errs), got, want
 
     shape = (BATCH, H, PROMPT, N)
+    wkv6_bwd_plan_check(dev, *shape)
     args = inputs(BATCH, PROMPT, H, N, torch.bfloat16)
     err, _, _ = check(f"bf16 r/k/v/dy {shape}", args)
     args32 = inputs(BATCH, PROMPT, H, N, f32)
@@ -1313,6 +1354,12 @@ def wkv6_bwd_row(randn, dev):
         check(f"{tag} S=1 (2,4,1,64)", inputs(2, 1, 4, N, dtype))
     check("f32 wlog=-8 (1,2,256,64)", inputs(1, 256, 2, N, f32, strong_decay=True),
           strong_decay=True)
+    C = rwkv6.BWD_CHUNK
+    for S_ in (C + 1, 2 * C - 1, 3 * C):  # the chunk boundaries
+        for tag, dtype in (("f32", f32), ("bf16", torch.bfloat16)):
+            check(f"{tag} (2,4,{S_},64), chunks of {C}", inputs(2, S_, 4, N, dtype))
+    check(f"f32 wlog=-8 over 4 chunks (2,4,{3 * C + 5},64)",
+          inputs(2, 3 * C + 5, 4, N, f32, strong_decay=True), strong_decay=True)
     check("bf16 dy contiguous (2,4,128,64)", inputs(2, 128, 4, N, torch.bfloat16, dy_bhsn=True))
     for B_, H_, S_, N_ in ((1, 1, 32, 8), (2, 4, 128, 16), (1, 2, 96, 32)):  # tests/test_kernels.py
         for tag, dtype in (("f32", f32), ("bf16", torch.bfloat16)):

@@ -62,6 +62,11 @@ namespace {
 
 using namespace wkv6;
 
+// The element strides: r, k, v, wlog, y, each (batch, head, token)
+struct Strides {
+  long long rb, rh, rs, kb, kh, ks, vb, vh, vs, wb, wh, ws, yb, yh, ys;
+};
+
 template <int N>
 struct Plan {
   static constexpr int R = Tile<N>::R, C = Tile<N>::C, JC = Tile<N>::JC;
@@ -284,17 +289,6 @@ int plan_n(int N, int* out) {
 
 }  // namespace
 
-int wkv6::launch_forward(int dtype, int N, const void* r, const void* k, const void* v,
-                         const void* wlog, const void* u, const void* s_in, void* y,
-                         void* s_out, int B, int H, int S, const Strides& st,
-                         cudaStream_t stream) {
-  if (dtype == rt::kF32)
-    return dispatch_n<float>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, stream);
-  if (dtype == rt::kBF16)
-    return dispatch_n<__nv_bfloat16>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 // strides: r, k, v, wlog, y, each (batch, head, token) in elements; the
 // head_dim axis has stride 1. u is (H, N) and the states (B, H, N, N),
 // contiguous float32.
@@ -303,10 +297,14 @@ extern "C" int rt_wkv6(const void* r, const void* k, const void* v, const void* 
                        int S, int N, const long long* strides, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const long long* p = strides;
-  wkv6::Strides st{p[0], p[1], p[2],  p[3],  p[4],  p[5],  p[6], p[7],
+  const Strides st{p[0], p[1], p[2],  p[3],  p[4],  p[5],  p[6], p[7],
                    p[8], p[9], p[10], p[11], p[12], p[13], p[14]};
-  return wkv6::launch_forward(dtype, N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st,
-                              static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kF32)
+    return dispatch_n<float>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, s);
+  if (dtype == rt::kBF16)
+    return dispatch_n<__nv_bfloat16>(N, r, k, v, wlog, u, s_in, y, s_out, B, H, S, st, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The (dtype, N) instantiation's launch plan, into out[4]: threads per

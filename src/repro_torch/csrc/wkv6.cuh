@@ -1,6 +1,6 @@
 // Pieces the WKV6 forward (wkv6.cu) and backward (wkv6_bwd.cu) share: the
-// state tiles, the token tile, the vector loads from shared memory, the
-// lane butterfly and the forward kernel's launch.
+// state tiles, the token tile, the vector loads from shared memory and the
+// lane butterfly.
 #pragma once
 
 #include "common.cuh"
@@ -19,11 +19,6 @@ template <> struct Tile<8> { static constexpr int R = 2, C = 1, JC = 8; };
 template <> struct Tile<16> { static constexpr int R = 4, C = 1, JC = 16; };
 template <> struct Tile<32> { static constexpr int R = 4, C = 4, JC = 32; };
 template <> struct Tile<64> { static constexpr int R = 4, C = 4, JC = 16; };
-
-// The forward's element strides: r, k, v, wlog, y, each (batch, head, token)
-struct Strides {
-  long long rb, rh, rs, kb, kh, ks, vb, vh, vs, wb, wh, ws, yb, yh, ys;
-};
 
 // The M floats at src (aligned to their vector) into registers
 template <int M>
@@ -70,11 +65,5 @@ __device__ __forceinline__ void group_sums(float (&a)[U][C], int g) {
 #pragma unroll
     for (int x = 0; x < U; ++x) a[x][0] += __shfl_xor_sync(0xffffffffu, a[x][0], o);
 }
-
-// One launch of the forward kernel (wkv6.cu) on `stream`: dtype is r, k,
-// v and y's (rt::DType), N the head size; returns a cudaError_t.
-int launch_forward(int dtype, int N, const void* r, const void* k, const void* v,
-                   const void* wlog, const void* u, const void* s_in, void* y, void* s_out,
-                   int B, int H, int S, const Strides& st, cudaStream_t stream);
 
 }  // namespace wkv6

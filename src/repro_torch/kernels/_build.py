@@ -51,6 +51,7 @@ SIGNATURES = {
     "rt_rglru_bwd": [*[_P] * 8, _I, _I, _I, _I, _I, _P],
     "rt_rglru_blocks_per_sm": [_I, _I, ctypes.POINTER(ctypes.c_int)],
     "rt_wkv6_plan": [_I, _I, ctypes.POINTER(ctypes.c_int)],
+    "rt_wkv6_bwd_plan": [_I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 

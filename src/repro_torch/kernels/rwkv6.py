@@ -16,10 +16,12 @@ tile of it (``TILES``), and the block stages ``TILE`` tokens at a time
 (:func:`launch_plan`).
 
 The backward (:func:`wkv6_bwd`) takes the forward's inputs, dy and the
-final state's gradient dS_T and returns dr, dk, dv, dwlog, du and dstate:
-two passes over row slabs of the state (token order for dr, reverse order
-for dk and dwlog), the forward kernel run backward in time for dv and
-dstate, and du summed over the batch in order; its plain version
+final state's gradient dS_T and returns dr, dk, dv, dwlog, du and dstate.
+It cuts the sequence into chunks of ``BWD_CHUNK`` tokens that run at once:
+each chunk's contribution to the state's gradient, a scan over the chunks
+for its value at their ends, a pass over the state in token order for dr
+(which keeps the state at each chunk's end), a pass per chunk in reverse
+order for dk, dwlog, dv and dstate, and du's sum (:func:`bwd_plan`). Its plain version
 (:func:`wkv6_bwd_ref`) is autograd through :func:`wkv6_ref` in float32.
 """
 from __future__ import annotations
@@ -47,6 +49,18 @@ TILE = 32
 #: backward's row passes take it transposed)
 TILES = {8: (2, 1, 8), 16: (4, 1, 16), 32: (4, 4, 32), 64: (4, 4, 16)}
 
+#: tokens a chunk of the backward, csrc/wkv6_bwd.cu's CHUNK (a multiple of
+#: BWD_ROW_TILE); its chunks run at once
+BWD_CHUNK = 128
+#: csrc/wkv6_bwd.cu's tokens per staged tile of the row passes (TR) and of
+#: the chunk contributions (CT), and threads a block of the scan and of du's
+#: sum
+BWD_ROW_TILE = 16
+BWD_CHUNK_TILE = 32
+BWD_FLAT_THREADS = 256
+#: the backward's launches, in the order they run
+BWD_LAUNCHES = ("chunk", "scan", "rows 1", "rows 2", "du")
+
 
 def launch_plan(B: int, H: int, N: int) -> tuple:
     """(blocks, threads per block, static shared bytes) of the kernel's
@@ -58,6 +72,53 @@ def launch_plan(B: int, H: int, N: int) -> tuple:
     threads = JC // C * (N // R)
     smem = 4 * TILE * (3 * N + (N + 1) + JC + threads // TILE)
     return B * H * (N // JC), threads, smem
+
+
+def bwd_plan(B: int, H: int, S: int, N: int) -> dict:
+    """The backward's plan for B x H heads of size N over S tokens in chunks
+    of ``BWD_CHUNK`` tokens, as csrc/wkv6_bwd.cu makes it: ``chunks``,
+    ``launches`` {name: (blocks, threads per block, static shared bytes)} in
+    BWD_LAUNCHES order (the chunk contributions and the scan have 0 blocks
+    with one chunk), ``dynamic``,
+    the second row pass's dynamic shared bytes (its warps' column sums), and
+    ``scratch``, the float32 elements of its scratch: A' (B, H, S, N), the
+    reverse chunk states and the states at the chunks' ends (B, H, NC, N,
+    N) each, the chunk decays and the du partials (B, H, NC, N) each."""
+    nc = -(-S // BWD_CHUNK)
+    bh = B * H
+    r_f, c_f, jc = TILES[N]
+    # the row passes take the forward's tile transposed: the first a slab of
+    # jc rows a block over the whole sequence, the second all N rows (its
+    # column sums run over every row) a chunk
+    threads1, threads2 = jc // c_f * (N // r_f), N // c_f * (N // r_f)
+    tr, pb, ct, flat = BWD_ROW_TILE, N + 4, BWD_CHUNK_TILE, BWD_FLAT_THREADS
+
+    def rows(jr):  # sa and sbv one token more than the tile, sm, sw, scv, 2 token scalars
+        return 4 * ((3 * tr + 1) * jr + (2 * tr + 1) * pb + 2 * tr)
+
+    ti = 4 if N >= 32 else N // 8
+    launches = {
+        # w by row, then r and dy, and each row's sum of w so far
+        "chunk": (bh * (nc - 1), (N // ti) ** 2, 4 * (N * (ct + 1) + 2 * ct * N + N)),
+        "scan": (-(-bh * N * N // 4 // flat) if nc > 1 else 0, flat, 0),
+        "rows 1": (bh * (N // jc), threads1, rows(jc)),
+        # pass 2 adds A' of the tile, two more token scalars and u
+        "rows 2": (bh * nc, threads2, rows(N) + 4 * (tr * N + 2 * tr + N)),
+        "du": (-(-H * N // flat), flat, 0),
+    }
+    return dict(chunks=nc, launches=launches,
+                dynamic=4 * threads2 // 32 * tr * N,
+                scratch=bh * (S + 2 * nc * N + 2 * nc) * N)
+
+
+def device_bwd_plan(dtype: torch.dtype, B: int, H: int, S: int, N: int) -> dict:
+    """The built backward's own plan on the current CUDA device for a call
+    at (B, H, S, N): {launch: (blocks, threads, static shared bytes, blocks
+    resident on one SM)} in BWD_LAUNCHES order."""
+    out = (ctypes.c_int * (4 * len(BWD_LAUNCHES)))()
+    err = _build.lib().rt_wkv6_bwd_plan(_build.DTYPE_CODES[str(dtype)], N, B, H, S, out)
+    _build.check(err, "wkv6_bwd plan")
+    return {name: tuple(out[4 * i:4 * i + 4]) for i, name in enumerate(BWD_LAUNCHES)}
 
 
 def device_plan(dtype: torch.dtype, N: int) -> dict:
@@ -162,8 +223,8 @@ def wkv6_bwd(r, k, v, wlog, u, state, dy, dstate_T):
     that is not contiguous is copied); dstate_T: the final state's gradient
     (B, H, N, N) float32. Returns (dr, dk, dv) in r's dtype, dwlog float32,
     each (B, H, S, N) as views of (B, S, H, N) buffers, du (H, N) and
-    dstate (B, H, N, N) float32. Four launches (two row passes, the forward
-    kernel backward in time, du's sum over b), no atomics."""
+    dstate (B, H, N, N) float32. Five launches over chunks of ``BWD_CHUNK``
+    tokens (:func:`bwd_plan`), no atomics."""
     global bwd_launches
     _check_cuda("wkv6_bwd", r, k, v, wlog, u, state, dy, dstate_T)
     dev = r.device
@@ -187,8 +248,8 @@ def wkv6_bwd(r, k, v, wlog, u, state, dy, dstate_T):
     dwlog = _like_y(r.shape, torch.float32, dev)
     du = torch.empty((H, N), dtype=torch.float32, device=dev)
     dstate = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
-    # A (B, H, S, N), A_T and the du partials (B, H, N) each
-    scratch = torch.empty((B * H * (S + 2) * N,), dtype=torch.float32, device=dev)
+    plan = bwd_plan(B, H, S, N)
+    scratch = torch.empty((plan["scratch"],), dtype=torch.float32, device=dev)
     views = (r, k, v, dy, wlog, dr, dk, dv, dwlog)
     strides = _build.strides_arg(*(s for t in views for s in t.stride()[:3]))
     err = _build.lib().rt_wkv6_bwd(

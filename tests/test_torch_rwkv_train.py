@@ -1,7 +1,8 @@
 """Training rwkv6 in the port against the JAX package on the same numpy
-inputs: the wkv6 backward's plain version and a float64 emulation of the
-CUDA backward's passes against ``jax.vjp`` of the reference's chunked
-form; the dispatch's autograd Function; the reduced rwkv6-1.6b (2 layers,
+inputs: the wkv6 backward's plain version and an emulation of the CUDA
+backward's chunked algorithm (float64; float32 at strong decay) against
+``jax.vjp`` of the reference's chunked form, and the Python mirror of its
+launch plan; the dispatch's autograd Function; the reduced rwkv6-1.6b (2 layers,
 d 64, 4 heads of 16, float32): its loss, every gradient leaf and one
 train step against the reference's, and a falling loss.
 
@@ -97,67 +98,198 @@ def test_wkv6_bwd_ref_matches_jax_vjp(Bq, H, Sq, N, strong, zero_ds_T):
     _assert_grads([t.numpy() for t in got], _jax_grads(*inputs), "wkv6_bwd_ref")
 
 
-def _kernel_passes_f64(r, k, v, wlog, u, state, dy, ds_T):
-    """The CUDA backward's algorithm (csrc/wkv6_bwd.cu) in float64. The
-    row passes carry Z, the state without its newest rank-1 term: pass 1
-    from state_in in token order, Z_t dy_t plus k_{t-1} (v_{t-1} . dy_t)
-    for dr_t, A'_t = r_t * (Z_t dy_t), then A'_T = rowsum(Z_T * dS_T); pass
-    2 from dS_T in reverse order (its first step's B' is 0), dk_t, and
-    dwlog_t as one running sum per row (A'_T, then -B'_t, then +A'_t) with
-    B'_t = k_t * (dZ_{t+1} v_t), and one du partial per (b, h); pass 3 is
-    the forward run backward in time on (k, r, dy) from dS_T: dv_t and
-    dS_0; du sums the partials in b order."""
-    r, k, v, wlog, u, state, dy, ds_T = (np.asarray(a, dtype=np.float64)
+def _row_pass(a, m, b, c, u, ew, X, order, term, grad, a_prev, b_prev, first_term_zero,
+              cols=None):
+    """One row pass of csrc/wkv6_bwd.cu over ``order`` (one chunk's tokens):
+    per step the row sums of X c_t (out'), g_t, the row's term m_t out'
+    (through ``term``; 0 at the first step where ``first_term_zero``), then
+    (``cols``) the step's column sums X^T m_t, then X = (X + a' b'^T)
+    exp(w_t) with a', b' the previous step's a and b (``a_prev``,
+    ``b_prev``: the token next to the chunk, or zeros)."""
+    for i, t in enumerate(order):
+        outp = np.einsum("bhij,bhj->bhi", X, c[:, :, t])
+        q = np.sum(b_prev * c[:, :, t], axis=-1, keepdims=True)
+        s = np.sum(b[:, :, t] * c[:, :, t], axis=-1, keepdims=True)
+        grad[:, :, t] = outp + a_prev * q + u * a[:, :, t] * s
+        term(t, np.zeros_like(outp) if (first_term_zero and i == 0) else m[:, :, t] * outp, s)
+        if cols is not None:
+            cols(t, np.einsum("bhij,bhi->bhj", X, m[:, :, t]), a_prev, b_prev)
+        X = (X + a_prev[..., None] * b_prev[..., None, :]) * ew[:, :, t, :, None]
+        a_prev, b_prev = a[:, :, t], b[:, :, t]
+    return X
+
+
+def _chunked_passes(r, k, v, wlog, u, state, dy, ds_T, chunk, dtype=np.float64):
+    """The CUDA backward's chunked algorithm (csrc/wkv6_bwd.cu) in ``dtype``.
+    S is cut into chunks of ``chunk`` tokens (the last one short). With Z_t
+    the state without its newest k v^T and dZ_t the state's gradient
+    without its newest r dy^T:
+    1. per chunk [t0, t1] after the first: the reverse carry's term M = sum
+       over s in [t0 + 1, t1 + 1] of (r_s decayed by w_{t0..s-1}) dy_s^T
+       (the token after the chunk in, its first token out) and P = the
+       chunk's decay, each decay the exp of a sum of wlog from the chunk's
+       start;
+    2. the scan: dZ at every chunk's end from dS_T (dZ' = P dZ + M);
+    3. row pass 1 over the whole sequence from state_in: dr, A'_t = r_t *
+       (Z_t dy_t), and Z at each chunk's end;
+    4. row pass 2 per chunk in reverse order from its dZ (dS_T for the last
+       chunk), the token after it staged as the previous step: first A'_end
+       = rowsum(Z_end * dS_end), dS_end = dS_T for the last chunk, else dZ
+       + r dy^T of the token after it (dwlog of the chunk's last token);
+       dk, dwlog as a running sum per row from A'_end, then -B'_t (0 at the
+       chunk's first step), then +A'_t, B'_t = k_t * (dZ_{t+1} v_t), and one
+       du partial per (b, h, chunk); from the same carry X = dZ_{t+1}, dv_t =
+       X^T k_t + (r_{t+1} . k_t) dy_{t+1} + (k_t . (u * r_t)) dy_t, and
+       dstate = dZ_0 + r_0 dy_0^T from the first chunk;
+    du sums the partials in (b, chunk) order."""
+    r, k, v, wlog, u, state, dy, ds_T = (np.asarray(a, dtype=dtype)
                                          for a in (r, k, v, wlog, u, state, dy, ds_T))
     Bq, H, Sq, N = r.shape
+    C = min(chunk, Sq)
+    NC = -(-Sq // C)
+    bounds = [(c * C, min(Sq, (c + 1) * C) - 1) for c in range(NC)]
     ew = np.exp(wlog)
-    dr, dk, dv, dwlog, A = (np.zeros_like(r) for _ in range(5))
+    zero = np.zeros((Bq, H, N), dtype)
 
-    def row_pass(a, m, b, c, X, order, term, grad, first_term_zero):
-        """One row pass: per step the row sums of X c_t (out'), g_t, the
-        row's term m_t out' (through ``term``), then X = (X + a' b'^T)
-        exp(w_t) with a', b' the previous step's a and b."""
-        a_prev, b_prev = np.zeros((Bq, H, N)), np.zeros((Bq, H, N))
-        for i, t in enumerate(order):
-            outp = np.einsum("bhij,bhj->bhi", X, c[:, :, t])
-            q = np.sum(b_prev * c[:, :, t], axis=-1, keepdims=True)
-            s = np.sum(b[:, :, t] * c[:, :, t], axis=-1, keepdims=True)
-            grad[:, :, t] = outp + a_prev * q + u * a[:, :, t] * s
-            term(t, 0.0 if (first_term_zero and i == 0) else m[:, :, t] * outp, s)
-            X = (X + a_prev[..., None] * b_prev[..., None, :]) * ew[:, :, t, :, None]
-            a_prev, b_prev = a[:, :, t], b[:, :, t]
-        return X
+    def tok(x, t):
+        return x[:, :, t] if 0 <= t < Sq else zero
+
+    M, P = [None] * NC, [None] * NC  # 1. chunk contributions
+    for c, (t0, t1) in enumerate(bounds[1:], start=1):
+        acc, Mc = zero, np.zeros_like(state)
+        for t in range(t0, t1 + 1):  # w_t0 .. w_t: the decay of token t + 1
+            acc = acc + wlog[:, :, t]
+            Mc = Mc + (np.exp(acc) * tok(r, t + 1))[..., None] * tok(dy, t + 1)[..., None, :]
+        M[c], P[c] = Mc, np.exp(acc)
+    dZ = [ds_T] * NC  # 2. the scan
+    for c in range(NC - 2, -1, -1):
+        dZ[c] = P[c + 1][..., None] * dZ[c + 1] + M[c + 1]
+
+    dr, dk, dv, dwlog, A = (np.zeros_like(r) for _ in range(5))
 
     def keep_a(t, term, s):
         A[:, :, t] = term
 
-    Z = row_pass(k, r, v, dy, state.copy(), range(Sq), keep_a, dr, False)  # pass 1
-    run = np.sum(Z * ds_T, axis=-1)  # A'_T
-    du_part = np.zeros((Bq, H, N))
+    fin, X = [], state  # 3. pass 1, the whole sequence
+    for c, (t0, t1) in enumerate(bounds):
+        X = _row_pass(k, r, v, dy, u, ew, X, range(t0, t1 + 1), keep_a, dr,
+                      tok(k, t0 - 1), tok(v, t0 - 1), False)
+        dS_end = dZ[c] + tok(r, t1 + 1)[..., None] * tok(dy, t1 + 1)[..., None, :]
+        fin.append(np.sum(X * dS_end, axis=-1))  # A'_end
+    du_part = np.zeros((Bq, NC, H, N), dtype)
+    dstate = None
+    for c, (t0, t1) in enumerate(bounds):  # 4. pass 2
+        run = fin[c]
 
-    def dwlog_step(t, term, s):
-        nonlocal run, du_part
-        run = run - term
-        dwlog[:, :, t] = run
-        run = run + A[:, :, t]
-        du_part = du_part + r[:, :, t] * k[:, :, t] * s
+        def dwlog_step(t, term, s):
+            nonlocal run
+            run = run - term
+            dwlog[:, :, t] = run
+            run = run + A[:, :, t]
+            du_part[:, c] += r[:, :, t] * k[:, :, t] * s
 
-    row_pass(r, k, dy, v, ds_T.copy(), reversed(range(Sq)), dwlog_step, dk, True)  # pass 2
-    D = ds_T.copy()
-    for t in reversed(range(Sq)):  # pass 3: the forward on (k, r, dy), reversed
-        bonus = np.sum(k[:, :, t] * u * r[:, :, t], axis=-1)
-        dv[:, :, t] = np.einsum("bhij,bhi->bhj", D, k[:, :, t]) + bonus[..., None] * dy[:, :, t]
-        D = D * ew[:, :, t, :, None] + r[:, :, t, :, None] * dy[:, :, t, None, :]
-    du = du_part[0].copy()
-    for b in range(1, Bq):
-        du += du_part[b]
-    return dr, dk, dv, dwlog, du, D
+        def dv_step(t, cols, a_prev, b_prev):
+            p = np.sum(a_prev * k[:, :, t], axis=-1, keepdims=True)
+            bonus = np.sum(k[:, :, t] * u * r[:, :, t], axis=-1, keepdims=True)
+            dv[:, :, t] = cols + p * b_prev + bonus * dy[:, :, t]
+
+        X = _row_pass(r, k, dy, v, u, ew, dZ[c], range(t1, t0 - 1, -1), dwlog_step, dk,
+                      tok(r, t1 + 1), tok(dy, t1 + 1), True, dv_step)
+        if c == 0:
+            dstate = X + r[:, :, 0, :, None] * dy[:, :, 0, None, :]
+    du = np.zeros((H, N), dtype)
+    for b in range(Bq):
+        for c in range(NC):
+            du = du + du_part[b, c]
+    return dr, dk, dv, dwlog, du, dstate
 
 
+#: chunk sizes of the emulation: the whole sequence (one chunk: the unchunked
+#: passes), 16 (ragged at S = 40 and 96, larger than S = 1) and 1. The
+#: kernel is built for one (rwkv6.BWD_CHUNK, a multiple of its 16-token
+#: tile); the algorithm is held at every length
+CHUNKS = [None, 16, 1]
+CHUNK_IDS = ["C_S", "C16", "C1"]
+
+
+@pytest.mark.parametrize("chunk", CHUNKS, ids=CHUNK_IDS)
 @pytest.mark.parametrize("Bq,H,Sq,N,strong", WKV6_CASES, ids=WKV6_IDS)
-def test_kernel_passes_emulated_match_jax_vjp(Bq, H, Sq, N, strong):
+def test_kernel_passes_emulated_match_jax_vjp(Bq, H, Sq, N, strong, chunk):
     inputs = _wkv6_inputs(Bq, H, Sq, N, strong, seed=7 * Sq + N)
-    _assert_grads(_kernel_passes_f64(*inputs), _jax_grads(*inputs), "three passes, float64")
+    _assert_grads(_chunked_passes(*inputs, chunk=chunk or Sq), _jax_grads(*inputs),
+                  f"chunked passes, chunk {chunk or Sq}, float64")
+
+
+#: wlog = -8: the wlog_-8 case and chip_smoke.py's strong-decay shape
+STRONG_CASES = [WKV6_CASES[-1], (1, 2, 256, 64, True)]
+STRONG_IDS = ["wlog_-8", "wlog_-8_1x2x256x64"]
+
+
+@pytest.mark.parametrize("chunk", CHUNKS, ids=CHUNK_IDS)
+@pytest.mark.parametrize("Bq,H,Sq,N,strong", STRONG_CASES, ids=STRONG_IDS)
+def test_kernel_passes_emulated_in_float32_at_strong_decay(Bq, H, Sq, N, strong, chunk):
+    """wlog = -8 in float32: exp(w) ~ 3e-4, so an adjacent pair (t - 1, t)
+    is ~3000x dwlog's size. The carries are Z and dZ, no A' or B' term
+    holds a pair, and every chunk's dwlog starts from the direct A'_end of
+    its last token, so dwlog stays within the limits (0.50x of them at
+    (1, 2, 256, 64)). Because the terms at a chunk's boundary (its first
+    A', its last B') are never used, a chunk of the reverse pass started
+    from dS with no token after it reads the same there: this test holds
+    the float32 arithmetic, not that fault."""
+    inputs = _wkv6_inputs(Bq, H, Sq, N, strong, seed=7 * Sq + N)
+    _assert_grads(_chunked_passes(*inputs, chunk=chunk or Sq, dtype=np.float32),
+                  _jax_grads(*inputs), f"chunked passes, chunk {chunk or Sq}, float32")
+
+
+def test_bwd_plan_mirrors_the_kernel_source():
+    """``rwkv6.bwd_plan``, the Python mirror of csrc/wkv6_bwd.cu's launches
+    and scratch (chip_smoke.py holds it to the built kernels' own plan): at
+    the training shape 4 chunks of 128 tokens, the first row pass
+    512 blocks of 64 threads over the whole sequence, the second 512 blocks
+    of 256 (a chunk each: 4x the first's warps); one chunk runs neither the
+    chunk contributions nor the scan; its constants are the source's, and
+    the chunk is whole row tiles (the source asserts it too)."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    plan = rwkv6.bwd_plan(4, 32, 512, 64)
+    launches = plan["launches"]
+    assert (rwkv6.BWD_CHUNK, plan["chunks"]) == (128, 4)
+    assert list(launches) == list(rwkv6.BWD_LAUNCHES)
+    assert launches["chunk"] == (4 * 32 * 3, 256, (64 * 33 + 2 * 32 * 64 + 64) * 4)
+    assert launches["scan"] == (4 * 32 * 64 * 64 // 4 // 256, 256, 0)
+    assert launches["rows 1"] == (512, 64, ((3 * 16 + 1) * 16 + 33 * 68 + 32) * 4)
+    assert launches["rows 2"] == (512, 256,
+                                  ((3 * 16 + 1) * 64 + 33 * 68 + 32 + 16 * 64 + 96) * 4)
+    assert launches["du"] == (8, 256, 0)
+    assert plan["dynamic"] == 8 * 16 * 64 * 4
+    assert plan["scratch"] == 4 * 32 * (512 + 2 * 4 * 64 + 2 * 4) * 64
+    # ragged: S = 300 is 128 + 128 + 44; one chunk at S = 1
+    ragged = rwkv6.bwd_plan(2, 3, 300, 16)
+    assert ragged["chunks"] == 3
+    assert ragged["launches"]["rows 1"][:2] == (2 * 3, 64)
+    assert ragged["launches"]["rows 2"][:2] == (2 * 3 * 3, 64)
+    assert ragged["launches"]["chunk"][:2] == (2 * 3 * 2, 64)
+    one = rwkv6.bwd_plan(2, 2, 1, 16)
+    assert one["chunks"] == 1
+    assert one["launches"]["chunk"][0] == one["launches"]["scan"][0] == 0
+    assert one["scratch"] == 2 * 2 * (1 + 2 * 16 + 2) * 16
+    src = (_build.SRC_DIR / "wkv6_bwd.cu").read_text()
+    assert rwkv6.BWD_CHUNK % rwkv6.BWD_ROW_TILE == 0
+    for name, value in (("TR", rwkv6.BWD_ROW_TILE), ("CHUNK", rwkv6.BWD_CHUNK),
+                        ("CT", rwkv6.BWD_CHUNK_TILE),
+                        ("SCAN_THREADS", rwkv6.BWD_FLAT_THREADS),
+                        ("DU_THREADS", rwkv6.BWD_FLAT_THREADS)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    tiles = re.findall(r"struct Tile<(\d+)> \{ static constexpr int R = (\d+), C = (\d+), "
+                       r"JC = (\d+); \};", (_build.SRC_DIR / "wkv6.cuh").read_text())
+    assert {int(n): tuple(map(int, t)) for n, *t in tiles} == rwkv6.TILES
+    params = re.search(r'extern "C" int rt_wkv6_bwd_plan\(([^)]*)\)', src).group(1).split(",")
+    assert [p.split()[0] for p in params] == ["int"] * 5 + ["int*"]
+    assert _build.SIGNATURES["rt_wkv6_bwd_plan"] == [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int)]
 
 
 def test_ops_wkv6_under_grad_runs_the_autograd_function():
