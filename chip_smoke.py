@@ -11,17 +11,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash_attention kernels runs on the tensor cores (HGMMA for the bf16
    forward and backward, HMMA for the float32 forward's and backward's
    3xTF32), and in ptxas's report that the hd-256 instantiations of the
-   backward's kernels and of the float32 forward, all 5 of the rmsnorm
-   backward's warp kernel, the N-64 ones of the wkv6 backward's kernels
-   (its row passes, chunk contributions and scan) and all 4 of the rglru
-   backward do not spill;
+   backward's kernels and of the float32 forward, the hd-64 and hd-128
+   ones of the bf16 backward's kernels, all 5 of the rmsnorm backward's
+   warp kernel, the N-64 ones of the wkv6 backward's kernels (its row
+   passes, chunk contributions and scan) and all 4 of the rglru backward
+   do not spill (the bf16 forward's registers at every head dim are
+   printed);
 3. kernels: each of the nine kernels (the five forward kernels and the
    rmsnorm, flash_attention, wkv6 and rglru backward kernels) against its plain
    torch version on the card, at the serving paths' shapes (gemma-2b: bf16, batch 4, prompt
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
-   with bf16 inputs) plus ragged / window / ring / empty-row /
+   with bf16 inputs; deepseek-7b, granite-3-2b and qwen2.5-3b: flash_attention
+   and its backward at (4, 32, 512, 128) MHA, (4, 32, 512, 64) g 4 and (4, 16,
+   512, 128) g 8, flash_decode over their 544-slot caches, rmsnorm and its
+   backward at (2048, 4096) bf16) plus ragged / window / ring / empty-row /
    strong-decay / float32 / head-dim cases (flash_attention's float32
    route also at hd 256 with a window, with a base one element off, at the
    train_llm surface (8, 8, 2048, 256) and at gemma-2b's serve shape in
@@ -57,20 +62,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels after a marker kernel that follows one extra call, and only
    when it holds every kernel its calls launched (``trace_complete``);
    after three that do not, the run fails;
-4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512) and
-   recurrentgemma-9b (prompt 2048, its window) at full width, random
-   weights from a seed, through ``repro_torch.launch.serve``: 4 requests,
-   32 new tokens each. For each: the exact kernel launch counts of the run
-   (counts set to 0 just before it), finite logits, the prefill and the
-   first decode steps against the plain versions on the same weights, and
-   a profile of a prefill and a few decode steps. Then each of the three at
-   full width in float32, kernel path against plain path (5 tokens), and a
-   reduced float32 model of each family (recurrentgemma with 5 layers, so
-   that its remainder stack runs) on the card against the same weights on
-   the CPU, each printing the launches of the float32 attention routes it
-   made;
-   train: gemma-2b and rwkv6-1.6b at full width and depth and
-   recurrentgemma-9b at full width and 9 layers through
+4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
+   recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b
+   and qwen2.5-3b (prompt 512) at full width, random weights from a seed,
+   through ``repro_torch.launch.serve``: 4 requests, 32 new tokens each.
+   For each: the exact kernel launch counts of the run (counts set to 0
+   just before it), finite logits, the prefill and the first decode steps
+   against the plain versions on the same weights, and a profile of a
+   prefill and a few decode steps. Then each of the six at full width in
+   float32, kernel path against plain path (5 tokens; qwen's qkv biases
+   made nonzero), and a reduced float32 model of gemma, rwkv6,
+   recurrentgemma (5 layers, so that its remainder stack runs) and qwen2.5
+   on the card against the same weights on the CPU, each printing the
+   launches of the float32 attention routes it made;
+   train: gemma-2b, rwkv6-1.6b, granite-3-2b and qwen2.5-3b at full width
+   and depth, recurrentgemma-9b at full width and 9 layers and deepseek-7b
+   at full width and 16 layers (TRAIN_ARCHS) through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
    AdamW, batch 4 x 512, 5 steps on one repeated batch): the exact launch
    counts of the run, including the backward kernels (every block
@@ -190,11 +197,18 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 #   gemma-2b           0.03125       0.1133
 #   rwkv6-1.6b         0.04688       0.1904
 #   recurrentgemma-9b  0.09375       0.2812
-# gemma-2b's and rwkv6-1.6b's near-tie is the tighter 0.0625, two bf16
-# steps for logits in [4, 8). The float32 full-width phase shows that the kernels
-# themselves agree (tokens equal, logits within 1e-3) at the same shapes.
-TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875}
-BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55}
+#   deepseek-7b        0.03125       0.3213
+#   granite-3-2b       0.03125       0.1807
+#   qwen2.5-3b         0             0.2051
+# gemma-2b's, rwkv6-1.6b's and the dense swiglu configs' near-tie is the
+# tighter 0.0625, two bf16 steps for logits in [4, 8) (qwen2.5-3b's tokens
+# all agreed, so twice its reading would be 0). The float32 full-width phase
+# shows that the kernels themselves agree (tokens equal, logits within 1e-3)
+# at the same shapes.
+TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875,
+                 "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625}
+BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55,
+                     "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42}
 # The backward kernels against their plain versions, (atol, rtol). Both sum
 # in float32 from the same inputs in another order; in bf16 the outputs are
 # rounded once more, and a value that lies on a rounding boundary may land
@@ -207,7 +221,11 @@ LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain ve
 
 ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
 # the serve runs: (arch, prompt length); recurrentgemma's prompt is its window
-SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048))
+SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048),
+          ("deepseek-7b", 512), ("granite-3-2b", 512), ("qwen2.5-3b", 512))
+# the dense swiglu configs: their attention, decode and norm shapes get rows
+# of their own in the kernel phase
+DENSE_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b")
 WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
 WKV6_TOL_STRONG_DECAY = 1e-4
 # the wkv6 backward against its plain version, per output: atol 1e-4 of the
@@ -268,8 +286,15 @@ SURFACE_N, SURFACE_WARMUP = 2, 1
 # parameters) need ~113 GB of masters and moments, more than the card's
 # 80 GB: it runs 9, three (rec, rec, attn) groups (~3.02 B parameters,
 # ~34 GiB of state), through the launcher's make_trainer (it has no depth
-# flag).
-TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9))
+# flag). deepseek-7b's 30 layers (~6.91 B parameters) would need ~77 GiB of
+# masters and moments alone: it runs 16 (tools/train_peak.py on an NVIDIA
+# H100 80GB HBM3 at 700 W: 56.57, 62.60, 68.63 and 74.66 GiB allocated at
+# 12, 14, 16 and 18 layers of its 79.18, 3.02 GiB a layer; 18 reserved
+# 76.50 GiB, too near the card's limit for a phase that runs after ten other
+# full-width runs and holds two float32 gradient sets in train_grad_check,
+# so 16 keeps ~10 GiB of headroom).
+TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9),
+               ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
 # the FT invariant at reduced size (tests/test_trainer_integration.py's
 # schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
@@ -302,7 +327,7 @@ LOSS_TOL_TRAIN = 1e-3
 GRAD_F32_ARCHS = ("rwkv6-1.6b",)
 GRAD_TOL_F32 = 0.1
 # device memory that may still be allocated before a full-width training
-# run: a full-width state is 19-34 GiB, so more than this is a leak
+# run: a full-width state is 19-50 GiB, so more than this is a leak
 LEFTOVER_BYTES = 2 ** 30
 
 
@@ -541,15 +566,19 @@ RMSNORM_BWD_WARP_KERNELS = 5
 
 
 def spill_check(lib_path: Path) -> None:
-    """The hd-256 instantiations (``Li256E`` in the mangled name: the
-    training and serve shapes) of the bf16 backward's two kernels and of
-    the float32 forward and backward, every instantiation of the rmsnorm
-    backward's warp kernel and of the rglru backward, and the N-64 ones
-    (``Li64E``) of the wkv6 backward's kernels must not spill."""
-    checks = [(kernel, want, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
-               "hd-256 ")
-              for kernel, want in (("flash_bwd_tc_kernel", 2), ("flash_f32_kernel", 1),
-                                   ("flash_bwd_f32_kernel", 1))]
+    """The hd-256 instantiations (``Li256E`` in the mangled name: gemma's and
+    recurrentgemma's training and serve shapes) of the bf16 backward's two
+    kernels and of the float32 forward and backward, the hd-64 and hd-128
+    ones of the bf16 backward's two kernels (the dense swiglu configs'
+    training shapes), every instantiation of the rmsnorm backward's warp
+    kernel and of the rglru backward, and the N-64 ones (``Li64E``) of the
+    wkv6 backward's kernels must not spill. (``main`` prints the bf16
+    forward's registers at every head dim before this check.)"""
+    bwd = ptxas_report(lib_path, "flash_bwd_tc_kernel")
+    checks = [("flash_bwd_tc_kernel", 2, [r for r in bwd if f"Li{hd}E" in r[0]], f"hd-{hd} ")
+              for hd in (256, 64, 128)]
+    checks += [(kernel, 1, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
+                "hd-256 ") for kernel in ("flash_f32_kernel", "flash_bwd_f32_kernel")]
     checks.append(("rmsnorm_bwd_warp_kernel", RMSNORM_BWD_WARP_KERNELS,
                    ptxas_report(lib_path, "rmsnorm_bwd_warp_kernel"), ""))
     # the wkv6 backward's kernels at N = 64 (rwkv6-1.6b): the two row
@@ -664,19 +693,25 @@ def kernel_phase(dev):
     xd = randn(B, 1, d)
     compare("rmsnorm bf16 decode (4, 1, 2048)", rn.rmsnorm(xd, scale), rn.rmsnorm_ref(xd, scale),
             TOL["bfloat16"])
-    for shape in ((B * S, 4096), (16, 4096), (B, 1, 4096)):  # recurrentgemma-9b's width
+    for shape in ((16, 4096), (B, 1, 4096)):  # recurrentgemma-9b's / deepseek-7b's width
         xr_, sr_ = randn(*shape), randn(4096, dtype=torch.float32)
         compare(f"rmsnorm bf16 {shape}", rn.rmsnorm(xr_, sr_), rn.rmsnorm_ref(xr_, sr_),
                 TOL["bfloat16"])
-    bnd = bound(2 * nbytes(x) + nbytes(scale), 4 * x.numel(), "float32")
-    w16 = scale.to(bf)
-    rows.append(dict(
-        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm.py:27", shape="x (2048, 2048) bf16",
-        max_abs_err=err, **bnd,
-        **timings(lambda: rn.rmsnorm(x, scale), lambda: rn.rmsnorm_ref(x, scale),
-                  lambda: F.rms_norm(x, (d,), weight=w16, eps=1e-6)),
-    ))
+    # timed: gemma-2b's width and deepseek-7b's (recurrentgemma-9b's too)
+    dw = get_arch("deepseek-7b").d_model
+    xw, sw = randn(B * S, dw), randn(dw, dtype=torch.float32)
+    err_w = compare(f"rmsnorm bf16 ({B * S}, {dw})", rn.rmsnorm(xw, sw), rn.rmsnorm_ref(xw, sw),
+                    TOL["bfloat16"])
+    for xn, sn, e, label in ((x, scale, err, f"x ({B * S}, {d}) bf16"),
+                             (xw, sw, err_w, f"x ({B * S}, {dw}) bf16 (deepseek-7b)")):
+        bnd = bound(2 * nbytes(xn) + nbytes(sn), 4 * xn.numel(), "float32")
+        w16 = sn.to(bf)
+        rows.append(dict(
+            name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:27", shape=label, max_abs_err=e, **bnd,
+            **timings(lambda: rn.rmsnorm(xn, sn), lambda: rn.rmsnorm_ref(xn, sn),
+                      lambda: F.rms_norm(xn, (xn.shape[-1],), weight=w16, eps=1e-6)),
+        ))
 
     # -- flash_attention: prefill, q/k/v as transposed (B, S, h, hd) views ---
     print("kernel flash_attention")
@@ -752,6 +787,31 @@ def kernel_phase(dev):
                                                          enable_gqa=True), iters=5),
     ))
     del qg, kg, vg
+    # the dense swiglu configs' prefill: batch 4, prompt 512, causal, bf16
+    # (deepseek-7b MHA at hd 128, granite-3-2b g 4 at hd 64, qwen2.5-3b g 8
+    # at hd 128)
+    t0_s = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        c = get_arch(arch)
+        Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        qa, ka, va = qkv(B, S, Hc, Kc, hdc)
+        label = f"q ({B},{Hc},{S},{hdc}), k/v ({B},{Kc},{S},{hdc}) bf16, causal ({arch})"
+        err = compare(f"flash_attention {label}", fa.flash_attention(qa, ka, va),
+                      fa.flash_attention_ref(qa, ka, va), TOL["bfloat16"])
+        bnd = bound(2 * nbytes(qa) + nbytes(ka, va), 4 * hdc * S * (S + 1) // 2 * B * Hc,
+                    "bfloat16")
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:75", shape=label, max_abs_err=err,
+            **bnd,
+            **timings(lambda: fa.flash_attention(qa, ka, va),
+                      lambda: fa.flash_attention_ref(qa, ka, va),
+                      lambda: F.scaled_dot_product_attention(qa, ka, va, is_causal=True,
+                                                             enable_gqa=True)),
+        ))
+        del qa, ka, va
+    print(f"  the dense configs' flash_attention rows: {time.perf_counter() - t0_s:.1f} s")
     # the train_llm surface at gemma-2b's width (heads = KV heads) and
     # gemma-2b's serve shape, in float32
     for label, (B_, S_, H_, K_) in (
@@ -866,31 +926,35 @@ def backward_rows(dev, randn, qkv):
             fail(f"rmsnorm_bwd {name} {label}: two calls on the same inputs differ")
         return err
 
-    for dt in (torch.bfloat16, torch.float32):
+    # timed: gemma-2b's width in bf16 and float32, deepseek-7b's in bf16
+    dw = get_arch("deepseek-7b").d_model
+    for width, dt, arch in ((d, torch.bfloat16, ""), (d, torch.float32, ""),
+                            (dw, torch.bfloat16, " (deepseek-7b)")):
         name = "bf16" if dt == torch.bfloat16 else "f32"
-        x, dy, scale = randn(BATCH * PROMPT, d, dtype=dt), randn(BATCH * PROMPT, d, dtype=dt), \
-            randn(d, dtype=torch.float32)
-        err = norm_case("(2048, 2048)", x, dy, scale)
+        x, dy, scale = randn(BATCH * PROMPT, width, dtype=dt), \
+            randn(BATCH * PROMPT, width, dtype=dt), randn(width, dtype=torch.float32)
+        label = f"({BATCH * PROMPT}, {width})"
+        err = norm_case(label, x, dy, scale)
         split = [(n.replace("void (anonymous namespace)::", "")[:48], round(ms, 5)) for n, ms in
                  device_top(lambda: rn.rmsnorm_bwd(x, scale, dy))]
-        print(f"  rmsnorm_bwd {name} (2048, 2048): device ms by kernel {split}")
+        print(f"  rmsnorm_bwd {name} {label}: device ms by kernel {split}")
         bnd = bound(3 * nbytes(x) + 2 * nbytes(scale), 10 * x.numel(), "float32")
         xg, wg = x.clone().requires_grad_(), scale.to(dt).requires_grad_()
-        yg = F.rms_norm(xg, (d,), weight=wg, eps=1e-6)
+        yg = F.rms_norm(xg, (width,), weight=wg, eps=1e-6)
         rows.append(dict(
             name="rmsnorm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:27 (its gradient: jax.grad of the jnp norm)",
-            shape=f"x, dy (2048, 2048) {name}", max_abs_err=err, **bnd,
+            shape=f"x, dy {label} {name}{arch}", max_abs_err=err, **bnd,
             **timings(lambda: rn.rmsnorm_bwd(x, scale, dy), lambda: rn.rmsnorm_bwd_ref(x, scale, dy),
                       lambda: torch.autograd.grad(yg, (xg, wg), dy, retain_graph=True)),
         ))
-    # recurrentgemma-9b's / deepseek-7b's width (a row over eight warps), a
-    # last block and slot partly empty (2049 rows), rows over six and three
+    # recurrentgemma-9b's / deepseek-7b's width in float32 (a row over eight
+    # warps), a last block and slot partly empty (2049 rows), rows over six and three
     # warps (phi-3-vision's width 3072; 384 in float32), widths the warp
     # kernel does not take (100; 8192: sixteen warps) and a base one element
     # off 16 bytes (the block kernel), ragged float32 widths, one block, many
     # blocks
-    cases = [("(2048, 4096)", (2048, 4096), dt) for dt in (torch.bfloat16, torch.float32)]
+    cases = [("(2048, 4096)", (2048, 4096), torch.float32)]
     cases += [("(2049, 2048)", (2049, 2048), dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [("(300, 3072)", (300, 3072), torch.bfloat16), ("(37, 384)", (37, 384), torch.float32)]
     cases += [("(64, 100)", (64, 100), torch.bfloat16), ("(16, 8192)", (16, 8192), torch.bfloat16)]
@@ -965,6 +1029,11 @@ def backward_rows(dev, randn, qkv):
     case(f"q (4,{rg.n_heads},{rg.window},256), k/v (4,1,{rg.window},256) bf16, causal, window "
          f"{rg.window}", BATCH, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim,
          window=rg.window, row=True, iters=3)
+    for arch in DENSE_ARCHS:  # MHA at hd 128, g 4 at hd 64, g 8 at hd 128
+        c = get_arch(arch)
+        Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+        case(f"q (4,{Hc},512,{hdc}), k/v (4,{Kc},512,{hdc}) bf16, causal ({arch})", BATCH,
+             PROMPT, Hc, Kc, hdc, row=True)
     case("q (2,4,512,64), k/v (2,2,512,64) f32, causal", 2, 512, 4, 2, 64,
          dtype=torch.float32, row=True)
     case(f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", BATCH, PROMPT, H, K, hd,
@@ -1082,10 +1151,12 @@ def decode_cases(dev, randn):
 
 
 def decode_rows(dev, randn):
-    """flash_decode at the two decode shapes of the serve runs, against its
+    """flash_decode at the decode shapes of the serve runs, against its
     plain version, timed beside masked SDPA: gemma-2b (8 heads on one KV
-    head, cache 544, 516 valid) and recurrentgemma-9b (16 heads on one KV
-    head, a full 2048-slot ring, window 2048)."""
+    head, cache 544, 516 valid), recurrentgemma-9b (16 heads on one KV
+    head, a full 2048-slot ring, window 2048) and the dense swiglu configs
+    over their 544-slot caches (deepseek-7b 32 heads on 32 KV heads of 128,
+    granite-3-2b 32 on 8 of 64, qwen2.5-3b 16 on 2 of 128)."""
     import torch
     import torch.nn.functional as F
 
@@ -1093,8 +1164,9 @@ def decode_rows(dev, randn):
     from repro_torch.kernels import decode_attention as da
 
     rows = []
-    for arch, W, pos, window in ((ARCH, PROMPT + NEW, PROMPT + 3, 0),
-                                 ("recurrentgemma-9b", 2048, 2048 + 3, 2048)):
+    cases = [(ARCH, PROMPT + NEW, PROMPT + 3, 0), ("recurrentgemma-9b", 2048, 2048 + 3, 2048)]
+    cases += [(arch, PROMPT + NEW, PROMPT + 3, 0) for arch in DENSE_ARCHS]
+    for arch, W, pos, window in cases:
         cfg = get_arch(arch)
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         assert not window or window == cfg.window
@@ -1106,7 +1178,7 @@ def decode_rows(dev, randn):
             valid &= kpos > pos - window
         n_valid = int(valid.sum())  # (row, slot) pairs the data needs
         shape = f"q ({BATCH},{H},{hd}) bf16, cache {W} slots, {n_valid // BATCH} valid" + (
-            f", window {window}" if window else "")
+            f", window {window}" if window else "") + f" ({arch})"
         want = da.flash_decode_ref(qd, kc, vc, kpos, pos, window=window)
         err = compare(f"flash_decode {shape}",
                       da.flash_decode(qd, kc, vc, kpos, pos, window=window), want,
@@ -1619,6 +1691,7 @@ def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
              f"{bool(torch.isfinite(logits).all())}")
 
     steps = plain_replay(model, params, prompt, gen.tokens, 4)
+    gaps, diffs = [], []
     for i, ref in enumerate(steps):
         got_tok = gen.tokens[:, i]
         ref_f = ref.float()
@@ -1629,6 +1702,8 @@ def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
         gap = float((top - at_tok).max())
         print(f"  step {i}: tokens equal {exact}/{BATCH}, max |logits kernel - plain| {diff:.4g}, "
               f"largest plain-logit gap to the kernel's token {gap:.4g}")
+        gaps.append(gap)
+        diffs.append(diff)
         if gap > TOKEN_TIE_TOL[arch]:
             fail(f"{arch} step {i}: greedy token {got_tok.tolist()} vs plain "
                  f"{ref_f.argmax(dim=-1).tolist()} beyond a near-tie ({gap:.4g} > "
@@ -1636,6 +1711,9 @@ def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
         if diff > BF16_LOGITS_DRIFT[arch]:
             fail(f"{arch} step {i}: max |logits kernel - plain| {diff:.4g} > "
                  f"{BF16_LOGITS_DRIFT[arch]}")
+    print(f"  {arch} over the prefill and 4 decode steps: largest gap {max(gaps):.4g} (limit "
+          f"{TOKEN_TIE_TOL[arch]}), largest max |kernel - plain| {max(diffs):.4g} (limit "
+          f"{BF16_LOGITS_DRIFT[arch]})")
 
     res = serve.summary(arch, gen)
     print(f"serve {arch} full width, batch {BATCH}, prompt {prompt_len}, {NEW} new tokens on "
@@ -1691,11 +1769,21 @@ def profile_serve(model, params, prompt, res) -> None:
                       f"{e.count // n_steps:5d}x/step  {e.key[:90]}")
 
 
+def random_qkv_bias(params, gen) -> None:
+    """Fills the qkv biases (qwen2.5), zeros at init as in the reference,
+    with normal values from ``gen``, so that a check also holds the add."""
+    for lp in params["layers"]:
+        for key in ("bq", "bk", "bv"):
+            if key in lp.get("attn", {}):
+                lp["attn"][key].normal_(generator=gen)
+
+
 def full_width_f32_phase(dev, arch: str, prompt_len: int):
-    """A model at full width in float32: the kernel path against the plain
-    path on the same weights. Every kernel keeps float32's own error (~1e-6;
-    flash_attention's float32 route by three TF32 tensor-core passes), so
-    the two must give the same greedy tokens and logits within 1e-3.
+    """A model at full width in float32 (qkv biases made nonzero): the
+    kernel path against the plain path on the same weights. Every kernel
+    keeps float32's own error (~1e-6; flash_attention's float32 route by
+    three TF32 tensor-core passes), so the two must give the same greedy
+    tokens and logits within 1e-3.
     Returns the float32 attention routes' launches of the kernel path."""
     import dataclasses
 
@@ -1711,6 +1799,7 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     params = model.init(g, dev)
+    random_qkv_bias(params, g)
     prompt = torch.randint(0, cfg.vocab, (BATCH, prompt_len), generator=g, device=dev,
                            dtype=torch.int64)
     ops.reset_launch_counts()
@@ -1735,10 +1824,11 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
 
 def reduced_reference_phase(dev):
     """A reduced float32 model of each family on the card (kernels) against
-    the same weights on the CPU (plain versions): gemma, rwkv6, and
+    the same weights on the CPU (plain versions): gemma, rwkv6,
     recurrentgemma with 5 layers (its pattern group plus the remainder
-    stack) and a prompt of three windows. Returns the float32 attention
-    routes' launches of the card's runs."""
+    stack) and a prompt of three windows, and qwen2.5 (its qkv bias made
+    nonzero). Returns the float32 attention routes' launches of the card's
+    runs."""
     import dataclasses
 
     import torch
@@ -1757,12 +1847,13 @@ def reduced_reference_phase(dev):
 
     ops.reset_launch_counts()
     for arch, n_layers, prompt_len in (("gemma-2b", 2, 40), ("rwkv6-1.6b", 2, 40),
-                                       ("recurrentgemma-9b", 5, 48)):
+                                       ("recurrentgemma-9b", 5, 48), ("qwen2.5-3b", 2, 40)):
         cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers)
         model = build_model(cfg)
         g = torch.Generator(device=dev)
         g.manual_seed(5)
         params = model.init(g, dev)
+        random_qkv_bias(params, g)
         prompt = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device=dev,
                                dtype=torch.int64)
         got = serve.generate(model, params, prompt, 6)
@@ -2272,7 +2363,8 @@ def full_width_train(card: str, cfg) -> dict:
     print(f"train {arch} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 activations, "
           f"float32 masters + AdamW, {TRAIN_STEPS} steps on {card}: step_s median "
           f"{res['step_s_median']:.4f}, tokens/s {res['tokens_per_s']:.1f}, peak "
-          f"max_memory_allocated {res['peak_device_bytes'] / 2**30:.2f} GiB, losses {losses}")
+          f"max_memory_allocated {res['peak_device_bytes'] / 2**30:.2f} GiB, max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, losses {losses}")
     print(json.dumps({"train": res, "card": card, "launches": counts}))
     free_device_memory()
     return counts
@@ -2669,8 +2761,10 @@ def main() -> int:
     lap("kernels")
     launches = {r["name"]: 0 for r in rows}  # summed over the serve and train runs
     for arch, prompt_len in SERVES:
+        t1_s = time.perf_counter()
         for name, n in serve_phase(arch, prompt_len, card).items():
             launches[name] += n
+        print(f"serve {arch}: {time.perf_counter() - t1_s:.1f} s")
     lap("serve")
     # the float32 attention routes' launches, summed over the paths that run them
     f32 = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -2680,7 +2774,9 @@ def main() -> int:
             f32[name] += n
 
     for arch, prompt_len in SERVES:
+        t1_s = time.perf_counter()
         add_f32(full_width_f32_phase(dev, arch, prompt_len))
+        print(f"full-width f32 {arch}: {time.perf_counter() - t1_s:.1f} s")
     add_f32(reduced_reference_phase(dev))
     lap("serve f32 checks")
     train_counts, train_f32 = train_phase(dev, card)

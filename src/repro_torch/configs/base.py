@@ -133,7 +133,10 @@ def all_archs() -> Dict[str, ArchConfig]:
 
 def _ensure_loaded():
     from repro_torch.configs import (  # noqa: F401  (each registers on import)
+        deepseek_7b,
         gemma_2b,
+        granite_3_2b,
+        qwen25_3b,
         recurrentgemma_9b,
         rwkv6_1b6,
     )

@@ -4,9 +4,8 @@ loop.
   PYTHONPATH=src python -m repro_torch.launch.fig15 [--json] [--out DIR] [--device cuda]
 
 The counterpart of ``benchmarks/bench_fig15.py`` and
-``benchmarks/bench_ft_trainer.py``, on gemma-2b reduced (the reference's
-Fig 15 trains qwen2.5-3b reduced, whose qkv bias the port does not build
-yet; the states do not depend on the model):
+``benchmarks/bench_ft_trainer.py``, on their models: Fig 15 trains
+qwen2.5-3b reduced (qkv bias included), the policy table gemma-2b reduced:
 
 * Fig 15's four prediction/failure states between two checkpoints, each
   accounted on its own run of the hybrid policy (24 steps, a checkpoint
@@ -41,7 +40,8 @@ from repro_torch.launch.tables import write_csv
 from repro_torch.launch.train import make_trainer
 from repro_torch.utils.tree import tree_hash
 
-ARCH = "gemma-2b"
+FIG15_ARCH = "qwen2.5-3b"  # bench_fig15.py's model
+TABLE_ARCH = "gemma-2b"  # bench_ft_trainer.py's model
 LR = 1e-4  # the reference benches' make_train_step default
 
 
@@ -66,7 +66,7 @@ def _run(trainer, steps, failures, **kw):
 
 def fig15_states(device: str = "cuda", steps: int = 24):
     """Fig 15's four states: (rows, checks)."""
-    cfg = get_arch(ARCH).reduced()
+    cfg = get_arch(FIG15_ARCH).reduced()
 
     def scenario(failures, force_false_alarm=False):
         tr, _ = make_trainer(cfg, lr=LR, batch=2, seq=32, policy="hybrid", ckpt_every=6,
@@ -105,7 +105,7 @@ POLICY_FAILURES = (FailureEvent(t=8.0, node=0, predictable=True),
 def ft_policy_table(device: str = "cuda", steps: int = 30):
     """The three policies under one predicted and one unpredicted failure:
     (rows, checks)."""
-    cfg = get_arch(ARCH).reduced()
+    cfg = get_arch(TABLE_ARCH).reduced()
     rows, hashes = [], {}
     for name, kw in POLICY_TABLE:
         tr, _ = make_trainer(cfg, lr=LR, batch=2, seq=64, ckpt_every=5, trainer_seed=3,

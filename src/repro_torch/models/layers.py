@@ -7,8 +7,8 @@ Parameters are plain dicts of tensors with the reference's shapes and
 names. Each matrix weight is cast to the activation dtype at use, as the
 reference casts it with ``.astype(x.dtype)``: serving stores the matrices
 in the activation dtype already (the cast is then a no-op), training keeps
-float32 masters. Norm scales stay float32 because the norm multiplies in
-float32.
+float32 masters; the qkv biases (qwen2.5) follow the matrices. Norm scales
+stay float32 because the norm multiplies in float32.
 The norm, prefill attention and decode attention go through
 :mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the projections
 and the MLP are plain matrix products.
@@ -65,13 +65,19 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def attention_init(gen, cfg, device, dtype) -> Params:
+    """The projections, and with ``cfg.qkv_bias`` the q/k/v biases bq (H,
+    hd), bk and bv (n, hd), zeros as the reference initialises them."""
     d, H, n, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    p = {
         "wq": _normal(gen, (d, H, hd), INIT_STD, device, dtype),
         "wk": _normal(gen, (d, n, hd), INIT_STD, device, dtype),
         "wv": _normal(gen, (d, n, hd), INIT_STD, device, dtype),
         "wo": _normal(gen, (H, hd, d), INIT_STD, device, dtype),
     }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", H), ("bk", n), ("bv", n)):
+            p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
+    return p
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -81,6 +87,10 @@ def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     q = (x @ p["wq"].to(x.dtype).reshape(d, H * hd)).view(B, S, H, hd)
     k = (x @ p["wk"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
     v = (x @ p["wv"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
+    if "bq" in p:  # qkv bias (qwen2.5): added before RoPE, cast at use
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
     if cfg.rope_theta > 0:
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)

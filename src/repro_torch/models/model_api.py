@@ -49,8 +49,6 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
         return "the mixture-of-experts FFN"
     if cfg.num_img_tokens:
         return "image-token inputs"
-    if cfg.qkv_bias:
-        return "attention with qkv bias"
     if cfg.kv_cache_dtype:
         return f"the {cfg.kv_cache_dtype} KV cache"
     if cfg.norm != "rms":

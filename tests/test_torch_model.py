@@ -75,7 +75,8 @@ def test_reduced_gemma_bf16_matches_jax():
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "rwkv6-1.6b", "recurrentgemma-9b", "deepseek-7b",
+                                  "granite-3-2b", "qwen2.5-3b"])
 def test_config_matches_reference(arch, reduced):
     """Every field the port's ArchConfig keeps has the reference's value."""
     ours, ref = get_arch(arch), jax_get_arch(arch)

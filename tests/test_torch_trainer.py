@@ -1,8 +1,9 @@
 """The port's fault-tolerant trainer (``core.trainer.FTTrainer``) on its real
-training loop, on the CPU (gemma-2b reduced, float32): the lossless
-invariant under the four policies, bit for bit; the FTReport counters and
-Fig 15's four states against the reference's FTTrainer on the same model,
-batches and schedule; the speculative trainer; elastic re-planning; the
+training loop, on the CPU (float32): the lossless invariant under the
+four policies, bit for bit, and the FTReport counters against the
+reference's FTTrainer on the same model (gemma-2b reduced), batches and
+schedule; Fig 15's four states against the reference's on its model
+(qwen2.5-3b reduced); the speculative trainer; elastic re-planning; the
 launchers.
 
 The reference's trainer runs once per file, in the module-scoped
@@ -57,9 +58,10 @@ def _fails(cls=FailureEvent):
 
 @pytest.fixture(scope="module")
 def ref_runs(tmp_path_factory):
-    """The reference's FTTrainer on gemma-2b reduced, fed the port's numpy
-    batches: the hybrid and checkpoint runs of the schedule, and Fig 15's
-    four states (bench_fig15.py's arguments)."""
+    """The reference's FTTrainer fed the port's numpy batches: the hybrid
+    and checkpoint runs of the schedule on gemma-2b reduced, and Fig 15's
+    four states on qwen2.5-3b reduced (bench_fig15.py's model and
+    arguments)."""
     root = tmp_path_factory.mktemp("ref_ft")
     cfg = jax_get_arch("gemma-2b").reduced()
     ts, init_state, *_ = jax_make_train_step(jax_build_model(cfg))
@@ -82,11 +84,13 @@ def ref_runs(tmp_path_factory):
                                         False),
               "c_false_prediction": ([], True),
               "d_ideal_prediction": ([JaxFailureEvent(t=10.0, node=0, predictable=True)], False)}
+    qcfg = jax_get_arch(fig15.FIG15_ARCH).reduced()
+    qts, q_init_state, *_ = jax_make_train_step(jax_build_model(qcfg))
     rows, h_ref = [], None
     for name, (failures, forced) in states.items():
         d = str(root / name)
-        tr = JaxFTTrainer(ts, lambda: init_state(jax.random.key(0)),
-                          token_batches(0, 2, 32, cfg.vocab), policy="hybrid", ckpt_dir=d,
+        tr = JaxFTTrainer(qts, lambda: q_init_state(jax.random.key(0)),
+                          token_batches(0, 2, 32, qcfg.vocab), policy="hybrid", ckpt_dir=d,
                           ckpt_every=6, seed=8)
         if forced:
             tr.rng = fig15.ForcedFalseAlarm()
@@ -124,6 +128,8 @@ def test_report_counters_match_reference(policy, ref_runs, tmp_path):
 
 
 def test_fig15_states_match_reference(ref_runs):
+    """Fig 15's four states on the reference's model, qwen2.5-3b reduced."""
+    assert fig15.FIG15_ARCH == "qwen2.5-3b" and get_arch(fig15.FIG15_ARCH).qkv_bias
     rows, checks = fig15.fig15_states(device="cpu")
     assert rows == ref_runs["fig15"]
     assert all(checks.values()), checks
