@@ -23,10 +23,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
-   with bf16 inputs; deepseek-7b, granite-3-2b and qwen2.5-3b: flash_attention
-   and its backward at (4, 32, 512, 128) MHA, (4, 32, 512, 64) g 4 and (4, 16,
-   512, 128) g 8, flash_decode over their 544-slot caches, rmsnorm and its
-   backward at (2048, 4096) bf16) plus ragged / window / ring / empty-row /
+   with bf16 inputs; deepseek-7b, granite-3-2b, qwen2.5-3b and olmoe-1b-7b:
+   flash_attention and its backward at (4, 32, 512, 128) MHA, (4, 32, 512,
+   64) g 4, (4, 16, 512, 128) g 8 and (4, 16, 512, 128) MHA, flash_decode
+   over their 544-slot caches, rmsnorm and its backward at (2048, 4096)
+   bf16) plus ragged / window / ring / empty-row /
    strong-decay / float32 / head-dim cases (flash_attention's float32
    route also at hd 256 with a window, with a base one element off, at the
    train_llm surface (8, 8, 2048, 256) and at gemma-2b's serve shape in
@@ -62,22 +63,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels after a marker kernel that follows one extra call, and only
    when it holds every kernel its calls launched (``trace_complete``);
    after three that do not, the run fails;
+   moe layer: olmoe-1b-7b's mixture-of-experts FFN alone at full width
+   (bf16, batch 4 x 512, 64 experts, top-8, capacity factor 1.25):
+   forward and backward twice giving the same bits, the dropped slots, the
+   device ms of the router, dispatch, expert products, combine and a
+   forward and backward; in float32 and drop-free against the dense
+   oracle ``moe_ref``;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
-   recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b
-   and qwen2.5-3b (prompt 512) at full width, random weights from a seed,
+   recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
+   qwen2.5-3b and olmoe-1b-7b (prompt 512) at full width, random weights
+   from a seed,
    through ``repro_torch.launch.serve``: 4 requests, 32 new tokens each.
    For each: the exact kernel launch counts of the run (counts set to 0
    just before it), finite logits, the prefill and the first decode steps
    against the plain versions on the same weights, and a profile of a
-   prefill and a few decode steps. Then each of the six at full width in
+   prefill and a few decode steps. Then each of the seven at full width in
    float32, kernel path against plain path (5 tokens; qwen's qkv biases
    made nonzero), and a reduced float32 model of gemma, rwkv6,
-   recurrentgemma (5 layers, so that its remainder stack runs) and qwen2.5
-   on the card against the same weights on the CPU, each printing the
-   launches of the float32 attention routes it made;
+   recurrentgemma (5 layers, so that its remainder stack runs), qwen2.5
+   and olmoe on the card against the same weights on the CPU, each printing
+   the launches of the float32 attention routes it made;
    train: gemma-2b, rwkv6-1.6b, granite-3-2b and qwen2.5-3b at full width
-   and depth, recurrentgemma-9b at full width and 9 layers and deepseek-7b
-   at full width and 16 layers (TRAIN_ARCHS) through
+   and depth, recurrentgemma-9b at full width and 9 layers, deepseek-7b at
+   full width and 16 layers and olmoe-1b-7b at full width and a cut depth
+   (TRAIN_ARCHS) through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
    AdamW, batch 4 x 512, 5 steps on one repeated batch): the exact launch
    counts of the run, including the backward kernels (every block
@@ -86,7 +95,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    leaf (rwkv6's in float32 activations, its bf16 readings printed:
    GRAD_F32_ARCHS); a profile of a step; the FTTrainer's lossless invariant at
    reduced size under hybrid, agent, core and checkpoint (gemma) and
-   hybrid (rwkv6, recurrentgemma), and ``launch.fig15``'s two tables; one
+   hybrid (rwkv6, recurrentgemma, olmoe), and ``launch.fig15``'s two tables; one
    hybrid run of gemma-2b at full width with a predicted failure (one
    migration of the whole 28 GiB state through host memory) bit-identical
    to a failure-free run. Each phase ends by collecting and emptying the
@@ -200,15 +209,19 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 #   deepseek-7b        0.03125       0.3213
 #   granite-3-2b       0.03125       0.1807
 #   qwen2.5-3b         0             0.2051
+#   olmoe-1b-7b        0.01562       0.1484
 # gemma-2b's, rwkv6-1.6b's and the dense swiglu configs' near-tie is the
 # tighter 0.0625, two bf16 steps for logits in [4, 8) (qwen2.5-3b's tokens
-# all agreed, so twice its reading would be 0). The float32 full-width phase
+# all agreed, so twice its reading would be 0); olmoe-1b-7b's is twice its
+# reading, one bf16 step for logits in [4, 8). The float32 full-width phase
 # shows that the kernels themselves agree (tokens equal, logits within 1e-3)
 # at the same shapes.
 TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875,
-                 "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625}
+                 "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625,
+                 "olmoe-1b-7b": 0.03125}
 BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55,
-                     "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42}
+                     "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42,
+                     "olmoe-1b-7b": 0.3}
 # The backward kernels against their plain versions, (atol, rtol). Both sum
 # in float32 from the same inputs in another order; in bf16 the outputs are
 # rounded once more, and a value that lies on a rounding boundary may land
@@ -222,10 +235,15 @@ LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain ve
 ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
 # the serve runs: (arch, prompt length); recurrentgemma's prompt is its window
 SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048),
-          ("deepseek-7b", 512), ("granite-3-2b", 512), ("qwen2.5-3b", 512))
-# the dense swiglu configs: their attention, decode and norm shapes get rows
-# of their own in the kernel phase
-DENSE_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b")
+          ("deepseek-7b", 512), ("granite-3-2b", 512), ("qwen2.5-3b", 512),
+          ("olmoe-1b-7b", 512))
+# the configs whose attention and decode shapes get rows of their own in the
+# kernel phase: the dense swiglu configs and olmoe (MHA, 16 heads of 128)
+ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b")
+# the mixture-of-experts config: its MoE layer alone at full width, bf16,
+# BATCH x PROMPT (moe_layer_phase)
+MOE_ARCH = "olmoe-1b-7b"
+MOE_TOL_F32 = 2e-5  # the dispatch path against the dense oracle, float32, drop-free
 WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
 WKV6_TOL_STRONG_DECAY = 1e-4
 # the wkv6 backward against its plain version, per output: atol 1e-4 of the
@@ -292,9 +310,15 @@ SURFACE_N, SURFACE_WARMUP = 2, 1
 # 12, 14, 16 and 18 layers of its 79.18, 3.02 GiB a layer; 18 reserved
 # 76.50 GiB, too near the card's limit for a phase that runs after ten other
 # full-width runs and holds two float32 gradient sets in train_grad_check,
-# so 16 keeps ~10 GiB of headroom).
+# so 16 keeps ~10 GiB of headroom). olmoe-1b-7b's 16 layers (6.92 B
+# parameters, 419.6 M a layer) would need ~111 GB of masters, moments and
+# gradients: it runs 10 (tools/train_peak.py on the same card: 56.16, 62.41
+# and 68.66 GiB allocated at 8, 9 and 10 layers, 6.25 GiB a layer; 10
+# reserves 70.74 GiB and leaves 10.52 GiB unallocated, deepseek-7b's
+# headroom at 16).
 TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9),
-               ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16))
+               ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16),
+               ("olmoe-1b-7b", 10))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
 # the FT invariant at reduced size (tests/test_trainer_integration.py's
 # schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
@@ -318,13 +342,20 @@ LOSS_TOL_TRAIN = 1e-3
 # wr, wk, u) are rounding noise at init on either path: the plain path's own
 # bf16 step lies up to 1339 times such a leaf's largest magnitude (at
 # layers/1/tm/mu_k; median leaf 0.98) from its float32 step, and the kernel
-# path's 51.6 (both on an NVIDIA H100 80GB HBM3 at 700 W; the run prints
-# them). Its step is held in float32 activations instead (float32 masters as
-# always), at about three times the largest reading there (0.0313 at
-# layers/2/tm/u, median 0.0106: the step amplifies the kernels' ~1e-6
-# differences ~10^4 times through 24 layers); the bf16 step's readings are
-# printed beside it.
-GRAD_F32_ARCHS = ("rwkv6-1.6b",)
+# path's 51.6 (both on an NVIDIA H100 80GB HBM3 at 700 W; the run prints the
+# plain path's). Its step is held in float32 activations instead (float32
+# masters as always), at about three times the largest reading there
+# (0.0313 at layers/2/tm/u, median 0.0106: the step amplifies the kernels'
+# ~1e-6 differences ~10^4 times through 24 layers); the bf16 step's
+# readings are printed beside it. olmoe-1b-7b's bf16 expert gradients move
+# with the routing: a token whose 8th and 9th expert probabilities tie in
+# bf16 goes to either expert on paths that round otherwise. At 10 layers
+# the plain path's bf16 step lies 0.2838 of a leaf's largest magnitude
+# (layers/6/ffn/wg; median 0.03387) from its float32 step, and the kernel
+# path's bf16 step 0.2355 from the plain one, while the float32 steps agree
+# within 0.002175 (layers/1/ln2/scale) on the same card: it is held in
+# float32 too, under the same limit.
+GRAD_F32_ARCHS = ("rwkv6-1.6b", "olmoe-1b-7b")
 GRAD_TOL_F32 = 0.1
 # device memory that may still be allocated before a full-width training
 # run: a full-width state is 19-50 GiB, so more than this is a leak
@@ -787,11 +818,11 @@ def kernel_phase(dev):
                                                          enable_gqa=True), iters=5),
     ))
     del qg, kg, vg
-    # the dense swiglu configs' prefill: batch 4, prompt 512, causal, bf16
-    # (deepseek-7b MHA at hd 128, granite-3-2b g 4 at hd 64, qwen2.5-3b g 8
-    # at hd 128)
+    # the dense swiglu configs' and olmoe's prefill: batch 4, prompt 512,
+    # causal, bf16 (deepseek-7b MHA at hd 128, granite-3-2b g 4 at hd 64,
+    # qwen2.5-3b g 8 at hd 128, olmoe-1b-7b MHA 16 heads at hd 128)
     t0_s = time.perf_counter()
-    for arch in DENSE_ARCHS:
+    for arch in ROW_ARCHS:
         c = get_arch(arch)
         Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
         qa, ka, va = qkv(B, S, Hc, Kc, hdc)
@@ -811,7 +842,8 @@ def kernel_phase(dev):
                                                              enable_gqa=True)),
         ))
         del qa, ka, va
-    print(f"  the dense configs' flash_attention rows: {time.perf_counter() - t0_s:.1f} s")
+    print(f"  the dense configs' and olmoe's flash_attention rows: "
+          f"{time.perf_counter() - t0_s:.1f} s")
     # the train_llm surface at gemma-2b's width (heads = KV heads) and
     # gemma-2b's serve shape, in float32
     for label, (B_, S_, H_, K_) in (
@@ -1029,7 +1061,7 @@ def backward_rows(dev, randn, qkv):
     case(f"q (4,{rg.n_heads},{rg.window},256), k/v (4,1,{rg.window},256) bf16, causal, window "
          f"{rg.window}", BATCH, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim,
          window=rg.window, row=True, iters=3)
-    for arch in DENSE_ARCHS:  # MHA at hd 128, g 4 at hd 64, g 8 at hd 128
+    for arch in ROW_ARCHS:  # MHA at hd 128, g 4 at hd 64, g 8 at hd 128, MHA 16 x 128
         c = get_arch(arch)
         Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
         case(f"q (4,{Hc},512,{hdc}), k/v (4,{Kc},512,{hdc}) bf16, causal ({arch})", BATCH,
@@ -1154,9 +1186,10 @@ def decode_rows(dev, randn):
     """flash_decode at the decode shapes of the serve runs, against its
     plain version, timed beside masked SDPA: gemma-2b (8 heads on one KV
     head, cache 544, 516 valid), recurrentgemma-9b (16 heads on one KV
-    head, a full 2048-slot ring, window 2048) and the dense swiglu configs
-    over their 544-slot caches (deepseek-7b 32 heads on 32 KV heads of 128,
-    granite-3-2b 32 on 8 of 64, qwen2.5-3b 16 on 2 of 128)."""
+    head, a full 2048-slot ring, window 2048), the dense swiglu configs
+    and olmoe over their 544-slot caches (deepseek-7b 32 heads on 32 KV
+    heads of 128, granite-3-2b 32 on 8 of 64, qwen2.5-3b 16 on 2 of 128,
+    olmoe-1b-7b 16 on 16 of 128)."""
     import torch
     import torch.nn.functional as F
 
@@ -1165,7 +1198,7 @@ def decode_rows(dev, randn):
 
     rows = []
     cases = [(ARCH, PROMPT + NEW, PROMPT + 3, 0), ("recurrentgemma-9b", 2048, 2048 + 3, 2048)]
-    cases += [(arch, PROMPT + NEW, PROMPT + 3, 0) for arch in DENSE_ARCHS]
+    cases += [(arch, PROMPT + NEW, PROMPT + 3, 0) for arch in ROW_ARCHS]
     for arch, W, pos, window in cases:
         cfg = get_arch(arch)
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1822,12 +1855,100 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     return counts
 
 
+def moe_layer_phase(dev, card: str) -> None:
+    """The MoE FFN alone at MOE_ARCH's full width (64 experts, top-8,
+    capacity factor 1.25, d 2048, expert width 1024; random weights from a
+    seed, bf16, BATCH x PROMPT tokens, groups of PROMPT, C = 80): forward and
+    backward twice, every output and gradient the same bits (the FT
+    trainer's bit-identical state rests on it); the slots dropped; the
+    device ms (torch.profiler) of the router and its plan, the dispatch, the
+    expert products, the combine and a whole forward and backward. Then, in
+    float32 and drop-free (capacity factor E), the dispatch path against
+    the dense oracle ``moe_ref`` on the same inputs: the two select from the
+    same float32 probabilities, so they differ only by the order of float32
+    sums."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+
+    cfg = get_arch(MOE_ARCH)
+    E, k = cfg.n_experts, cfg.top_k
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    bf = torch.bfloat16
+    p = M.moe_init(g, cfg, dev, bf)
+    x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device=dev).to(bf)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+    one = torch.ones((), device=dev)
+    live = {name: w.requires_grad_() for name, w in p.items()}
+
+    def fwd_bwd():
+        xg = x.detach().requires_grad_()
+        y, aux = M.moe_apply(live, xg, cfg)
+        grads = torch.autograd.grad((y, aux), [xg, *live.values()], (dy, one))
+        return [y.detach(), aux.detach(), *grads]
+
+    names = ["y", "aux", "dx"] + [f"d{name}" for name in live]
+    first, second = fwd_bwd(), fwd_bwd()
+    for name, a, b in zip(names, first, second):
+        if not torch.isfinite(a.float()).all():
+            fail(f"moe layer {MOE_ARCH}: non-finite {name}")
+        if not torch.equal(a, b):
+            fail(f"moe layer {MOE_ARCH}: {name} differs between two calls on the same inputs")
+    with torch.no_grad():
+        plan, aux = M.route(p, x, cfg)
+        buf = M.dispatch(x, plan)
+        out_buf = M.expert_ffn(p, buf)
+    slots = BATCH * PROMPT * k
+    dropped = int(plan.dropped)
+    print(f"moe layer {MOE_ARCH} full width bf16 ({BATCH} x {PROMPT} tokens, {E} experts, top-{k}, "
+          f"capacity_factor {cfg.capacity_factor}: C = {plan.capacity}, buffer "
+          f"{tuple(buf.shape)}): forward and backward twice give the same bits ({len(names)} "
+          f"tensors); dropped slots {dropped} of {slots} ({100 * dropped / slots:.2f}%), aux "
+          f"{float(aux):.6f}")
+    with torch.no_grad():
+        parts = {"router and plan": lambda: M.route(p, x, cfg),
+                 "dispatch": lambda: M.dispatch(x, plan),
+                 "expert products": lambda: M.expert_ffn(p, buf),
+                 "combine": lambda: M.combine(out_buf, plan)}
+        ms = {name: device_ms(fn, iters=10) for name, fn in parts.items()}
+    ms["forward and backward"] = device_ms(fwd_bwd, iters=5)
+    flops = 2 * 3 * E * buf.shape[1] * cfg.d_model * cfg.d_ff
+    print(f"moe layer {MOE_ARCH} device ms on {card}: "
+          + ", ".join(f"{name} {v:.5f}" for name, v in ms.items())
+          + f" (the expert products' {flops / 1e12:.3f} TFLOP over {E} x {buf.shape[1]} buffer "
+          f"rows: bound {flops / PEAK_OPS_PER_S['bfloat16'] * 1e3:.5f} ms at 989 TFLOP/s)")
+    print(json.dumps({"moe_layer": {"arch": MOE_ARCH, "card": card, "capacity": plan.capacity,
+                                    "dropped": dropped, "slots": slots, "device_ms": ms}}))
+    del live, first, second, plan, buf, out_buf, p
+    # float32, drop-free: the dispatch path against the dense oracle
+    cfg32 = dataclasses.replace(cfg, dtype="float32", capacity_factor=float(E))
+    p32 = M.moe_init(g, cfg32, dev, torch.float32)
+    x32 = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        got, _ = M.moe_apply(p32, x32, cfg32)
+        want = M.moe_ref(p32, x32, cfg32)
+        plan32, _ = M.route(p32, x32, cfg32)
+    if int(plan32.dropped):
+        fail(f"moe layer f32 at capacity_factor {E}: {int(plan32.dropped)} slots dropped")
+    err = compare(f"moe layer {MOE_ARCH} f32 drop-free, dispatch path vs moe_ref", got, want,
+                  MOE_TOL_F32)
+    print(f"moe layer {MOE_ARCH} f32: max |y - moe_ref| {err:.3g}, max |y| "
+          f"{float(want.abs().max()):.3g}")
+    del p32, x32, got, want
+    free_device_memory()
+
+
 def reduced_reference_phase(dev):
     """A reduced float32 model of each family on the card (kernels) against
     the same weights on the CPU (plain versions): gemma, rwkv6,
     recurrentgemma with 5 layers (its pattern group plus the remainder
-    stack) and a prompt of three windows, and qwen2.5 (its qkv bias made
-    nonzero). Returns the float32 attention routes' launches of the card's
+    stack) and a prompt of three windows, qwen2.5 (its qkv bias made
+    nonzero) and olmoe (its mixture of experts on the card against the
+    CPU). Returns the float32 attention routes' launches of the card's
     runs."""
     import dataclasses
 
@@ -1847,7 +1968,8 @@ def reduced_reference_phase(dev):
 
     ops.reset_launch_counts()
     for arch, n_layers, prompt_len in (("gemma-2b", 2, 40), ("rwkv6-1.6b", 2, 40),
-                                       ("recurrentgemma-9b", 5, 48), ("qwen2.5-3b", 2, 40)):
+                                       ("recurrentgemma-9b", 5, 48), ("qwen2.5-3b", 2, 40),
+                                       ("olmoe-1b-7b", 2, 40)):
         cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers)
         model = build_model(cfg)
         g = torch.Generator(device=dev)
@@ -2374,8 +2496,9 @@ def train_grad_check(dev, cfg) -> None:
     """One step's gradients at full width on the kernel path against the same
     step under ``ops.plain_versions()``, leaf by leaf: in bf16 activations
     within GRAD_TOL_BF16, or for GRAD_F32_ARCHS in float32 activations
-    within GRAD_TOL_F32, with the bf16 step's readings beside it (kernel
-    against plain, and each against the plain float32 step)."""
+    within GRAD_TOL_F32, with the bf16 step's readings beside it (the plain
+    bf16 step against the plain float32 step, and the bf16 kernel path
+    against the bf16 plain path)."""
     import dataclasses
 
     import torch
@@ -2410,35 +2533,39 @@ def train_grad_check(dev, cfg) -> None:
     check_free_memory(f"train grads {arch}")
     f32 = cfg.name in GRAD_F32_ARCHS
     tol = GRAD_TOL_F32 if f32 else GRAD_TOL_BF16
-    runs = {"bf16": cfg}
-    if f32:
-        runs["f32"] = dataclasses.replace(cfg, dtype="float32")
-    got = {}
-    for tag, c in runs.items():
-        got[tag] = (step_grads(c, False), step_grads(c, True))
-        kernel, plain = got[tag]
+
+    def kernel_vs_plain(tag: str, kernel, plain, held: bool) -> None:
         for name, a in zip(kernel[2], kernel[1]):
             if not torch.isfinite(a).all():
                 fail(f"train grads {arch} {tag}: non-finite kernel-path gradient at {name}")
         rel, leaf, med = worst(kernel, plain)
         print(f"train grads {arch} {tag} kernel vs plain, {len(kernel[2])} leaves: loss "
               f"{kernel[0]:.6f} vs {plain[0]:.6f}; largest max|dg| / max|g_plain| {rel:.4g} at "
-              f"{leaf}, median {med:.4g}" + (f" (tol {tol})" if tag == ("f32" if f32 else "bf16")
-                                             else ""))
+              f"{leaf}, median {med:.4g}" + (f" (tol {tol})" if held else ""))
         if abs(kernel[0] - plain[0]) > LOSS_TOL_TRAIN * abs(plain[0]):
             fail(f"train grads {arch} {tag}: loss {kernel[0]} on the kernel path vs {plain[0]} "
                  f"plain")
-    held = got["f32" if f32 else "bf16"]
-    rel, leaf, _ = worst(*held)
-    if rel > tol:
-        fail(f"train grads {arch}: {leaf} differs by {rel:.4g} of its largest magnitude "
-             f"(> {tol})")
-    if f32:  # how far bf16 itself moves the gradients, on either path
-        for side, i in (("kernel", 0), ("plain", 1)):
-            rel, leaf, med = worst(got["bf16"][i], got["f32"][1])
-            print(f"train grads {arch} bf16 {side} vs f32 plain: largest {rel:.4g} at {leaf}, "
-                  f"median {med:.4g}")
-    del got, held
+        if held and rel > tol:
+            fail(f"train grads {arch}: {leaf} differs by {rel:.4g} of its largest magnitude "
+                 f"(> {tol})")
+
+    # At most three gradient-sized sets are alive at once (a step's float32
+    # parameters and gradients, and one kept set): 17.6 GB each for olmoe at
+    # 10 layers.
+    if not f32:
+        kernel_vs_plain("bf16", step_grads(cfg, False), step_grads(cfg, True), held=True)
+    else:
+        plain32 = step_grads(dataclasses.replace(cfg, dtype="float32"), True)
+        kernel_vs_plain("f32", step_grads(dataclasses.replace(cfg, dtype="float32"), False),
+                        plain32, held=True)
+        # how far bf16 itself moves the gradients, and the bf16 kernel path
+        plain16 = step_grads(cfg, True)
+        rel, leaf, med = worst(plain16, plain32)
+        print(f"train grads {arch} bf16 plain vs f32 plain: largest {rel:.4g} at {leaf}, "
+              f"median {med:.4g}")
+        del plain32
+        kernel_vs_plain("bf16", step_grads(cfg, False), plain16, held=False)
+        del plain16
     free_device_memory()
 
 
@@ -2502,8 +2629,9 @@ def train_phase(dev, card: str) -> dict:
                      f"grads and profile")
     t1 = time.perf_counter()
     f32 = reduced_ft(card)
-    for arch in RECURRENT_KERNELS:
-        reduced_ft(card, arch, ("hybrid",))
+    for arch in REDUCED_FT_KERNELS:
+        for name, n in reduced_ft(card, arch, ("hybrid",)).items():
+            f32[name] += n
     for name, n in fig15_phase(card).items():
         f32[name] += n
     t2 = time.perf_counter()
@@ -2513,18 +2641,20 @@ def train_phase(dev, card: str) -> dict:
     return counts, f32
 
 
-# the recurrent families trained at reduced size under hybrid, and the
-# forward and backward kernels of their scans
-RECURRENT_KERNELS = {"rwkv6-1.6b": ("wkv6", "wkv6_bwd"),
-                     "recurrentgemma-9b": ("rglru", "rglru_bwd")}
+# the other families trained at reduced size under hybrid, and the forward
+# and backward kernels their runs must launch: the recurrent families'
+# scans; olmoe's attention (its mixture of experts has no kernel)
+REDUCED_FT_KERNELS = {"rwkv6-1.6b": ("wkv6", "wkv6_bwd"),
+                      "recurrentgemma-9b": ("rglru", "rglru_bwd"),
+                      "olmoe-1b-7b": ("flash_attention", "flash_attention_bwd")}
 
 
 def reduced_ft(card: str, arch: str = ARCH, policies=FT_POLICIES) -> dict:
     """The trainer's lossless invariant on the card at reduced size (float32):
     under each of ``policies`` the run with failures ends bit-identical to
-    the failure-free run. For gemma returns the float32 attention routes'
-    launches, which must include the backward's; a recurrent family's runs
-    must launch its scan's forward and backward kernels (RECURRENT_KERNELS)."""
+    the failure-free run. Returns the float32 attention routes' launches;
+    gemma's must include the backward's, and another family's runs must
+    launch the forward and backward kernels of REDUCED_FT_KERNELS."""
     from repro_torch.configs import get_arch
     from repro_torch.core.failure import FailureEvent
     from repro_torch.kernels import ops
@@ -2558,10 +2688,10 @@ def reduced_ft(card: str, arch: str = ARCH, policies=FT_POLICIES) -> dict:
     if arch != ARCH:
         counts = ops.launch_counts()
         print(f"ft reduced {arch}: launches {counts}")
-        if not all(counts[name] for name in RECURRENT_KERNELS[arch]):
-            fail(f"ft reduced {arch}: the {RECURRENT_KERNELS[arch]} kernels were not both "
+        if not all(counts[name] for name in REDUCED_FT_KERNELS[arch]):
+            fail(f"ft reduced {arch}: the {REDUCED_FT_KERNELS[arch]} kernels were not both "
                  f"launched: {counts}")
-        return counts
+        return f32_launches(f"ft reduced {arch}")
     counts = f32_launches("ft reduced")
     if not all(counts.values()):
         fail(f"ft reduced: the float32 attention routes were not all launched: {counts}")
@@ -2759,6 +2889,8 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     lap("kernels")
+    moe_layer_phase(dev, card)
+    lap("moe layer")
     launches = {r["name"]: 0 for r in rows}  # summed over the serve and train runs
     for arch, prompt_len in SERVES:
         t1_s = time.perf_counter()

@@ -38,9 +38,15 @@ class ArchConfig:
     window: int = 0  # sliding-window size for local attention (0 = full)
     lru_width: Optional[int] = None
     conv_width: int = 4
+    # --- MoE (models/moe.py) ---
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: str = "auto"  # auto | manual (expert parallelism over a mesh: not ported)
     # --- features of the reference's other families; the port's
     # build_model refuses a config that sets any of them ---
-    moe: bool = False
     encoder_layers: int = 0  # whisper
     num_img_tokens: int = 0  # phi-3-vision
     kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8"
@@ -58,7 +64,7 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """A tiny same-family variant for CPU tests; the same changes as
         ``repro.configs.base.ArchConfig.reduced`` for the families the port
-        runs (dense, rwkv, block pattern)."""
+        runs (dense, moe, rwkv, block pattern)."""
         changes = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -69,6 +75,10 @@ class ArchConfig:
             head_dim=16,
             dtype="float32",
         )
+        if self.moe:
+            # capacity_factor = n_experts -> drop-free dispatch, so the
+            # smoke/exactness tests are deterministic across prefill/decode
+            changes.update(n_experts=4, top_k=2, capacity_factor=4.0)
         if self.block_pattern:
             changes["block_pattern"] = self.block_pattern  # keep the pattern unit
             changes["n_layers"] = len(self.block_pattern)  # one pattern group
@@ -136,6 +146,7 @@ def _ensure_loaded():
         deepseek_7b,
         gemma_2b,
         granite_3_2b,
+        olmoe_1b_7b,
         qwen25_3b,
         recurrentgemma_9b,
         rwkv6_1b6,

@@ -6,7 +6,10 @@ nested dicts of **numpy** arrays, so this module never touches jax: the
 caller does the ``np.asarray``. The reference stacks each block's weights
 along a leading repeat axis under ``stack{i}/b{j}`` (stack i repeats its
 pattern unit, b{j} is the unit's j-th block); the port keeps one dict per
-layer in model order: every repeat of stack 0's unit, then stack 1's.
+layer in model order: every repeat of stack 0's unit, then stack 1's. An
+MoE layer's ``ffn`` keeps the reference's leaves: ``router`` (d, E), the
+experts' ``wg`` / ``wu`` (E, d, f) and ``wo`` (E, f, d) with the expert
+axis first, and a ``shared`` sub-tree when the config has shared experts.
 
 Leaves the reference uses in float32 arithmetic without
 ``.astype(x.dtype)`` stay float32: the norms, the rwkv time-mix's

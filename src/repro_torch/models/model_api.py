@@ -18,6 +18,8 @@ Block kinds and their caches:
   rec         RG-LRU temporal block + FFN          {"h" float32, "conv"}
   rwkv        RWKV6 time-mix + channel-mix         {"wkv" float32, "shift_t", "shift_c"}
 
+With ``cfg.moe`` an attention block's FFN is the mixture of experts of
+:mod:`repro_torch.models.moe`, whose load-balance term ``loss`` adds.
 ``loss`` trains every kind.
 """
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 
@@ -45,8 +48,10 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
         return f"the {'/'.join(cfg.block_pattern)} block pattern (only {_PATTERN_KINDS})"
     if cfg.encoder_layers:
         return "the encoder-decoder blocks (enc, xattn)"
-    if cfg.moe:
-        return "the mixture-of-experts FFN"
+    if cfg.moe and (cfg.block_pattern or cfg.attn_free):
+        return "the mixture-of-experts FFN in a recurrent block"
+    if cfg.moe and cfg.moe_impl == "manual":
+        return M.MANUAL
     if cfg.num_img_tokens:
         return "image-token inputs"
     if cfg.kv_cache_dtype:
@@ -96,8 +101,9 @@ class ModelDef:
                     "ln2": L.norm_init(d, device), "cm": R.channelmix_init(gen, cfg, device, dt)}
         mixer = ({"rec": G.rglru_block_init(gen, cfg, device, dt)} if kind == "rec"
                  else {"attn": L.attention_init(gen, cfg, device, dt)})
+        ffn = M.moe_init(gen, cfg, device, dt) if cfg.moe else L.mlp_init(gen, cfg, device, dt)
         return {"ln1": L.norm_init(d, device), **mixer, "ln2": L.norm_init(d, device),
-                "ffn": L.mlp_init(gen, cfg, device, dt)}
+                "ffn": ffn}
 
     def init(self, gen: torch.Generator, device, param_dtype: Optional[torch.dtype] = None
              ) -> Dict[str, Any]:
@@ -126,8 +132,12 @@ class ModelDef:
         return F.embedding(tokens, params["embed"]).to(activation_dtype(self.cfg))
 
     def _ffn_half(self, lp, x):
+        """(x + the FFN of its norm, the MoE aux term or None)."""
         h = L.norm_apply(lp["ln2"], x)
-        return x + L.mlp_apply(lp["ffn"], h, self.cfg)
+        if self.cfg.moe:
+            f, aux = M.moe_apply(lp["ffn"], h, self.cfg)
+            return x + f, aux
+        return x + L.mlp_apply(lp["ffn"], h, self.cfg), None
 
     def _kv_cache(self, k, v, positions, window: int, cache_len: int) -> Dict[str, torch.Tensor]:
         """The decode cache of an attention layer after the prefill. As the
@@ -157,10 +167,10 @@ class ModelDef:
             return x + c, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
         if kind == "rec":
             r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg)
-            return self._ffn_half(lp, x + r), {"h": h_state, "conv": conv}
+            return self._ffn_half(lp, x + r)[0], {"h": h_state, "conv": conv}
         window = _window(cfg, kind)
         a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window)
-        return self._ffn_half(lp, x + a), self._kv_cache(k, v, positions, window, cache_len)
+        return self._ffn_half(lp, x + a)[0], self._kv_cache(k, v, positions, window, cache_len)
 
     def _block_decode(self, kind: str, lp, x, cache, pos: int):
         cfg = self.cfg
@@ -175,9 +185,9 @@ class ModelDef:
         if kind == "rec":
             r, cache["h"], cache["conv"] = G.rglru_block_apply(
                 lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True)
-            return self._ffn_half(lp, x + r)
+            return self._ffn_half(lp, x + r)[0]
         a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind))
-        return self._ffn_half(lp, x + a)
+        return self._ffn_half(lp, x + a)[0]
 
     def prefill(self, params, tokens: torch.Tensor,
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, List[Dict]]:
@@ -209,11 +219,12 @@ class ModelDef:
 
     # -- training -------------------------------------------------------------
     def _block_train(self, kind: str, lp, x, positions):
+        """(the block's output, its MoE aux term or None)."""
         h = L.norm_apply(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
         if kind == "rwkv":
             x = x + R.timemix_apply(lp["tm"], h, self.cfg)[0]
-            return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))[0]
+            return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))[0], None
         if kind == "rec":
             return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, self.cfg)[0])
         a = L.attention_train(lp["attn"], h, self.cfg, positions, _window(self.cfg, kind))
@@ -226,24 +237,29 @@ class ModelDef:
         taken over the vocabulary in chunks of CE_CHUNK positions, each
         recomputed in the backward (the reference's ``jax.checkpoint(piece)``),
         and with ``cfg.remat`` every block is recomputed in the backward too.
-        The reference adds 0.01 x the MoE aux term, 0 for these dense models.
-        Attention, wkv6, the RG-LRU scan and the norms run the CUDA kernels,
-        forward and backward, on the card."""
+        An MoE model adds 0.01 x its aux term summed over the layers in
+        order, as the reference does (its sum starts at 0.0, so this is the
+        same float32 sum). Attention, wkv6, the RG-LRU scan and the norms
+        run the CUDA kernels, forward and backward, on the card."""
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=embed.device).expand(B, S)
         x = self._embed(params, tokens)
+        aux = None
         for kind, lp in zip(self.kinds, params["layers"]):
             if self.cfg.remat:
-                x = checkpoint(self._block_train, kind, lp, x, positions, use_reentrant=False)
+                x, a = checkpoint(self._block_train, kind, lp, x, positions, use_reentrant=False)
             else:
-                x = self._block_train(kind, lp, x, positions)
+                x, a = self._block_train(kind, lp, x, positions)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = L.norm_apply(params["final_ln"], x)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0
-        return _chunked_ce(x, self._head(params, x.dtype), labels, mask)
+        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask)
+        return ce if aux is None else ce + 0.01 * aux
 
     # -- caches ---------------------------------------------------------------
     def _block_cache(self, kind: str, B: int, seq_len: int, dt, device) -> Dict[str, torch.Tensor]:

@@ -63,9 +63,12 @@ def param_count(cfg: ArchConfig) -> Dict[str, float]:
             per_layer.append(p)
             active_per_layer.append(p)
     elif cfg.moe:
-        # the port registers no MoE config (its ArchConfig has no expert
-        # fields); the reference's branch arrives with olmoe / kimi
-        raise ValueError(f"{cfg.name}: MoE parameter counts are not in the port")
+        shared = 3 * d * f * cfg.n_shared_experts
+        router = d * cfg.n_experts
+        experts_total = cfg.n_experts * 3 * d * f
+        experts_active = cfg.top_k * 3 * d * f
+        per_layer = [attn + router + shared + experts_total] * L
+        active_per_layer = [attn + router + shared + experts_active] * L
     else:
         mlp = 3 * d * f if cfg.mlp in ("swiglu", "geglu") else 2 * d * f
         per_layer = [attn + mlp] * L

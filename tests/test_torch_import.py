@@ -208,9 +208,10 @@ def test_unported_configs_raise():
     from repro_torch.models import build_model
 
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("olmoe-1b-7b")
+        get_arch("kimi-k2-1t-a32b")
     cfg = get_arch("gemma-2b")
-    for change in (dict(moe=True), dict(encoder_layers=1), dict(num_img_tokens=4),
+    for change in (dict(moe=True, n_experts=4, top_k=2, moe_impl="manual"),
+                   dict(encoder_layers=1), dict(num_img_tokens=4),
                    dict(block_pattern=("rec", "full"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change))
