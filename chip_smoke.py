@@ -69,6 +69,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device ms of the router, dispatch, expert products, combine and a
    forward and backward; in float32 and drop-free against the dense
    oracle ``moe_ref``;
+   mesh: the sharding slice on a one-rank NCCL mesh (``mesh_phase``): the
+   same MoE layer on the expert-parallel path (``moe_apply_manual``: the
+   same bits twice, dropped slots and device ms beside the auto path's, the
+   one-rank all-reduce of its output, float32 drop-free against
+   ``moe_ref``), olmoe-1b-7b manual at full width and MESH_LAYERS layers
+   through prefill and decode with rules (exact launches; logits and
+   greedy tokens against the auto path), ``pipeline_apply`` over gemma-2b
+   blocks against the blocks in sequence, and a reduced train step with
+   rules before and after ``remesh_rules``; it destroys its process group;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
    recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
    qwen2.5-3b and olmoe-1b-7b (prompt 512) at full width, random weights
@@ -244,6 +253,13 @@ ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b")
 # BATCH x PROMPT (moe_layer_phase)
 MOE_ARCH = "olmoe-1b-7b"
 MOE_TOL_F32 = 2e-5  # the dispatch path against the dense oracle, float32, drop-free
+# the mesh phase: MOE_ARCH on the manual path at full width with its depth
+# cut to MESH_LAYERS (a quarter of its 16: enough for one layer's experts to
+# feed the next layer's router, at a few seconds), MESH_STEPS decode steps;
+# pipeline_apply over PIPE_LAYERS gemma-2b attention blocks in PIPE_MICRO
+# microbatches, held to tests/test_pipeline.py's tolerance
+MESH_LAYERS, MESH_STEPS = 4, 4
+PIPE_LAYERS, PIPE_MICRO, PIPE_TOL = 2, 4, 1e-5
 WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
 WKV6_TOL_STRONG_DECAY = 1e-4
 # the wkv6 backward against its plain version, per output: atol 1e-4 of the
@@ -1855,7 +1871,7 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     return counts
 
 
-def moe_layer_phase(dev, card: str) -> None:
+def moe_layer_phase(dev, card: str) -> dict:
     """The MoE FFN alone at MOE_ARCH's full width (64 experts, top-8,
     capacity factor 1.25, d 2048, expert width 1024; random weights from a
     seed, bf16, BATCH x PROMPT tokens, groups of PROMPT, C = 80): forward and
@@ -1866,7 +1882,8 @@ def moe_layer_phase(dev, card: str) -> None:
     float32 and drop-free (capacity factor E), the dispatch path against
     the dense oracle ``moe_ref`` on the same inputs: the two select from the
     same float32 probabilities, so they differ only by the order of float32
-    sums."""
+    sums. Returns {"device_ms": the parts' device ms, "dropped": slots}
+    for the mesh phase to print beside its own."""
     import dataclasses
 
     import torch
@@ -1940,6 +1957,274 @@ def moe_layer_phase(dev, card: str) -> None:
           f"{float(want.abs().max()):.3g}")
     del p32, x32, got, want
     free_device_memory()
+    return {"device_ms": ms, "dropped": dropped}
+
+
+def mesh_phase(dev, card: str, auto: dict):
+    """The sharding slice on a one-rank NCCL mesh (``launch.mesh.make_host_mesh(1,
+    1)``, ``MeshRules`` over it):
+
+    - MOE_ARCH's MoE layer at full width through ``moe_apply_manual`` (the
+      expert-parallel path: one group of BATCH x PROMPT tokens, C = 320;
+      the same seed and inputs as ``moe_layer_phase``, whose auto-path
+      numbers ``auto`` holds): forward and backward twice giving the same
+      bits; its dropped slots and the device ms of its parts, of the
+      one-rank all-reduce of the (T, d) output (``collectives.psum``) and of
+      a forward and backward, printed beside the auto path's; in float32
+      and drop-free against the dense oracle ``moe_ref``;
+    - MOE_ARCH with ``moe_impl="manual"`` at full width and MESH_LAYERS
+      layers through ``ModelDef.prefill`` / ``decode`` with the rules
+      (float32, batch 1, prompt PROMPT, MESH_STEPS decode steps): the exact
+      launches of the rmsnorm, flash_attention and flash_decode kernels, and
+      its logits and greedy tokens against the same weights on the auto
+      path (at batch 1 both paths have one group of PROMPT tokens and the
+      same capacity);
+    - ``sharding.pipeline.pipeline_apply`` over PIPE_LAYERS gemma-2b
+      attention blocks at full width (float32, 1 stage, PIPE_MICRO
+      microbatches of BATCH x PROMPT): within PIPE_TOL of the blocks applied
+      in sequence to each microbatch, and within LOGITS_TOL_FULL_F32 of
+      them applied to the whole batch (whose matrix products may round
+      otherwise), the same bits on two calls, the rmsnorm and
+      flash_attention kernels launched;
+    - a train step with rules of MOE_ARCH reduced on the manual path, then a
+      simulated permanent loss of a host (``replan``, ``reshard_batch``),
+      the process group destroyed and ``remesh_rules(1, 1)`` building a new
+      one, and the step from the same state again: the same loss, as
+      ``tests/test_beyond_paper.py`` holds the reference.
+
+    Frees its memory and destroys its process group. Returns (launches of
+    the kernels outside the float32 attention routes, the float32 routes'
+    launches)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.elastic import remesh_rules, replan, reshard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train.step import make_train_step, shard_state
+
+    check_free_memory("the mesh phase")
+    mesh = make_host_mesh(1, 1)  # device_type "cuda": NCCL
+    rules = MeshRules(mesh)
+    print(f"mesh phase on {card}: {dist.get_backend()} process group of "
+          f"{dist.get_world_size()}, mesh {dict(rules.axes)}")
+    totals, totals_f32 = {}, {}
+
+    def tally(what: str, need) -> None:
+        counts, f32 = ops.launch_counts(), ops.f32_launch_counts()
+        print(f"  {what} launches {counts} (float32 routes {f32})")
+        missing = [name for name in need if not counts[name]]
+        if missing:
+            fail(f"mesh phase, {what}: no launch of {missing}")
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n - f32.get(name, 0)
+        for name, n in f32.items():
+            totals_f32[name] = totals_f32.get(name, 0) + n
+
+    # -- the MoE layer on the manual path, full width, bf16 ------------------
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), moe_impl="manual")
+    if not M.uses_manual(cfg, rules):
+        fail("mesh phase: the manual MoE path is not taken on the one-rank mesh")
+    E, k, bf = cfg.n_experts, cfg.top_k, torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    p = M.moe_init(g, cfg, dev, bf)
+    x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device=dev).to(bf)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+    one = torch.ones((), device=dev)
+    live = {name: w.requires_grad_() for name, w in p.items()}
+
+    def fwd_bwd():
+        xg = x.detach().requires_grad_()
+        y, aux = M.moe_apply_manual(live, xg, cfg, rules)
+        grads = torch.autograd.grad((y, aux), [xg, *live.values()], (dy, one))
+        return [y.detach(), aux.detach(), *grads]
+
+    names = ["y", "aux", "dx"] + [f"d{name}" for name in live]
+    first, second = fwd_bwd(), fwd_bwd()
+    for name, a, b in zip(names, first, second):
+        if not torch.isfinite(a.float()).all():
+            fail(f"mesh phase manual moe {MOE_ARCH}: non-finite {name}")
+        if not torch.equal(a, b):
+            fail(f"mesh phase manual moe {MOE_ARCH}: {name} differs between two calls")
+    T = BATCH * PROMPT
+    cap = int(math.ceil(k * T * cfg.capacity_factor / E))
+    with torch.no_grad():
+        xs = x.reshape(T, cfg.d_model)
+        probs = torch.softmax((xs @ p["router"]).float(), dim=-1)
+        plan = M.manual_plan(probs, bf, cfg, 0, E, cap)
+        buf = M.dispatch(xs, plan)
+        out_buf = M.expert_ffn(p, buf)
+        y_part = M.combine(out_buf, plan)
+        parts = {"router and plan": lambda: M.manual_plan(
+                     torch.softmax((xs @ p["router"]).float(), dim=-1), bf, cfg, 0, E, cap),
+                 "dispatch": lambda: M.dispatch(xs, plan),
+                 "expert products": lambda: M.expert_ffn(p, buf),
+                 "combine": lambda: M.combine(out_buf, plan),
+                 "psum over model": lambda: C.psum(y_part, mesh, "model")}
+        ms = {name: device_ms(fn, iters=10) for name, fn in parts.items()}
+        psum_call_ms = time_ms(lambda: C.psum(y_part, mesh, "model"))
+    ms["forward and backward"] = device_ms(fwd_bwd, iters=5)
+    dropped, slots = int(plan.dropped), T * k
+    print(f"mesh phase manual moe {MOE_ARCH} full width bf16 ({BATCH} x {PROMPT} tokens in one "
+          f"group, C = {cap}): forward and backward twice give the same bits; dropped slots "
+          f"{dropped} of {slots} ({100 * dropped / slots:.2f}%; auto path, groups of {PROMPT}: "
+          f"{auto['dropped']})")
+    print(f"mesh phase manual moe device ms on {card} (auto path's beside): "
+          + ", ".join(f"{name} {v:.5f}" + (f" (auto {auto['device_ms'][name]:.5f})"
+                                           if name in auto["device_ms"] else "")
+                      for name, v in ms.items())
+          + f"; psum per call (CUDA events) {psum_call_ms:.5f} ms for a ({T}, {cfg.d_model}) "
+          f"bf16 tensor")
+    print(json.dumps({"mesh_moe": {"arch": MOE_ARCH, "card": card, "capacity": cap,
+                                   "dropped": dropped, "slots": slots, "device_ms": ms,
+                                   "psum_call_ms": psum_call_ms, "auto": auto}}))
+    del live, first, second, plan, buf, out_buf, y_part, p, probs
+    cfg32 = dataclasses.replace(cfg, dtype="float32", capacity_factor=float(E))
+    p32 = M.moe_init(g, cfg32, dev, torch.float32)
+    x32 = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        got, _ = M.moe_apply_manual(p32, x32, cfg32, rules)
+        want = M.moe_ref(p32, x32, cfg32)
+    err = compare(f"mesh phase manual moe {MOE_ARCH} f32 drop-free vs moe_ref", got, want,
+                  MOE_TOL_F32)
+    print(f"mesh phase manual moe f32: max |y - moe_ref| {err:.3g}")
+    del p32, x32, got, want
+    free_device_memory()
+
+    # -- olmoe on the manual path through prefill and decode, with rules -----
+    mcfg = dataclasses.replace(cfg, n_layers=MESH_LAYERS, dtype="float32")
+    model = build_model(mcfg)
+    g.manual_seed(11)
+    params = model.init(g, dev)
+    prompt = torch.randint(0, mcfg.vocab, (1, PROMPT), generator=g, device=dev, dtype=torch.int64)
+    S = PROMPT
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        logits, caches = model.prefill(params, prompt, rules, cache_len=S + MESH_STEPS)
+        steps, tokens = [logits], []
+        for i in range(MESH_STEPS):
+            tokens.append(steps[-1].argmax(dim=-1, keepdim=True))
+            logits, caches = model.decode(params, tokens[-1], S + i, caches, rules)
+            steps.append(logits)
+        tally(f"{MOE_ARCH} manual prefill and {MESH_STEPS} decode steps",
+              ("rmsnorm", "flash_attention", "flash_decode"))
+        n = len(model.kinds)
+        want = {"rmsnorm": (2 * n + 1) * (1 + MESH_STEPS), "flash_attention": n,
+                "flash_decode": n * MESH_STEPS}
+        got_counts = {name: totals[name] + totals_f32.get(name, 0) for name in want}
+        if got_counts != want:
+            fail(f"mesh phase {MOE_ARCH} manual: launches {got_counts} != {want}")
+        auto_model = build_model(dataclasses.replace(mcfg, moe_impl="auto"))
+        ref, ref_caches = auto_model.prefill(params, prompt, cache_len=S + MESH_STEPS)
+        worst = float((steps[0] - ref).abs().max())
+        for i in range(MESH_STEPS):
+            if not torch.equal(tokens[i][:, 0], ref.argmax(dim=-1)):
+                fail(f"mesh phase {MOE_ARCH} step {i}: manual token {tokens[i].tolist()} vs "
+                     f"auto {ref.argmax(dim=-1).tolist()}")
+            ref, ref_caches = auto_model.decode(params, tokens[i], S + i, ref_caches)
+            worst = max(worst, float((steps[i + 1] - ref).abs().max()))
+    if not all(torch.isfinite(t).all() for t in steps) or worst > LOGITS_TOL_FULL_F32:
+        fail(f"mesh phase {MOE_ARCH} manual vs auto: max |logits diff| {worst:.3g} "
+             f"(tol {LOGITS_TOL_FULL_F32})")
+    print(f"mesh phase {MOE_ARCH} manual, full width, {MESH_LAYERS} layers, float32, batch 1, "
+          f"prompt {S}: prefill + {MESH_STEPS} decode steps with rules == auto path: tokens "
+          f"equal, max |logits diff| {worst:.3g} (tol {LOGITS_TOL_FULL_F32})")
+    del model, auto_model, params, caches, ref_caches, steps
+    free_device_memory()
+
+    # -- the pipeline over gemma-2b attention blocks ---------------------------
+    pcfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=PIPE_LAYERS, dtype="float32")
+    pmodel = build_model(pcfg)
+    g.manual_seed(13)
+    blocks = [pmodel._block_init("attn", g, dev, torch.float32) for _ in range(PIPE_LAYERS)]
+    stacked = _stack_trees(blocks)
+    h0 = torch.randn((BATCH, PROMPT, pcfg.d_model), generator=g, device=dev)
+    positions = torch.arange(PROMPT, dtype=torch.int32, device=dev)
+
+    def block(lp, h):
+        return pmodel._block_train("attn", lp, h, positions.expand(h.shape[0], PROMPT))[0]
+
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        y1 = pipeline_apply(block, stacked, h0, mesh, PIPE_MICRO)
+        tally(f"pipeline_apply over {PIPE_LAYERS} gemma-2b blocks", ("rmsnorm", "flash_attention"))
+        y2 = pipeline_apply(block, stacked, h0, mesh, PIPE_MICRO)
+        seq_micro, seq_full = [], h0
+        for m in h0.split(BATCH // PIPE_MICRO):
+            for b in blocks:
+                m = block(b, m)
+            seq_micro.append(m)
+        for b in blocks:
+            seq_full = block(b, seq_full)
+    if not torch.equal(y1, y2):
+        fail("mesh phase pipeline_apply: two calls differ")
+    what = (f"mesh phase pipeline_apply ({PIPE_LAYERS} gemma-2b blocks, 1 stage, {PIPE_MICRO} "
+            f"microbatches)")
+    err = compare(f"{what} vs the blocks in sequence on each microbatch", y1,
+                  torch.cat(seq_micro), PIPE_TOL)
+    # the whole batch's matrix products (M = BATCH * PROMPT rows, not PROMPT)
+    # may take other cuBLAS kernels, whose float32 sums round otherwise
+    err_full = compare(f"{what} vs the blocks in sequence on the whole batch", y1, seq_full,
+                       LOGITS_TOL_FULL_F32)
+    print(f"mesh phase pipeline: max |pipeline - sequential| {err:.3g} by microbatch, "
+          f"{err_full:.3g} on the whole batch (max |y| {float(seq_full.abs().max()):.3g}); the "
+          f"same bits twice")
+    del pmodel, blocks, stacked, h0, y1, y2, seq_micro, seq_full
+    free_device_memory()
+
+    # -- a train step with rules, a host lost, remesh_rules, the step again ---
+    tcfg = dataclasses.replace(get_arch(MOE_ARCH).reduced(), moe_impl="manual")
+    tmodel = build_model(tcfg)
+    g.manual_seed(17)
+    batch = {"tokens": torch.randint(0, tcfg.vocab, (4, 16), generator=g, device=dev)}
+
+    def one_step(rules_):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ts, init = make_train_step(tmodel, rules=rules_, lr=1e-4)
+        _, m = ts(shard_state(tmodel, rules_, init(gen)), batch)
+        return float(m["loss"])
+
+    ops.reset_launch_counts()
+    loss1 = one_step(rules)
+    tally(f"train step with rules ({tcfg.name} reduced, manual)",
+          ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd"))
+    plan = replan(n_shards=4, alive_hosts=[0, 2, 3])  # host 1 died, no spare
+    if sorted(s for v in plan.assignment.values() for s in v) != [0, 1, 2, 3]:
+        fail(f"mesh phase replan: {plan}")
+    if sum(reshard_batch(4, 3)) != 4:
+        fail("mesh phase reshard_batch lost rows")
+    del mesh, rules
+    dist.destroy_process_group()
+    rules2 = remesh_rules(1, 1)  # a new process group and mesh
+    loss2 = one_step(rules2)
+    if not (math.isfinite(loss1) and abs(loss1 - loss2) <= 1e-5):
+        fail(f"mesh phase remesh: loss {loss2} after remesh_rules, {loss1} before")
+    print(f"mesh phase remesh_rules(1, 1) after losing host 1 of 4 (replan, reshard_batch): "
+          f"train step loss {loss2:.6f} == {loss1:.6f} before")
+    del rules2
+    dist.destroy_process_group()
+    free_device_memory()
+    return totals, totals_f32
+
+
+def _stack_trees(trees):
+    """One tree whose leaves are the trees' leaves stacked along a new first dim."""
+    import torch
+
+    from repro_torch.utils.tree import flatten, unflatten
+
+    flat = [flatten(t) for t in trees]
+    return unflatten(flat[0][1], [torch.stack(ls) for ls in zip(*(f[0] for f in flat))])
 
 
 def reduced_reference_phase(dev):
@@ -2889,15 +3174,8 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     lap("kernels")
-    moe_layer_phase(dev, card)
+    auto_moe = moe_layer_phase(dev, card)
     lap("moe layer")
-    launches = {r["name"]: 0 for r in rows}  # summed over the serve and train runs
-    for arch, prompt_len in SERVES:
-        t1_s = time.perf_counter()
-        for name, n in serve_phase(arch, prompt_len, card).items():
-            launches[name] += n
-        print(f"serve {arch}: {time.perf_counter() - t1_s:.1f} s")
-    lap("serve")
     # the float32 attention routes' launches, summed over the paths that run them
     f32 = {"flash_attention": 0, "flash_attention_bwd": 0}
 
@@ -2905,6 +3183,18 @@ def main() -> int:
         for name, n in counts.items():
             f32[name] += n
 
+    mesh_counts, mesh_f32 = mesh_phase(dev, card, auto_moe)
+    add_f32(mesh_f32)
+    lap("mesh")
+    launches = {r["name"]: 0 for r in rows}  # summed over the serve, mesh and train runs
+    for name, n in mesh_counts.items():
+        launches[name] += n
+    for arch, prompt_len in SERVES:
+        t1_s = time.perf_counter()
+        for name, n in serve_phase(arch, prompt_len, card).items():
+            launches[name] += n
+        print(f"serve {arch}: {time.perf_counter() - t1_s:.1f} s")
+    lap("serve")
     for arch, prompt_len in SERVES:
         t1_s = time.perf_counter()
         add_f32(full_width_f32_phase(dev, arch, prompt_len))

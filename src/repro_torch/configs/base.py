@@ -44,7 +44,7 @@ class ArchConfig:
     top_k: int = 0
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
-    moe_impl: str = "auto"  # auto | manual (expert parallelism over a mesh: not ported)
+    moe_impl: str = "auto"  # auto | manual (expert parallelism over the mesh's "model" axis)
     # --- features of the reference's other families; the port's
     # build_model refuses a config that sets any of them ---
     encoder_layers: int = 0  # whisper
@@ -54,6 +54,7 @@ class ArchConfig:
     dtype: str = "bfloat16"  # activation dtype
     param_dtype: str = "float32"  # the training masters' dtype (serving keeps ``dtype``)
     optimizer: str = "adamw"  # adamw | adafactor | sgdm
+    fsdp: bool = False  # ZeRO-style sharding over the data axes (models/moe.py's manual path)
     remat: bool = True  # recompute each block in the backward (torch.utils.checkpoint)
     source: str = ""  # provenance note
 
@@ -74,6 +75,7 @@ class ArchConfig:
             vocab=512,
             head_dim=16,
             dtype="float32",
+            fsdp=False,
         )
         if self.moe:
             # capacity_factor = n_experts -> drop-free dispatch, so the

@@ -3,15 +3,19 @@ loss — the core-intelligence idea applied at mesh level (no spare left ->
 re-mesh instead of migrate). Counterpart of ``repro/core/elastic.py``.
 
 `replan` computes a new host->shard assignment when the active set changes;
-`reshard_batch` rebalances the global batch across survivors. The
-reference's ``remesh_rules`` (rebuild the sharding rules on a smaller data
-axis) waits for the port's ``sharding/`` slice (ROADMAP.md Queue 1,
-item 9).
+`reshard_batch` rebalances the global batch across survivors.
+`remesh_rules` rebuilds MeshRules on a new (smaller) mesh of the
+survivors: every layout derived from logical axes continues to work
+(dependencies "re-established automatically", the paper's core-runtime
+property; the port's steps run eagerly, so nothing is recompiled).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding.rules import MeshRules
 
 
 @dataclass
@@ -49,3 +53,11 @@ def reshard_batch(global_batch: int, n_alive: int) -> List[int]:
     base = global_batch // n_alive
     rem = global_batch - base * n_alive
     return [base + (1 if i < rem else 0) for i in range(n_alive)]
+
+
+def remesh_rules(n_data: int, n_model: int, fsdp: bool = False,
+                 device_type: str = "cuda") -> MeshRules:
+    """MeshRules over a new ``(n_data, n_model)`` host mesh after an elastic
+    resize (``launch.mesh.make_host_mesh``: the survivors' process group,
+    or a single-process one when none is left and one rank is asked for)."""
+    return MeshRules(make_host_mesh(n_data, n_model, device_type), fsdp=fsdp)

@@ -37,6 +37,9 @@ def norm_init(dim: int, device) -> Params:
     return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
 
 
+NORM_AXES = {"scale": ("embed",)}
+
+
 def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm (the reference's ``norm_apply(..., kind="rms")``)."""
     return ops.rmsnorm(x, p["scale"], eps)
@@ -78,6 +81,21 @@ def attention_init(gen, cfg, device, dtype) -> Params:
         for name, heads in (("bq", H), ("bk", n), ("bv", n)):
             p[name] = torch.zeros((heads, hd), dtype=dtype, device=device)
     return p
+
+
+def attention_axes(cfg) -> Dict:
+    """The logical axes of ``attention_init``'s leaves (the reference's)."""
+    ax = {"wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+          "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        ax.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                  bv=("kv_heads", "head_dim"))
+    return ax
+
+
+#: the logical axes of an attention layer's decode cache
+CACHE_AXES = {"k": ("batch", "seq", "kv_heads", "head_dim"),
+              "v": ("batch", "seq", "kv_heads", "head_dim"), "kpos": ("batch", "seq")}
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
@@ -182,6 +200,13 @@ def mlp_init(gen, cfg, device, dtype) -> Params:
         "wo": _normal(gen, (f, d), INIT_STD, device, dtype),
         "bo": torch.zeros((d,), dtype=dtype, device=device),
     }
+
+
+def mlp_axes(cfg) -> Dict:
+    """The logical axes of ``mlp_init``'s leaves (the reference's)."""
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    return {"wi": ("embed", "mlp"), "bi": ("mlp",), "wo": ("mlp", "embed"), "bo": ("embed",)}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -21,9 +21,21 @@ Block kinds and their caches:
 With ``cfg.moe`` an attention block's FFN is the mixture of experts of
 :mod:`repro_torch.models.moe`, whose load-balance term ``loss`` adds.
 ``loss`` trains every kind.
+
+Over a mesh (``rules``, :mod:`repro_torch.sharding.rules`) each rank runs
+``prefill``, ``decode`` and ``loss`` on its data shard of the batch, and
+every FFN gets the rules, as the reference's ``_ffn_apply`` does: an MoE
+with ``moe_impl="manual"`` takes the expert-parallel path over "model",
+holding its layer leaves as ``run_specs`` says; every other leaf is whole
+on every rank (the reference's "model"-axis split of attention, MLP and
+vocabulary comes from XLA's partitioner and waits for the dry run,
+ROADMAP.md Queue 1, item 9.6). ``loss`` returns the global batch's loss on
+every rank. ``param_axes``, ``abstract_init``, ``input_specs`` and
+``abstract_cache`` give the logical axes and shapes the rules read.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -31,11 +43,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import MeshRules, constrain, map_specs
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
 _PATTERN_KINDS = ("rec", "attn")
@@ -50,8 +64,6 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
         return "the encoder-decoder blocks (enc, xattn)"
     if cfg.moe and (cfg.block_pattern or cfg.attn_free):
         return "the mixture-of-experts FFN in a recurrent block"
-    if cfg.moe and cfg.moe_impl == "manual":
-        return M.MANUAL
     if cfg.num_img_tokens:
         return "image-token inputs"
     if cfg.kv_cache_dtype:
@@ -123,6 +135,65 @@ class ModelDef:
         params["layers"] = [self._block_init(kind, gen, device, dt) for kind in self.kinds]
         return params
 
+    # -- logical axes and abstract trees ---------------------------------------
+    def _block_axes(self, kind: str) -> Dict[str, Any]:
+        cfg, norm = self.cfg, dict(L.NORM_AXES)
+        if kind == "rwkv":
+            return {"ln1": norm, "tm": dict(R.TIMEMIX_AXES), "ln2": dict(norm),
+                    "cm": dict(R.CHANNELMIX_AXES)}
+        mixer = ({"rec": dict(G.RGLRU_AXES)} if kind == "rec"
+                 else {"attn": L.attention_axes(cfg)})
+        ffn = M.moe_axes(cfg) if cfg.moe else L.mlp_axes(cfg)
+        return {"ln1": norm, **mixer, "ln2": dict(norm), "ffn": ffn}
+
+    def param_axes(self) -> Dict[str, Any]:
+        """The logical axes of every leaf of ``init``'s tree, the same
+        structure: a layer's are the reference's with its leading "layers"
+        entry dropped (the port keeps one dict a layer)."""
+        axes: Dict[str, Any] = {"embed": ("vocab", "embed")}
+        if not self.cfg.tie_embeddings:
+            axes["lm_head"] = ("embed", "vocab")
+        axes["final_ln"] = dict(L.NORM_AXES)
+        axes["layers"] = [self._block_axes(kind) for kind in self.kinds]
+        return axes
+
+    def abstract_init(self) -> Dict[str, Any]:
+        """``init``'s tree on the meta device (shapes and dtypes, no
+        storage), the matrices in ``cfg.param_dtype`` as training holds them."""
+        return self.init(None, "meta", param_dtype=getattr(torch, self.cfg.param_dtype))
+
+    def run_specs(self, rules: MeshRules) -> Dict[str, Any]:
+        """How each parameter leaf lies over the mesh when the port runs
+        under ``rules``: the MoE leaves of the manual path as
+        ``moe.manual_specs`` lays them out, every other leaf whole (a spec of
+        Nones). The same structure as ``param_axes``."""
+        specs = map_specs(lambda ax: (None,) * len(ax), self.param_axes())
+        if self.cfg.moe and M.uses_manual(self.cfg, rules):
+            for layer in specs["layers"]:
+                if "ffn" in layer:
+                    layer["ffn"] = M.manual_specs(self.cfg, rules)
+        return specs
+
+    def input_specs(self, shape: ShapeCfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
+        """(the inputs of a step of ``shape`` as meta tensors, their logical
+        axes): the reference's ``input_specs`` split into values and axes."""
+        B, S = shape.global_batch, shape.seq_len
+        meta = functools.partial(torch.empty, dtype=torch.int32, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": meta((B, 1)), "pos": meta(())}, {"tokens": ("batch", None),
+                                                             "pos": ()}
+        return {"tokens": meta((B, S))}, {"tokens": ("batch", "seq")}
+
+    def cache_axes(self) -> List[Dict[str, Tuple]]:
+        """The logical axes of ``init_cache``'s tree (the reference's with
+        its leading "layers" entry dropped)."""
+        by_kind = {"rwkv": R.CACHE_AXES, "rec": G.CACHE_AXES}
+        return [dict(by_kind.get(kind, L.CACHE_AXES)) for kind in self.kinds]
+
+    def abstract_cache(self, B: int, seq_len: int) -> Tuple[List[Dict], List[Dict]]:
+        """(``init_cache(B, seq_len)`` on the meta device, its axes)."""
+        return self.init_cache(B, seq_len, "meta"), self.cache_axes()
+
     # -- forward ------------------------------------------------------------
     def _head(self, params, dtype) -> torch.Tensor:
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -131,11 +202,11 @@ class ModelDef:
     def _embed(self, params, tokens) -> torch.Tensor:
         return F.embedding(tokens, params["embed"]).to(activation_dtype(self.cfg))
 
-    def _ffn_half(self, lp, x):
+    def _ffn_half(self, lp, x, rules=None):
         """(x + the FFN of its norm, the MoE aux term or None)."""
         h = L.norm_apply(lp["ln2"], x)
         if self.cfg.moe:
-            f, aux = M.moe_apply(lp["ffn"], h, self.cfg)
+            f, aux = M.moe_apply(lp["ffn"], h, self.cfg, rules)
             return x + f, aux
         return x + L.mlp_apply(lp["ffn"], h, self.cfg), None
 
@@ -157,8 +228,9 @@ class ModelDef:
         cache["kpos"][:, :S] = kpos
         return cache
 
-    def _block_prefill(self, kind: str, lp, x, positions, cache_len: int):
+    def _block_prefill(self, kind: str, lp, x, positions, cache_len: int, rules=None):
         cfg = self.cfg
+        x = constrain(x, rules, ("batch", "seq", None))
         h = L.norm_apply(lp["ln1"], x)
         if kind == "rwkv":
             t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg)
@@ -167,12 +239,13 @@ class ModelDef:
             return x + c, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
         if kind == "rec":
             r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg)
-            return self._ffn_half(lp, x + r)[0], {"h": h_state, "conv": conv}
+            return self._ffn_half(lp, x + r, rules)[0], {"h": h_state, "conv": conv}
         window = _window(cfg, kind)
         a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window)
-        return self._ffn_half(lp, x + a)[0], self._kv_cache(k, v, positions, window, cache_len)
+        return (self._ffn_half(lp, x + a, rules)[0],
+                self._kv_cache(k, v, positions, window, cache_len))
 
-    def _block_decode(self, kind: str, lp, x, cache, pos: int):
+    def _block_decode(self, kind: str, lp, x, cache, pos: int, rules=None):
         cfg = self.cfg
         h = L.norm_apply(lp["ln1"], x)
         if kind == "rwkv":
@@ -185,52 +258,56 @@ class ModelDef:
         if kind == "rec":
             r, cache["h"], cache["conv"] = G.rglru_block_apply(
                 lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True)
-            return self._ffn_half(lp, x + r)[0]
+            return self._ffn_half(lp, x + r, rules)[0]
         a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind))
-        return self._ffn_half(lp, x + a)[0]
+        return self._ffn_half(lp, x + a, rules)[0]
 
-    def prefill(self, params, tokens: torch.Tensor,
+    def prefill(self, params, tokens: torch.Tensor, rules: Optional[MeshRules] = None,
                 cache_len: Optional[int] = None) -> Tuple[torch.Tensor, List[Dict]]:
-        """tokens: (B, S) int. Returns the last position's logits (B, vocab)
-        and the per-layer caches (see ``_kv_cache`` for the attention
-        layers; the recurrent layers keep their final states)."""
+        """tokens: (B, S) int (with rules, this rank's data shard). Returns
+        the last position's logits (B, vocab) and the per-layer caches (see
+        ``_kv_cache`` for the attention layers; the recurrent layers keep
+        their final states)."""
+        _check_rules(rules)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = self._embed(params, tokens)
+        x = constrain(self._embed(params, tokens), rules, ("batch", "seq", None))
         caches = []
         for kind, lp in zip(self.kinds, params["layers"]):
-            x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S)
+            x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S, rules)
             caches.append(cache)
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
         x = L.norm_apply(params["final_ln"], x[:, -1:])
         return x[:, 0] @ self._head(params, x.dtype), caches
 
-    def decode(self, params, tokens: torch.Tensor, pos: int,
-               caches: List[Dict]) -> Tuple[torch.Tensor, List[Dict]]:
+    def decode(self, params, tokens: torch.Tensor, pos: int, caches: List[Dict],
+               rules: Optional[MeshRules] = None) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, 1) int; pos: the position of every row (Python int).
         Updates each layer's cache in place and returns (logits (B, vocab),
         caches)."""
+        _check_rules(rules)
         x = self._embed(params, tokens)
         for kind, lp, cache in zip(self.kinds, params["layers"], caches):
-            x = self._block_decode(kind, lp, x, cache, pos)
+            x = self._block_decode(kind, lp, x, cache, pos, rules)
         x = L.norm_apply(params["final_ln"], x)
         return x[:, 0] @ self._head(params, x.dtype), caches
 
     # -- training -------------------------------------------------------------
-    def _block_train(self, kind: str, lp, x, positions):
+    def _block_train(self, kind: str, lp, x, positions, rules=None):
         """(the block's output, its MoE aux term or None)."""
+        x = constrain(x, rules, ("batch", "seq", None))
         h = L.norm_apply(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
         if kind == "rwkv":
             x = x + R.timemix_apply(lp["tm"], h, self.cfg)[0]
             return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))[0], None
         if kind == "rec":
-            return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, self.cfg)[0])
+            return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, self.cfg)[0], rules)
         a = L.attention_train(lp["attn"], h, self.cfg, positions, _window(self.cfg, kind))
-        return self._ffn_half(lp, x + a)
+        return self._ffn_half(lp, x + a, rules)
 
-    def loss(self, params, batch) -> torch.Tensor:
+    def loss(self, params, batch, rules: Optional[MeshRules] = None) -> torch.Tensor:
         """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S) (an
         int array or tensor), as the reference's ``loss``: position t
         predicts token t + 1, the last slot is masked, the cross-entropy is
@@ -240,25 +317,33 @@ class ModelDef:
         An MoE model adds 0.01 x its aux term summed over the layers in
         order, as the reference does (its sum starts at 0.0, so this is the
         same float32 sum). Attention, wkv6, the RG-LRU scan and the norms
-        run the CUDA kernels, forward and backward, on the card."""
+        run the CUDA kernels, forward and backward, on the card.
+
+        With rules ``batch`` is this rank's data shard, and the returned loss
+        is the global batch's on every rank: the cross-entropy's sum and its
+        count are summed over the data axes (a sum whose gradient is the
+        identity, so each rank's backward gives its shard's part of every
+        gradient; ``train.step`` sums the parts)."""
+        _check_rules(rules)
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=embed.device).expand(B, S)
-        x = self._embed(params, tokens)
+        x = constrain(self._embed(params, tokens), rules, ("batch", "seq", None))
         aux = None
         for kind, lp in zip(self.kinds, params["layers"]):
             if self.cfg.remat:
-                x, a = checkpoint(self._block_train, kind, lp, x, positions, use_reentrant=False)
+                x, a = checkpoint(self._block_train, kind, lp, x, positions, rules,
+                                  use_reentrant=False)
             else:
-                x, a = self._block_train(kind, lp, x, positions)
+                x, a = self._block_train(kind, lp, x, positions, rules)
             if a is not None:
                 aux = a if aux is None else aux + a
         x = L.norm_apply(params["final_ln"], x)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask)
+        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask, rules)
         return ce if aux is None else ce + 0.01 * aux
 
     # -- caches ---------------------------------------------------------------
@@ -282,17 +367,29 @@ class ModelDef:
         return [self._block_cache(kind, B, seq_len, dt, device) for kind in self.kinds]
 
 
-def _ce_piece(hc, head, lc, mc):
-    logits = (hc @ head).to(torch.float32)  # (B, c, V)
+def _check_rules(rules: Optional[MeshRules]) -> None:
+    """The port's steps keep every position of a sequence on each rank:
+    rules that split the residual stream's "seq" dim (the dry run's
+    sequence-parallel overrides) raise."""
+    if rules is not None and any(c is not None for c in rules.overrides.get("seq") or ()):
+        raise NotImplementedError(
+            f"rules that split 'seq' ({rules.overrides['seq']}): sequence parallelism of the "
+            f"residual stream waits for the dry run (ROADMAP.md Queue 1, item 9.6)")
+
+
+def _ce_piece(hc, head, lc, mc, rules=None):
+    logits = constrain(hc @ head, rules, ("batch", None, "vocab")).to(torch.float32)  # (B, c, V)
     lz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lc[..., None])[..., 0]
     return torch.sum((lz - ll) * mc)
 
 
-def _chunked_ce(h, head, labels, mask) -> torch.Tensor:
+def _chunked_ce(h, head, labels, mask, rules: Optional[MeshRules] = None) -> torch.Tensor:
     """sum over chunks of CE_CHUNK positions of the masked cross-entropy,
     each chunk under ``torch.utils.checkpoint``, divided by the mask's sum
-    (at least 1): the (B, S, vocab) logits are never all held at once."""
+    (at least 1): the (B, S, vocab) logits are never all held at once. With
+    rules the sum and the mask's sum are the global batch's (summed over
+    the data axes)."""
     T = h.shape[1]
     c = min(CE_CHUNK, T)
     while T % c:
@@ -300,8 +397,12 @@ def _chunked_ce(h, head, labels, mask) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, T, c):
         total = total + checkpoint(_ce_piece, h[:, i:i + c], head, labels[:, i:i + c],
-                                   mask[:, i:i + c], use_reentrant=False)
-    return total / torch.clamp(mask.sum(), min=1.0)
+                                   mask[:, i:i + c], rules, use_reentrant=False)
+    count = mask.sum()
+    if rules is not None:
+        total = C.psum(total, rules.mesh, rules.data_axes)
+        count = C.psum(count, rules.mesh, rules.data_axes)
+    return total / torch.clamp(count, min=1.0)
 
 
 def build_model(cfg: ArchConfig) -> ModelDef:

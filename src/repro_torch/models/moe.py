@@ -37,22 +37,27 @@ again a read through the other table, with the sum over a token's k slots
 taken in a fixed order. The expert FFN is three batched matrix products
 (``torch.bmm``) over the (E, B * C, d) buffer.
 
-The reference's expert-parallel path (``moe_apply_manual``) needs a mesh;
-``moe_impl="manual"`` raises here (ROADMAP.md Queue 1, item 9.5).
+The expert-parallel path (``moe_apply_manual``, the reference's
+``shard_map`` body run on each rank's local shards): the tokens of a data
+shard in one group, each "model" rank building the capacity buffers of its
+own E / n_model experts through the same two-table dispatch and combine,
+the partial outputs summed over "model" once a layer
+(:mod:`repro_torch.sharding.collectives`). ``moe_apply`` takes it as the
+reference's dispatcher does: ``moe_impl="manual"``, rules over a mesh with a
+"model" axis that divides the experts.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import INIT_STD, _normal
-
-MANUAL = ("moe_impl='manual' (expert parallelism over a mesh, the reference's "
-          "moe_apply_manual) is not ported: it needs a mesh (ROADMAP.md Queue 1, item 9.5)")
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import MeshRules, constrain
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,6 +81,15 @@ def moe_init(gen, cfg, device, dtype) -> Params:
             "wo": _normal(gen, (fs, d), INIT_STD, device, dtype),
         }
     return p
+
+
+def moe_axes(cfg) -> Dict:
+    """The logical axes of ``moe_init``'s leaves (the reference's)."""
+    ax = {"router": ("embed", None), "wg": ("expert", "embed", "expert_mlp"),
+          "wu": ("expert", "embed", "expert_mlp"), "wo": ("expert", "expert_mlp", "embed")}
+    if cfg.n_shared_experts:
+        ax["shared"] = {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    return ax
 
 
 def capacity(cfg, group_size: int) -> int:
@@ -112,11 +126,13 @@ class Plan:
 
     @property
     def dropped(self) -> torch.Tensor:
-        """The slots past their expert's capacity: () int64."""
+        """The slots past their expert's capacity (on the manual path, also
+        the slots of other ranks' experts): () int64."""
         return torch.sum(self.slot_row == self.row_slot.numel())
 
 
-def route(p: Params, x: torch.Tensor, cfg) -> Tuple[Plan, torch.Tensor]:
+def route(p: Params, x: torch.Tensor, cfg, rules: Optional[MeshRules] = None
+          ) -> Tuple[Plan, torch.Tensor]:
     """The router: (the dispatch plan, the aux loss (float32 scalar)).
     x: (B, S, d), each batch row a group."""
     B, S, d = x.shape
@@ -124,7 +140,7 @@ def route(p: Params, x: torch.Tensor, cfg) -> Tuple[Plan, torch.Tensor]:
     dt = x.dtype
     logits = x @ p["router"].to(dt)  # (B, S, E)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    aux = _switch_aux(probs)
+    aux = _switch_aux(probs, rules)
 
     probs_dt = probs.to(dt)
     idx = top_k(probs_dt.detach(), k)  # (B, S, k), largest first
@@ -163,13 +179,18 @@ def route(p: Params, x: torch.Tensor, cfg) -> Tuple[Plan, torch.Tensor]:
     return plan, aux
 
 
-def _switch_aux(probs: torch.Tensor) -> torch.Tensor:
+def _switch_aux(probs: torch.Tensor, rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Switch-style load-balance term over the whole batch's float32
-    probabilities (..., E): E * sum(mean prob * top-1 share)."""
+    probabilities (..., E): E * sum(mean prob * top-1 share). With rules the
+    batch is this rank's data shard, and both means are taken over the
+    global batch (averaged over the equal data shards) before the product."""
     E = probs.shape[-1]
     me = torch.mean(probs.reshape(-1, E), dim=0)
     top1 = torch.argmax(probs, dim=-1).reshape(-1)  # the first maximum, as jnp.argmax
     ce = torch.mean(F.one_hot(top1, E).to(torch.float32), dim=0)
+    if rules is not None:
+        me = C.pmean(me, rules.mesh, rules.data_axes)
+        ce = C.pmean(ce, rules.mesh, rules.data_axes)
     return E * torch.sum(me * ce)
 
 
@@ -251,22 +272,133 @@ def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ sp["wg"].to(dt)) * (x @ sp["wu"].to(dt))) @ sp["wo"].to(dt)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y (B, S, d), aux loss (float32 scalar)). The auto
-    path; ``moe_impl="manual"`` raises NotImplementedError."""
-    if cfg.moe_impl == "manual":
-        raise NotImplementedError(f"{cfg.name}: {MANUAL}")
-    return moe_apply_auto(p, x, cfg)
+def uses_manual(cfg, rules: Optional[MeshRules]) -> bool:
+    """Whether ``moe_apply`` takes the expert-parallel path (the reference's
+    dispatcher): ``moe_impl="manual"``, rules, a "model" axis, and E a
+    multiple of its size."""
+    return (cfg.moe_impl == "manual" and rules is not None and "model" in rules.axes
+            and cfg.n_experts % rules.axes["model"] == 0)
 
 
-def moe_apply_auto(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``moe_apply_auto``: groups are batch rows."""
+def moe_apply(p: Params, x: torch.Tensor, cfg, rules: Optional[MeshRules] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B, S, d), aux loss (float32 scalar)): the manual
+    path where ``uses_manual``, else the auto path."""
+    if uses_manual(cfg, rules):
+        return moe_apply_manual(p, x, cfg, rules)
+    return moe_apply_auto(p, x, cfg, rules)
+
+
+def moe_apply_auto(p: Params, x: torch.Tensor, cfg, rules: Optional[MeshRules] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_apply_auto``: groups are batch rows. With rules
+    ``x`` is this rank's data shard, every expert's weights are whole on
+    every rank, and the aux term is the global batch's."""
     B, S, d = x.shape
-    plan, aux = route(p, x, cfg)
-    y = combine(expert_ffn(p, dispatch(x, plan)), plan).view(B, S, d)
+    plan, aux = route(p, x, cfg, rules)
+    buf = dispatch(x, plan)
+    constrain(buf.view(plan.n_experts, B, plan.capacity, d), rules,
+              ("expert", "batch", None, None))
+    y = combine(expert_ffn(p, buf), plan).view(B, S, d)
     if cfg.n_shared_experts:
         y = y + _shared(p, x)
-    return y, aux
+    return constrain(y, rules, ("batch", None, None)), aux
+
+
+def _entry(axes: Tuple[str, ...]):
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def manual_specs(cfg, rules: MeshRules) -> Dict:
+    """How the manual path takes each of the layer's leaves over the mesh
+    (the reference's ``in_specs``): the router whole; the experts split
+    over "model" (and, with ``cfg.fsdp``, their d or f dim over the data
+    axes); the shared expert column-parallel over "model"."""
+    fs = _entry(rules.data_axes) if cfg.fsdp else None
+    specs = {"router": (None, None), "wg": ("model", fs, None), "wu": ("model", fs, None),
+             "wo": ("model", None, fs)}
+    if cfg.n_shared_experts:
+        specs["shared"] = {"wg": (None, "model"), "wu": (None, "model"), "wo": ("model", None)}
+    return specs
+
+
+def manual_plan(probs: torch.Tensor, dt, cfg, first: int, n_local: int, cap: int) -> Plan:
+    """The manual path's index-only plan over one group of T tokens, for
+    the experts ``first .. first + n_local - 1``: probs (T, E) float32.
+    Slots are token-major in top-k order (the combine adds a token's k
+    reads in that order, as the reference does); buffer rows are (n_local,
+    cap). A slot of another rank's expert, or past its expert's capacity,
+    reads the zero row (``Plan.dropped`` counts both)."""
+    T, E = probs.shape
+    k = cfg.top_k
+    probs_dt = probs.to(dt)
+    idx = top_k(probs_dt.detach(), k)  # (T, k), largest first
+    gate_vals = torch.gather(probs_dt, -1, idx)
+    gates = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    n, dev = T * k, probs.device
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)  # slots by expert, token order kept
+    se = flat_e[order]
+    starts = torch.searchsorted(se, torch.arange(E, device=dev))
+    pos = torch.arange(n, device=dev) - starts[se]
+    rel = se - first
+    keep = (rel >= 0) & (rel < n_local) & (pos < cap)
+    R = n_local * cap
+    dest = torch.where(keep, rel * cap + pos, R)
+    # ``order`` is a permutation of the slots: each entry written once
+    slot_row = torch.empty_like(order).scatter_(0, order, dest)
+    # a slot not kept writes an entry of its own past R, so no two writes meet
+    row_slot = torch.full((R + n,), n, dtype=torch.int64, device=dev)
+    row_slot = row_slot.scatter_(0, torch.where(keep, dest, R + torch.arange(n, device=dev)),
+                                 order)[:R]
+    return Plan(gates=gates, slot_row=slot_row.view(T, k), row_slot=row_slot, n_experts=n_local,
+                capacity=cap)
+
+
+def moe_apply_manual(p: Params, x: torch.Tensor, cfg, rules: MeshRules
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over "model": the reference's ``shard_map`` body,
+    run on this rank's local shards. ``x`` is this rank's data shard (B_loc,
+    S, d), the same on every "model" rank (or its sequence block under the
+    sequence-parallel override ``seq -> model``, gathered at entry); ``p``
+    holds the leaves as ``manual_specs`` lays them out. The rank's T = B_loc
+    S tokens form one group of capacity C = ceil(k T capacity_factor / E);
+    each rank computes its E / n_model experts' slots and the shared
+    expert's columns, and the partial outputs are summed over "model" once
+    (or sum-scattered back onto the sequence blocks). With ``cfg.fsdp`` the
+    experts' weights arrive split over the data axes and are gathered just
+    in time; their gradients reduce-scatter in the gather's backward. The aux
+    term is the mean over the data shards of each shard's term. Returns (y
+    (B_loc, S, d) or its sequence block, aux)."""
+    mesh, data = rules.mesh, rules.data_axes
+    n_model = rules.axes["model"]
+    E, k = cfg.n_experts, cfg.top_k
+    E_loc = E // n_model
+    if p["wg"].shape[0] != E_loc:
+        raise ValueError(f"moe_apply_manual: experts {tuple(p['wg'].shape)} where this rank "
+                         f"holds {E_loc} of {E} (see manual_specs)")
+    sp = "model" in tuple(rules.overrides.get("seq") or ())
+    # tokens every "model" rank holds alike: each rank's gradient is a part
+    x = C.all_gather(x, mesh, "model", dim=1) if sp else C.pvary(x, mesh, "model")
+    B, S, d = x.shape
+    T, dt = B * S, x.dtype
+    xs = x.reshape(T, d)
+    logits = xs @ C.pvary(p["router"], mesh, "model").to(dt)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    aux = C.pmean(C.pmean(_switch_aux(probs), mesh, data), mesh, "model")
+    cap = int(math.ceil(k * T * cfg.capacity_factor / E))
+    plan = manual_plan(probs, dt, cfg, C.axis_index(mesh, "model") * E_loc, E_loc, cap)
+    w = {name: p[name] for name in ("wg", "wu", "wo")}
+    if cfg.fsdp:
+        w = {name: C.all_gather(t, mesh, data, dim=2 if name == "wo" else 1)
+             for name, t in w.items()}
+    y = combine(expert_ffn(w, dispatch(xs, plan)), plan)
+    if cfg.n_shared_experts:  # column-parallel: a part of the sum over "model"
+        y = y + _shared(p, xs)
+    y = y.view(B, S, d)
+    if sp:  # combine and re-split the sequence in one collective
+        return C.psum_scatter(y, mesh, "model", dim=1), aux
+    return C.psum(y, mesh, "model"), aux
 
 
 def moe_ref(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -40,6 +40,14 @@ def lru_width(cfg) -> int:
     return cfg.lru_width or cfg.d_model
 
 
+#: the logical axes of ``rglru_block_init``'s leaves (the reference's) and
+#: of a rec layer's decode cache
+RGLRU_AXES = {"wx": ("embed", "lru"), "wy": ("embed", "lru"), "conv_w": ("conv", "lru"),
+              "conv_b": ("lru",), "wa": ("lru", "lru"), "ba": ("lru",), "wi": ("lru", "lru"),
+              "bi": ("lru",), "lam": ("lru",), "wo": ("lru", "embed")}
+CACHE_AXES = {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+
+
 def rglru_block_init(gen, cfg, device, dtype) -> Params:
     d, w, cw = cfg.d_model, lru_width(cfg), cfg.conv_width
 

@@ -38,6 +38,18 @@ def _const(shape, value: float, device, dtype) -> torch.Tensor:
     return torch.full(shape, value, dtype=dtype, device=device)
 
 
+#: the logical axes of the time-mix's and channel-mix's leaves (the
+#: reference's) and of an rwkv layer's decode cache
+TIMEMIX_AXES = {**{f"mu_{c}": ("embed",) for c in "rkvgw"}, "w0": ("embed",),
+                "wA": ("embed", None), "wB": (None, "embed"), "u": ("heads", "head_dim"),
+                **{w: ("embed", "heads", "head_dim") for w in ("wr", "wk", "wv", "wg")},
+                "ln_scale": ("embed",), "ln_bias": ("embed",), "wo": ("embed", "embed")}
+CHANNELMIX_AXES = {"mu_k": ("embed",), "mu_r": ("embed",), "wk": ("embed", "mlp"),
+                   "wv": ("mlp", "embed"), "wr": ("embed", "embed")}
+CACHE_AXES = {"wkv": ("batch", "heads", "head_dim", None), "shift_t": ("batch", "embed"),
+              "shift_c": ("batch", "embed")}
+
+
 def timemix_init(gen, cfg, device, dtype) -> Params:
     d, H, N = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
 

@@ -37,11 +37,13 @@ Stacks = Sequence[Tuple[Tuple[str, ...], int]]
 
 
 def _paths(node, path: Path = ()):
-    """(path, leaf) of every leaf under ``node``, dict keys sorted."""
+    """(path, leaf) of every leaf under ``node``, dict keys sorted. A tuple is
+    a leaf (the logical axes or the spec of a parameter: the parameter
+    trees hold dicts and lists only)."""
     if isinstance(node, dict):
         for k in sorted(node):
             yield from _paths(node[k], path + (k,))
-    elif isinstance(node, (list, tuple)):
+    elif isinstance(node, list):
         for i, child in enumerate(node):
             yield from _paths(child, path + (str(i),))
     else:

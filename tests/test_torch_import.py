@@ -84,6 +84,15 @@ TRAIN_MODULES = (
 )
 
 
+# sharding over a mesh (logical-axis rules, collectives, the pipeline, the
+# host and production meshes, elastic re-meshing)
+SHARDING_MODULES = (
+    "repro_torch.core.elastic", "repro_torch.launch.mesh",
+    "repro_torch.sharding", "repro_torch.sharding.collectives", "repro_torch.sharding.pipeline",
+    "repro_torch.sharding.rules",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -125,6 +134,26 @@ def test_train_module_imported_without_jax(module, import_all):
     """Each module of the training path is among those the no-jax import
     loads."""
     assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", SHARDING_MODULES)
+def test_sharding_module_imported_without_jax(module, import_all):
+    """Each module of the sharding slice is among those the no-jax import
+    loads."""
+    assert module in import_all[1]
+
+
+def test_host_mesh_on_cuda_without_a_card_raises(monkeypatch):
+    """``make_host_mesh`` and ``remesh_rules`` build on the card unless the
+    caller asks for the CPU, and never go on on the CPU without one."""
+    from repro_torch.core.elastic import remesh_rules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        make_host_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        remesh_rules(1, 1)
 
 
 def test_trainer_reached_from_core_without_a_cycle():
@@ -210,8 +239,7 @@ def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
         get_arch("kimi-k2-1t-a32b")
     cfg = get_arch("gemma-2b")
-    for change in (dict(moe=True, n_experts=4, top_k=2, moe_impl="manual"),
-                   dict(encoder_layers=1), dict(num_img_tokens=4),
+    for change in (dict(encoder_layers=1), dict(num_img_tokens=4),
                    dict(block_pattern=("rec", "full"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change))

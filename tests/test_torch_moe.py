@@ -287,13 +287,20 @@ def test_forward_and_backward_give_the_same_bits_twice():
 
 
 def test_manual_impl_is_refused():
-    """The expert-parallel path needs a mesh (ROADMAP.md Queue 1, item 9.5)."""
-    _, tcfg = _cfgs(moe_impl="manual")
-    p = M.moe_init(torch.Generator().manual_seed(0), tcfg, "cpu", torch.float32)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        M.moe_apply(p, torch.zeros((1, 4, tcfg.d_model)), tcfg)
-    with pytest.raises(NotImplementedError, match="item 9.5"):
-        build_model(tcfg)
+    """``moe_impl="manual"`` is no longer refused: without rules (no mesh)
+    ``moe_apply`` takes the auto path, bit for bit, as the reference's
+    dispatcher does, and ``build_model`` accepts the config (the manual path
+    itself: ``tests/test_torch_moe_manual.py``)."""
+    B, S, E, k, cf = CASES["narrow"]
+    _, tcfg = _cfgs(n_experts=E, top_k=k, capacity_factor=cf, dtype="bfloat16")
+    mcfg = dataclasses.replace(tcfg, moe_impl="manual")
+    tp = _to_torch(_layer_params(tcfg), torch.bfloat16)
+    tx = torch.tensor(_x((B, S, tcfg.d_model))).to(torch.bfloat16)
+    assert not M.uses_manual(mcfg, None)
+    y, aux = M.moe_apply(tp, tx, mcfg)
+    y0, aux0 = M.moe_apply(tp, tx, tcfg)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    assert build_model(mcfg).cfg.moe_impl == "manual"
 
 
 def test_olmoe_config_and_param_count_match_jax():
