@@ -172,10 +172,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shard timed beside one library call on the same inputs (SDPA, causal;
    masked SDPA for decode) and its bound. Prints the per-shard step times
    beside the card;
-9. prints each phase's seconds, the ``kernels`` JSON line (a float32 attention row's launches are
+9. orchestrator: the live orchestrator (``repro_torch.orchestrator``)
+   supervising real ``python -m repro_torch.orchestrator.worker`` processes
+   on the card, after ``check_free_memory``. (a) The genome live cert of
+   the reference's slow test: ``live_genome_single``, the oracle over
+   ORACLE_CANDIDATES at ORACLE_SEEDS seeds, time scale LIVE_TIME_SCALE, the
+   kill injector, deadline LIVE_DEADLINE_S: the campaign survives with one
+   failure handled, results from shards 0-3, failure < verdict < migrate
+   in the trace, the live makespan within LIVE_REL_ERR of the engine's
+   prediction, no worker crashed, every shard holder's heartbeats from
+   ``cuda``, none of the nine kernels launched, and the merged hits equal
+   to ``search_chunk_plain`` over the same genome on the CPU. (b)
+   ``train_llm`` under the stall injector (SIGSTOP, reaped by the heartbeat
+   stall detector) with STALL_STRATEGY pinned: the plan's calibration
+   surface launches flash_attention's float32 route (``impl`` kernel,
+   ``backend`` cuda), one stall, the same checks, and each shard's loss
+   within TRAIN_LOSS_RTOL of a failure-free ``TrainProgram`` on the card.
+   Prints the live and predicted makespans, the relative error, the
+   oracle's choice, each worker's seconds from spawn to first heartbeat
+   and to warm, and the calibrated against the paced step wall seconds;
+10. prints each phase's seconds, the ``kernels`` JSON line (a float32 attention row's launches are
    its route's, summed over the float32 serve checks, the reduced FT runs,
-   fig15 and the train_llm surfaces; every other row's over the serve and
-   train runs), then the final ``{"ok": true, ...}`` line.
+   fig15, the train_llm surfaces and the orchestrator's train_llm
+   calibration; every other row's over the serve and train runs), then the
+   final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -313,6 +333,24 @@ FIGURE_TRIALS = 30
 SURFACE_SHAPES = ((8, 256, 4, 64), (8, 2048, 8, 256))
 SURFACE_SHARDS = (1, 2, 4)
 SURFACE_N, SURFACE_WARMUP = 2, 1
+# the orchestrator phase: the reference's genome live cert (its slow test's
+# settings: the oracle over ORACLE_CANDIDATES at ORACLE_SEEDS seeds, the
+# kill injector, its deadline and its bound on the live makespan's relative
+# error), then train_llm under the stall injector with a pinned strategy at
+# a faster time scale, its stall timeout STALL_STEPS paced steps (the
+# reference's stall test's), each shard's final loss against a failure-free
+# in-process run on the card within TRAIN_LOSS_RTOL
+LIVE_SCENARIO = "live_genome_single"
+LIVE_TIME_SCALE = 240.0
+ORACLE_CANDIDATES = ("central_single", "core")
+ORACLE_SEEDS = 24
+LIVE_DEADLINE_S = 240.0
+LIVE_REL_ERR = 0.25
+STALL_TIME_SCALE = 480.0
+STALL_STRATEGY = "core"
+STALL_STEPS = 3.0
+TRAIN_LOSS_RTOL = 1e-6
+WORKER_ABORT_S = 300.0
 # the train phase: TRAIN_ARCHS at full width, bf16 activations, float32
 # masters and AdamW moments, batch 4 x 512, TRAIN_STEPS steps on one
 # repeated batch through ``repro_torch.launch.train``. Each is (arch, layers):
@@ -3135,6 +3173,176 @@ def workloads_phase(card: str) -> dict:
     return {"flash_attention": launches["flash_attention"], "flash_attention_bwd": 0}
 
 
+def live_campaign(plan, injector: str, **daemon_kw):
+    """One supervised campaign of real worker processes on the card: the
+    report, the daemon, and the workers' last heartbeats and death
+    certificates. Every worker is reaped however the run ends, and the
+    spool is removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.orchestrator.daemon import OrchestratorDaemon, SubprocessLauncher
+    from repro_torch.orchestrator.spool import Spool
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_spool_")
+    spool = Spool(root)
+    launcher = SubprocessLauncher(spool, plan.workload, plan.seed,
+                                  abort_after_s=WORKER_ABORT_S, device="cuda")
+    daemon = OrchestratorDaemon(plan, spool, launcher, injector=injector,
+                                deadline_wall_s=LIVE_DEADLINE_S, **daemon_kw)
+    try:
+        rep = daemon.run_sync()
+        hbs = {wid: spool.read_heartbeat(wid) for wid in daemon.handles}
+        finals = {wid: spool.read_final(wid) for wid in daemon.handles}
+    finally:
+        for handle in daemon.handles.values():
+            handle.reap()
+        shutil.rmtree(root, ignore_errors=True)
+    return rep, daemon, hbs, finals
+
+
+def live_checks(what: str, rep, daemon, hbs, finals, n_shards: int) -> None:
+    """What every live campaign must show: it survived, one failure handled,
+    a result from every shard, the engine's event order, no worker crashed
+    (by its death certificate or its exit code), and every shard holder's
+    heartbeats from the card."""
+    from repro_torch.orchestrator import contract
+
+    kinds = [e.kind for e in rep.trace.events] if rep.trace is not None else []
+    if not rep.survived:
+        fail(f"orchestrator {what}: campaign lost: {rep.to_dict()}")
+    if rep.n_handled != 1 or sorted(rep.results) != list(range(n_shards)):
+        fail(f"orchestrator {what}: {rep.n_handled} failures handled, results for shards "
+             f"{sorted(rep.results)}: {rep.to_dict()}")
+    if not all(k in kinds for k in ("failure", "verdict", "migrate")) or not (
+            kinds.index("failure") < kinds.index("verdict") < kinds.index("migrate")):
+        fail(f"orchestrator {what}: trace events {kinds}")
+    for wid, handle in daemon.handles.items():
+        code = handle.poll_exit()
+        cause = (finals[wid] or {}).get("cause")
+        if cause == "crashed" or code is None or contract.classify_exit(code) == "crashed":
+            fail(f"orchestrator {what}: worker {wid} exit {code}, final {finals[wid]}")
+    holders = {wid: hb for wid, hb in hbs.items() if hb is not None and hb["shard"] is not None}
+    if len(holders) < n_shards or any(hb.get("device") != "cuda" for hb in holders.values()):
+        fail(f"orchestrator {what}: shard holders' devices "
+             f"{ {w: hb.get('device') for w, hb in holders.items()} }, want cuda")
+
+
+def orchestrator_phase(card: str) -> dict:
+    """The live orchestrator (``repro_torch.orchestrator``) supervising real
+    worker processes on the card. (a) The genome live cert: the oracle picks
+    the strategy, the kill injector SIGKILLs the tape's victim, the daemon
+    migrates its shard, and the merged hits equal the plain search's on the
+    CPU. (b) train_llm under the stall injector (SIGSTOP, reaped by the
+    heartbeat stall detector), a pinned strategy: the plan's calibration
+    launches the float32 flash-attention route, and every shard's final loss
+    matches a failure-free run on the card. Returns the float32 attention
+    routes' launches (the calibration's)."""
+    import torch
+
+    from repro_torch.data.genome import make_genome, search_chunk_plain
+    from repro_torch.kernels import ops
+    from repro_torch.orchestrator.plan import make_live_plan
+    from repro_torch.orchestrator.worker import TrainProgram
+    from repro_torch.scenarios import registry as scenarios
+
+    out = {"card": card}
+
+    # (a) the genome live cert, oracle-chosen strategy, kill injector
+    ops.reset_launch_counts()
+    t0_s = time.perf_counter()
+    spec = scenarios.get(LIVE_SCENARIO)
+    plan = make_live_plan(spec, time_scale=LIVE_TIME_SCALE, seed=0, strategy=None,
+                          candidates=ORACLE_CANDIDATES, n_seeds=ORACLE_SEEDS, device="cuda")
+    plan_s = time.perf_counter() - t0_s
+    if not plan.scores or plan.workload != "genome_search":
+        fail(f"orchestrator genome: plan {plan.to_dict()}")
+    rep, daemon, hbs, finals = live_campaign(plan, "kill")
+    live_s = time.perf_counter() - t0_s - plan_s
+    live_checks("genome", rep, daemon, hbs, finals, spec.n_nodes)
+    if rep.rel_err is None or rep.rel_err >= LIVE_REL_ERR:
+        fail(f"orchestrator genome: live {rep.live_total_s} s against predicted "
+             f"{rep.predicted_total_s} s, relative error {rep.rel_err} (limit {LIVE_REL_ERR})")
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"orchestrator genome: launched {counts}; the genome job runs none of the kernels")
+    genome, patterns, _ = make_genome(length=2048 * spec.n_nodes * plan.n_steps, n_patterns=6,
+                                      seed=plan.seed)
+    want = set(search_chunk_plain(torch.from_numpy(genome), patterns))
+    got = {tuple(h) for r in rep.results.values() for h in r["payload"]["hits"]}
+    if got != want or not want:
+        fail(f"orchestrator genome: {len(got)} merged hits, the plain search's {len(want)}, "
+             f"{len(got ^ want)} differ")
+    spawn = daemon.ready_s["first heartbeat"]
+    warm = daemon.ready_s["warm"]
+    print(f"orchestrator genome on {card}: oracle chose {plan.strategy} of "
+          f"{list(ORACLE_CANDIDATES)} ({ {k: round(v['mean_s'], 3) for k, v in plan.scores.items()} } "
+          f"mean s over {ORACLE_SEEDS} seeds); live {rep.live_total_s:.3f} s against predicted "
+          f"{rep.predicted_total_s:.3f} s (sim), relative error {rep.rel_err:.5f}; "
+          f"{rep.n_migrations} migrations, {len(got)} hits equal to the plain search's")
+    print(f"orchestrator genome: spawn to first heartbeat s "
+          f"{ {w: round(v, 3) for w, v in sorted(spawn.items())} }, to warm "
+          f"{ {w: round(v, 3) for w, v in sorted(warm.items())} }; step wall s calibrated "
+          f"{plan.calibration['step_wall_s']:.6f}, paced {plan.step_wall_s:.6f}; "
+          f"plan {plan_s:.1f} s, live run {live_s:.1f} s")
+    out["genome"] = dict(rep.to_dict(), strategy=plan.strategy, scores=plan.scores,
+                         spawn_to_heartbeat_s=spawn, spawn_to_warm_s=warm,
+                         calibrated_step_wall_s=plan.calibration["step_wall_s"],
+                         paced_step_wall_s=plan.step_wall_s, plan_s=plan_s, live_s=live_s)
+
+    # (b) train_llm under the stall injector, a pinned strategy
+    ops.reset_launch_counts()
+    t0_s = time.perf_counter()
+    spec = scenarios.get(LIVE_SCENARIO)
+    spec.workload = "train_llm"
+    plan = make_live_plan(spec, time_scale=STALL_TIME_SCALE, seed=0, strategy=STALL_STRATEGY,
+                          device="cuda")
+    counts, f32 = ops.launch_counts(), ops.f32_launch_counts()
+    surface = plan.calibration["surface"]
+    if (surface["impl"], surface["backend"]) != ("kernel", "cuda") or not (
+            counts["flash_attention"] == f32["flash_attention"] == surface["launches"] > 0):
+        fail(f"orchestrator train_llm: calibration surface impl {surface['impl']}, backend "
+             f"{surface['backend']}, {surface['launches']} launches; counts {counts}, "
+             f"float32 routes {f32}")
+    plan_s = time.perf_counter() - t0_s
+    rep, daemon, hbs, finals = live_campaign(
+        plan, "stall", stall_timeout_wall_s=STALL_STEPS * plan.step_wall_s)
+    live_s = time.perf_counter() - t0_s - plan_s
+    live_checks("train_llm", rep, daemon, hbs, finals, spec.n_nodes)
+    if rep.n_stalls != 1:
+        fail(f"orchestrator train_llm: {rep.n_stalls} stalls detected, want 1")
+    losses = {}
+    for shard, r in sorted(rep.results.items()):
+        ref = TrainProgram(plan.seed, shard, device="cuda")
+        for _ in range(plan.n_steps):
+            ref.step()
+        want, got = ref.result()["loss"], r["payload"]["loss"]
+        if r["steps_done"] != plan.n_steps or abs(got - want) > TRAIN_LOSS_RTOL * abs(want):
+            fail(f"orchestrator train_llm shard {shard}: loss {got} after {r['steps_done']} "
+                 f"steps, failure-free {want}")
+        losses[shard] = (got, want)
+    spawn = daemon.ready_s["first heartbeat"]
+    warm = daemon.ready_s["warm"]
+    print(f"orchestrator train_llm (stall, {STALL_STRATEGY}) on {card}: live "
+          f"{rep.live_total_s:.3f} s against predicted {rep.predicted_total_s:.3f} s (sim), "
+          f"relative error {rep.rel_err:.5f}; {rep.n_stalls} stall reaped; losses against "
+          f"failure-free { {k: (round(a, 8), round(b, 8)) for k, (a, b) in losses.items()} }")
+    print(f"orchestrator train_llm: spawn to first heartbeat s "
+          f"{ {w: round(v, 3) for w, v in sorted(spawn.items())} }, to warm "
+          f"{ {w: round(v, 3) for w, v in sorted(warm.items())} }; step wall s calibrated "
+          f"{plan.calibration['step_wall_s']:.6f}, paced {plan.step_wall_s:.6f}; calibration "
+          f"surface {surface['kernel']} {surface['impl']} on {surface['backend']}, "
+          f"{surface['launches']} launches, step s {surface['step_time_s']}; plan {plan_s:.1f} s, "
+          f"live run {live_s:.1f} s")
+    out["train_llm"] = dict(rep.to_dict(), strategy=plan.strategy, spawn_to_heartbeat_s=spawn,
+                            spawn_to_warm_s=warm,
+                            calibrated_step_wall_s=plan.calibration["step_wall_s"],
+                            paced_step_wall_s=plan.step_wall_s, surface=surface,
+                            losses=losses, plan_s=plan_s, live_s=live_s)
+    print(json.dumps({"orchestrator": out}))
+    return {"flash_attention": f32["flash_attention"], "flash_attention_bwd": 0}
+
+
 def main() -> int:
     import torch
 
@@ -3214,8 +3422,11 @@ def main() -> int:
     lap("campaign")
     add_f32(workloads_phase(card))
     lap("workloads")
+    check_free_memory("the orchestrator phase")
+    add_f32(orchestrator_phase(card))
+    lap("orchestrator")
     print(f"float32 route launches: {f32} (float32 serve checks, reduced FT, fig15, "
-          f"train_llm surfaces)")
+          f"train_llm surfaces, the orchestrator's train_llm calibration)")
 
     for r in rows:
         # a float32 attention row counts its route's launches on the float32 paths

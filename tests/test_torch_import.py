@@ -93,6 +93,18 @@ SHARDING_MODULES = (
 )
 
 
+# the live orchestrator (daemon, worker, spool, injectors, planning oracle,
+# test doubles, CLI)
+ORCHESTRATOR_MODULES = (
+    "repro_torch.orchestrator", "repro_torch.orchestrator.__main__",
+    "repro_torch.orchestrator.cli", "repro_torch.orchestrator.contract",
+    "repro_torch.orchestrator.daemon", "repro_torch.orchestrator.injector",
+    "repro_torch.orchestrator.plan", "repro_torch.orchestrator.registry",
+    "repro_torch.orchestrator.spool", "repro_torch.orchestrator.testing",
+    "repro_torch.orchestrator.worker",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -140,6 +152,13 @@ def test_train_module_imported_without_jax(module, import_all):
 def test_sharding_module_imported_without_jax(module, import_all):
     """Each module of the sharding slice is among those the no-jax import
     loads."""
+    assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", ORCHESTRATOR_MODULES)
+def test_orchestrator_module_imported_without_jax(module, import_all):
+    """Each module of the live orchestrator is among those the no-jax import
+    loads (``__main__`` too: its CLI call is guarded)."""
     assert module in import_all[1]
 
 
