@@ -78,6 +78,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    greedy tokens against the auto path), ``pipeline_apply`` over gemma-2b
    blocks against the blocks in sequence, and a reduced train step with
    rules before and after ``remesh_rules``; it destroys its process group;
+   tp: the "model"-axis split (``tp_phase``): two processes share the card
+   in a (1, 2) mesh over gloo (its collectives on the CUDA tensors),
+   gemma-2b, rwkv6-1.6b and
+   recurrentgemma-9b at full width in float32, depth cut (TP_ARCHS), each
+   rank on its shards: prefill logits, the greedy tokens of 8 decode steps,
+   the loss and every gradient leaf against the same run on one rank, and
+   every kernel forward and backward launched on each rank on its local
+   slices (its counter, and the profiler's kernels by name); first the
+   attention kernels on a kv-head view at an offset, bit for bit as on a
+   contiguous copy;
+   dryrun: ``python -m repro_torch.launch.dryrun`` on two cells
+   (DRYRUN_CELLS), each in a subprocess on fake tensors (no device memory):
+   peak GB a device and the three roofline terms, analytic from the
+   H100's data-sheet peaks;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
    recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
    qwen2.5-3b and olmoe-1b-7b (prompt 512) at full width, random weights
@@ -105,9 +119,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    GRAD_F32_ARCHS); a profile of a step; the FTTrainer's lossless invariant at
    reduced size under hybrid, agent, core and checkpoint (gemma) and
    hybrid (rwkv6, recurrentgemma, olmoe), and ``launch.fig15``'s two tables; one
-   hybrid run of gemma-2b at full width with a predicted failure (one
-   migration of the whole 28 GiB state through host memory) bit-identical
-   to a failure-free run. Each phase ends by collecting and emptying the
+   hybrid run of gemma-2b at full width and FT_FULL_LAYERS layers with a
+   predicted failure (one migration of the whole state through host
+   memory) bit-identical to a failure-free run. Each phase ends by collecting and emptying the
    allocator's cache; before each full-width training run the device
    memory still allocated is printed, and more than LEFTOVER_BYTES fails
    the run. The reduced FT runs must launch both float32 attention routes,
@@ -414,6 +428,43 @@ GRAD_TOL_F32 = 0.1
 # device memory that may still be allocated before a full-width training
 # run: a full-width state is 19-50 GiB, so more than this is a leak
 LEFTOVER_BYTES = 2 ** 30
+# the full-width FT run: ARCH at full width with its depth cut to
+# FT_FULL_LAYERS of 18 (its two runs took 293.4 and 370.6 s of 1111.2 and
+# 1298.7 s at full depth, the 28 GiB migration 122-197 s of that, on an
+# NVIDIA H100 80GB HBM3 at 700 W; at 4 layers the script took 815.1 s):
+# one migration of the whole state, bit-identical to the failure-free run
+FT_FULL_LAYERS = 4
+# the "model"-axis split on the card (tp_phase): TP_RANKS processes share
+# the one card in a (1, TP_RANKS) mesh over gloo, each arch at full width
+# in float32 with its depth cut (arch, layers): two layers of gemma-2b and
+# rwkv6-1.6b, one (rec, rec, attn) group of recurrentgemma-9b; a batch of
+# TP_BATCH x TP_PROMPT, TP_STEPS greedy decode steps and one train step,
+# against the same run on one rank without rules: prefill logits within
+# TP_LOGITS_TOL, the greedy tokens equal, the loss within TP_LOSS_RTOL
+# relative, each gradient leaf within TP_GRAD_RTOL of its largest magnitude,
+# or within twice the float32 noise of the one-rank gradient itself where
+# that is larger: the one-rank run's kernel path against its plain path
+# (``ops.plain_versions``) on the same leaf. A leaf whose entries are sums
+# that cancel (rwkv6's group-norm bias) reads its float32 rounding far
+# above 1e-4 of its magnitude (2.92e-4 for layers/0/tm/ln_bias on an
+# NVIDIA H100 80GB HBM3 at 700 W), on one rank as on two
+TP_RANKS = 2
+TP_ARCHS = (("gemma-2b", 2), ("rwkv6-1.6b", 2), ("recurrentgemma-9b", 3))
+TP_BATCH, TP_PROMPT, TP_STEPS = 2, 256, 8
+TP_LOGITS_TOL, TP_LOSS_RTOL, TP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
+# kernel -> the names of its CUDA kernels in a profiler trace (substrings)
+TP_KERNEL_NAMES = {
+    "rmsnorm": ("rmsnorm_kernel", "rmsnorm_warp_kernel"),
+    "rmsnorm_bwd": ("rmsnorm_bwd_kernel", "rmsnorm_bwd_warp_kernel", "rmsnorm_dscale_kernel"),
+    "flash_attention": ("flash_f32_kernel", "flash_tc_kernel"),
+    "flash_attention_bwd": ("flash_bwd_f32_kernel", "flash_bwd_tc_kernel"),
+    "flash_decode": ("decode_kernel",),
+    "wkv6": ("wkv6_kernel",), "wkv6_bwd": ("wkv6_bwd_",),
+    "rglru": ("rglru_kernel",), "rglru_bwd": ("rglru_bwd_kernel",)}
+# the dry run's cells on the card's host (dryrun_phase): fake tensors, no
+# device memory; their roofline terms are analytic, from data-sheet peaks
+DRYRUN_CELLS = (("deepseek-7b", "train_4k", "multi"), ("olmoe-1b-7b", "decode_32k", "single"))
+DRYRUN_TIMEOUT_S = 120
 
 
 def fail(msg: str) -> None:
@@ -3038,18 +3089,18 @@ def fig15_phase(card: str) -> None:
 
 
 def full_width_ft(card: str) -> None:
-    """One hybrid run of gemma-2b at full width and depth with a predicted
-    failure, so one migration of the whole training state through host
-    memory, against a failure-free run: the final states must be
-    bit-identical."""
+    """One hybrid run of gemma-2b at full width and FT_FULL_LAYERS layers
+    with a predicted failure, so one migration of the whole training state
+    through host memory, against a failure-free run: the final states must
+    be bit-identical."""
     import shutil
 
-    from repro_torch.configs import get_arch
     from repro_torch.core.failure import FailureEvent
     from repro_torch.launch.train import make_trainer
     from repro_torch.utils.tree import tree_bytes, tree_hash
 
-    cfg = get_arch(ARCH)
+    cfg = train_config(ARCH, FT_FULL_LAYERS)
+    print(f"ft full width: {train_label(cfg)}")
     hashes, reps = [], []
     fails = [FailureEvent(t=FT_FULL_FAIL_T, node=0, predictable=True, lead_s=FT_FULL_LEAD_S)]
     for policy, failures in (("hybrid_ref", []), ("hybrid", fails)):
@@ -3065,7 +3116,7 @@ def full_width_ft(card: str) -> None:
         hashes.append(tree_hash(tr.state))
         reps.append(rep)
         moved = [e for e in rep.events if e.get("kind") == "predicted_failure_avoided"]
-        print(f"ft full width {ARCH} {policy} on {card}: state "
+        print(f"ft full width {train_label(cfg)} {policy} on {card}: state "
               f"{state_bytes / 2**30:.2f} GiB, {rep.steps_run} steps, migrations "
               f"{rep.migrations}, checkpoints {rep.checkpoints}, train_time_s "
               f"{rep.train_time_s:.3f}, ft_time_s {rep.ft_time_s:.3f}, overhead_fraction "
@@ -3343,6 +3394,310 @@ def orchestrator_phase(card: str) -> dict:
     return {"flash_attention": f32["flash_attention"], "flash_attention_bwd": 0}
 
 
+def tp_config(arch: str, layers: int):
+    """``arch`` at full width in float32 activations, its depth cut."""
+    import dataclasses
+
+    return dataclasses.replace(train_config(arch, layers), dtype="float32")
+
+
+def tp_run(cfg, rules, dev, seed: int, plain: bool = False) -> dict:
+    """One run of ``cfg`` on this rank's shards (all of it without rules):
+    parameters from ``seed`` (float32 masters, the same draw on every rank,
+    then cut as ``run_specs`` lays them out), the prefill of a TP_BATCH x
+    TP_PROMPT prompt, TP_STEPS greedy decode steps, and the loss and its
+    gradients on the prompt (the plain versions with ``plain``). Returns the
+    logits, tokens, loss, gradients (by leaf path, this rank's shard) and
+    the seconds of each part."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import map_specs
+    from repro_torch.train.optim import _paths
+    from repro_torch.utils.tree import flatten, unflatten
+
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = model.init(g, dev, param_dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT), generator=g, device=dev)
+    if rules is not None:
+        specs = model.run_specs(rules)
+        params = map_specs(lambda spec, t: rules.local_shard(t, spec).clone(), specs, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), ops.plain_versions() if plain else contextlib.nullcontext():
+        logits, cache = model.prefill(params, prompt, rules, cache_len=TP_PROMPT + TP_STEPS)
+        first, tokens = logits.cpu(), []
+        for i in range(TP_STEPS):
+            tok = logits.argmax(dim=-1)[:, None]
+            tokens.append(tok[:, 0].cpu())
+            logits, cache = model.decode(params, tok, TP_PROMPT + i, cache, rules)
+    del cache
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    leaves, treedef = flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    with ops.plain_versions() if plain else contextlib.nullcontext():
+        loss = model.loss(unflatten(treedef, live), {"tokens": prompt}, rules)
+        grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    names = ["/".join(path) for path, _ in _paths(unflatten(treedef, list(range(len(live)))))]
+    order = [i for _, i in _paths(unflatten(treedef, list(range(len(live)))))]
+    return {"logits": first, "tokens": torch.stack(tokens, 1), "loss": float(loss.detach()),
+            "grads": {n: grads[i].cpu() for n, i in zip(names, order)},
+            "serve_s": t1 - t0, "train_s": t2 - t1}
+
+
+def _tp_rank(rank: int, tmp: str) -> None:
+    """One of TP_RANKS processes on the card: a gloo group through a file
+    store, a check that gloo runs every collective of the split on CUDA
+    tensors (``gloo_on_cuda``), the (1, TP_RANKS) mesh, every TP_ARCHS run
+    on its shards under a profiler; its results, launch counts and the
+    profiler's kernels by name saved to ``tmp``."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import MeshRules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=TP_RANKS)
+    try:
+        gloo_on_cuda()
+        rules = MeshRules(make_host_mesh(1, TP_RANKS, "cuda"))
+        out = {"coord": rules.coordinate(), "runs": {}}
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for arch, layers in TP_ARCHS:
+                out["runs"][arch] = tp_run(tp_config(arch, layers), rules, dev, seed=5)
+                free_device_memory()
+        out["launches"] = ops.launch_counts()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        out["profiled"] = {k: sum(any(p in n for p in pats) for n in names)
+                           for k, pats in TP_KERNEL_NAMES.items()}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_on_cuda() -> None:
+    """Each collective kind the split uses, once on CUDA tensors through the
+    job's gloo group: a gloo build that does not take CUDA tensors for one
+    of them fails here, by name, before the runs."""
+    import torch
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    x = torch.ones(4 * n, device="cuda")
+    tries = {"all-reduce": lambda: dist.all_reduce(x.clone()),
+             "all-gather": lambda: dist.all_gather_into_tensor(x.new_empty(4 * n * n), x),
+             "reduce-scatter": lambda: dist.reduce_scatter_tensor(x.new_empty(4), x)}
+    for kind, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, TypeError, NotImplementedError) as e:
+            fail(f"tp phase: gloo does not run {kind} on CUDA tensors: {e}")
+
+
+def tp_slice_check(dev) -> None:
+    """The kv heads a rank's q heads read, where the heads split over
+    "model" and the kv heads do not, reach the kernels as a view of the
+    whole (B, S, K, hd) projection or cache (``models.layers._select``): its
+    base moves by whole heads and its strides are the whole tensor's. Here
+    each attention kernel, forward and backward, at head dim 64 and 128 in
+    bf16 and float32, runs on a view of kv head 3 of 8 and must give the
+    same bits as on a contiguous copy of it (no kernel refuses or copies
+    it into another result)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import _select
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128):
+            B, S, H, K = 2, 256, 4, 8
+            q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+            kv = [torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype)
+                  for _ in range(2)]
+            view = [_select(t, (3, 1), 2).transpose(1, 2) for t in kv]
+            copy = [v.contiguous() for v in view]
+            qt = q.transpose(1, 2)
+            outs = []
+            for k, v in (view, copy):
+                qg, kg, vg = (t.detach().requires_grad_() for t in (qt, k, v))
+                o = ops.flash_attention(qg, kg, vg, causal=True)
+                grads = torch.autograd.grad(o.float().square().sum(), (qg, kg, vg))
+                outs.append((o.detach(), *grads))
+            kpos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+            dec = [ops.flash_decode(q[:, -1], k, v, kpos, S - 1) for k, v in (view, copy)]
+            same = all(torch.equal(a, b) for a, b in zip(*outs)) and torch.equal(*dec)
+            if not same:
+                fail(f"tp: the kernels on a kv-head view ({dtype}, hd {hd}) differ from a copy")
+    print("tp: flash_attention (forward, backward) and flash_decode on kv-head views at an "
+          "offset give the bits of a contiguous copy (bf16, float32; hd 64, 128)")
+
+
+def tp_phase(card: str) -> dict:
+    """The "model"-axis split on the card: TP_RANKS processes share the one
+    H100 in a (1, TP_RANKS) mesh. NCCL refuses two ranks on one device, so
+    they join a gloo group, which runs the all-reduce, all-gather and
+    reduce-scatter on the CUDA tensors themselves (``gloo_on_cuda`` checks
+    each first). Each TP_ARCHS config at
+    full width in float32, depth cut, runs on each rank's shards as
+    ``run_specs`` lays them out, and the same run on one rank without rules
+    here first: the ranks' prefill logits within TP_LOGITS_TOL of it, the
+    greedy tokens of TP_STEPS decode steps equal, the loss within
+    TP_LOSS_RTOL relative, each gradient leaf (the rank's shard) within
+    TP_GRAD_RTOL of the leaf's largest magnitude. On every rank each of the
+    nine kernels launches (its counter) and shows in a profiler trace by
+    name. Returns the ranks' launches, summed."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import MeshRules, MeshShape
+
+    check_free_memory("the tp phase")
+    dev = torch.device("cuda", 0)
+    tp_slice_check(dev)
+    want, noise = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # the ranks start (their torch import, their CUDA context) while the
+        # one-rank runs take the card here
+        ctx = mp.spawn(_tp_rank, args=(tmp,), nprocs=TP_RANKS, join=False)
+        for arch, layers in TP_ARCHS:
+            want[arch] = tp_run(tp_config(arch, layers), None, dev, seed=5)
+            free_device_memory()
+            plain = tp_run(tp_config(arch, layers), None, dev, seed=5, plain=True)
+            noise[arch] = {n: float((g - want[arch]["grads"][n]).abs().max())
+                           for n, g in plain["grads"].items()}
+            del plain
+            print(f"tp {arch} ({layers} layers) one rank: prefill + {TP_STEPS} decode "
+                  f"{want[arch]['serve_s']:.3f} s, loss and grads {want[arch]['train_s']:.3f} s")
+            free_device_memory()
+        while not ctx.join():
+            pass
+        ranks = [torch.load(f"{tmp}/rank{r}.pt") for r in range(TP_RANKS)]
+    print(f"tp phase on {card}: {TP_RANKS} ranks in {time.perf_counter() - t0:.1f} s; gloo ran "
+          f"the all-reduce, all-gather and reduce-scatter on CUDA tensors")
+    launches = {}
+    for r in ranks:
+        rules = MeshRules(MeshShape(("data", "model"), (1, TP_RANKS)))
+        for arch, layers in TP_ARCHS:
+            got, ref = r["runs"][arch], want[arch]
+            tag = f"tp {arch} rank {r['coord']['model']}"
+            err = float((got["logits"] - ref["logits"]).abs().max())
+            if not err <= TP_LOGITS_TOL:
+                fail(f"{tag}: prefill logits {err:.3g} from one rank's > {TP_LOGITS_TOL}")
+            if not torch.equal(got["tokens"], ref["tokens"]):
+                fail(f"{tag}: greedy tokens {got['tokens'].tolist()} vs one rank's "
+                     f"{ref['tokens'].tolist()}")
+            loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            if not loss_err <= TP_LOSS_RTOL:
+                fail(f"{tag}: loss {got['loss']} vs one rank's {ref['loss']}")
+            specs = dict(_tp_paths(build_model(tp_config(arch, layers)).run_specs(rules)))
+            worst, where, over = 0.0, "", []
+            for name, g in got["grads"].items():
+                w = rules.local_shard(ref["grads"][name], specs[name], r["coord"])
+                if tuple(g.shape) != tuple(w.shape):
+                    fail(f"{tag}: gradient {name} {tuple(g.shape)}, its shard {tuple(w.shape)}")
+                scale = max(float(ref["grads"][name].abs().max()), 1e-30)
+                rel = float((g - w).abs().max()) / scale
+                if rel > max(TP_GRAD_RTOL, 2 * noise[arch][name] / scale):
+                    over.append(f"{name} {rel:.3g} (float32 noise {noise[arch][name] / scale:.3g})")
+                if rel > worst:
+                    worst, where = rel, f"{name}, float32 noise {noise[arch][name] / scale:.3g}"
+            if over:
+                fail(f"{tag}: gradients from one rank's beyond {TP_GRAD_RTOL} of their largest "
+                     f"magnitude and twice their float32 noise: {over}")
+            print(f"{tag} of {TP_RANKS}: prefill logits {err:.3g}, tokens equal over "
+                  f"{TP_STEPS} steps, loss rel {loss_err:.3g}, worst gradient {worst:.3g} of "
+                  f"its largest magnitude ({where}); prefill + decode {got['serve_s']:.3f} s, "
+                  f"loss and grads {got['train_s']:.3f} s (the ranks share the card)")
+        missing = [k for k, n in r["launches"].items() if n == 0]
+        unseen = [k for k, n in r["profiled"].items() if n == 0]
+        if missing or unseen:
+            fail(f"tp rank {r['coord']['model']}: no launch of {missing}, not in the trace "
+                 f"{unseen}")
+        print(f"tp rank {r['coord']['model']}: launches {r['launches']}; profiler kernels by "
+              f"name {r['profiled']}")
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    del want, ranks
+    free_device_memory()
+    ops.reset_launch_counts()
+    return launches
+
+
+def _tp_paths(specs):
+    from repro_torch.train.optim import _paths
+
+    return [("/".join(path), spec) for path, spec in _paths(specs)]
+
+
+def dryrun_start() -> list:
+    """Starts ``python -m repro_torch.launch.dryrun`` on each of
+    DRYRUN_CELLS, a subprocess each, all at once (fake tensors over a fake
+    process group of 256 or 512 ranks; the card is hidden from them; they
+    run on the host's cores while the card does other work). Any still
+    running when the script exits are killed."""
+    import atexit
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = ROOT / "build" / "dryrun" / f"{arch}.{shape}.{mesh}.baseline.json"
+        procs.append((arch, shape, mesh, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", mesh, "--out", str(out)], stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, env=env)))
+    atexit.register(lambda: [p.kill() for *_, p in procs if p.poll() is None])
+    return procs
+
+
+def dryrun_phase(card: str, procs: list) -> None:
+    """The dry-run cells that ``dryrun_start`` started: each must write its
+    record; the peak GB a device and the three roofline terms are printed,
+    analytic from the H100's data-sheet peaks (989 TFLOP/s bf16, 3.35 TB/s,
+    450 GB/s a link direction), not measured."""
+    for arch, shape, mesh, out, proc in procs:
+        try:
+            _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for *_, p in procs:
+                p.kill()
+            fail(f"dryrun {arch} {shape} {mesh}: over {DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}: {err[-2000:]}")
+        r = json.loads(out.read_text())
+        if "roofline" not in r:
+            fail(f"dryrun {arch} {shape} {mesh}: no roofline in {r}")
+        rf, mem = r["roofline"], r["memory"]
+        print(f"dryrun {arch} {shape} {mesh} (host of {card}; analytic, H100 data-sheet peaks, "
+              f"not measured): peak {mem['peak_per_device'] / 1e9:.3f} GB a device (fits 80 GB: "
+              f"{mem['fits_hbm']}), compute {rf['compute_s']:.5f} s, memory "
+              f"{rf['memory_s']:.5f} s, collective {rf['collective_s']:.5f} s, bottleneck "
+              f"{rf['bottleneck']}, useful FLOP ratio {r['useful_compute_ratio']:.4f}, traced in "
+              f"{r['trace_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3394,6 +3749,11 @@ def main() -> int:
     mesh_counts, mesh_f32 = mesh_phase(dev, card, auto_moe)
     add_f32(mesh_f32)
     lap("mesh")
+    dry = dryrun_start()
+    tp_phase(card)
+    lap("tp")
+    dryrun_phase(card, dry)
+    lap("dryrun")
     launches = {r["name"]: 0 for r in rows}  # summed over the serve, mesh and train runs
     for name, n in mesh_counts.items():
         launches[name] += n

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ShapeCfg,
     all_archs,
+    applicable,
     get_arch,
     register,
 )

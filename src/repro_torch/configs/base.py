@@ -62,6 +62,14 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if serving memory/compute does not grow quadratically in seq."""
+        if self.attn_free:
+            return True
+        # a hybrid whose only attention is windowed (griffin)
+        return bool(self.block_pattern and self.window > 0 and "full" not in self.block_pattern)
+
     def reduced(self) -> "ArchConfig":
         """A tiny same-family variant for CPU tests; the same changes as
         ``repro.configs.base.ArchConfig.reduced`` for the families the port
@@ -114,6 +122,13 @@ SHAPES: Dict[str, ShapeCfg] = {
     "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
+
+
+def applicable(arch: ArchConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell of the dry run; if not, why."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "long_500k skipped: full (quadratic) attention arch"
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -12,16 +12,25 @@ stay float32 because the norm multiplies in float32.
 The norm, prefill attention and decode attention go through
 :mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the projections
 and the MLP are plain matrix products.
+
+Under ``rules`` each function runs on this rank's shards
+(:mod:`repro_torch.sharding.tp`). Attention: q (and k / v where "kv_heads"
+splits too) hold this rank's heads, ``wo`` their rows, and the output is a
+part summed over "model". Where the heads split and the kv heads do not,
+every rank computes all kv heads (the cache is whole, as the rules lay it)
+and hands the kernels the ones its q heads read (:func:`kv_heads`). The MLP
+is column-split (``wg`` / ``wu`` / ``wi``) then row-split (``wo``).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import tp
 
 INIT_STD = 0.02
 
@@ -115,40 +124,92 @@ def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
-    """out: (B, S, H, hd) -> (B, S, d)."""
+KVSelect = Union[None, Tuple[int, int], torch.Tensor]
+
+
+def kv_heads(s: Optional[tp.Split], n_local: int, cfg) -> KVSelect:
+    """The kv heads that this rank's ``n_local`` q heads read when the heads
+    split over "model" and the kv heads do not: None when the rank's kv
+    heads are its q heads' already (nothing split, or both split alike);
+    else (first, count) of a contiguous run, each kv head serving the same
+    number of local q heads (the kernels' group is then local H / count);
+    else, when the run is uneven, one kv head a q head as an index tensor
+    (group 1)."""
+    if s is None:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = tp.offset(s, n_local)
+    if n_local % g == 0:
+        return h0 // g, n_local // g
+    if g % n_local == 0:
+        return h0 // g, 1
+    return torch.arange(h0, h0 + n_local) // g
+
+
+def _select(t: torch.Tensor, sel: KVSelect, dim: int) -> torch.Tensor:
+    """The selected kv heads along ``dim``: a view for a contiguous run (its
+    strides are the whole tensor's and its base moves by whole heads, so it
+    keeps the kernels' 16-byte alignment and stride rules), a gathered
+    copy for an index tensor."""
+    if sel is None:
+        return t
+    if isinstance(sel, tuple):
+        return t.narrow(dim, *sel)
+    return t.index_select(dim, sel.to(t.device))
+
+
+def _split(p: Params, x: torch.Tensor, cfg, rules):
+    """(the heads' split, the kv selection, the block's input, its leaves):
+    the input and the whole kv leaves pass ``tp.vary`` where the heads
+    split."""
+    s = tp.split(rules, p["wq"].shape[1], cfg.n_heads)
+    if s is None:
+        return None, None, x, p
+    if p["wk"].shape[1] != cfg.n_kv_heads:  # kv heads split alike: all leaves local
+        return s, None, tp.vary(s, x), p
+    whole = {k: tp.vary(s, p[k]) for k in ("wk", "wv", "bk", "bv") if k in p}
+    return s, kv_heads(s, p["wq"].shape[1], cfg), tp.vary(s, x), {**p, **whole}
+
+
+def _out_proj(p: Params, out: torch.Tensor, s: Optional[tp.Split] = None) -> torch.Tensor:
+    """out: (B, S, H, hd) -> (B, S, d), summed over "model" when split."""
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ p["wo"].to(out.dtype).reshape(H * hd, -1)
+    return tp.psum(s, out.reshape(B, S, H * hd) @ p["wo"].to(out.dtype).reshape(H * hd, -1))
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-                      window: int = 0):
+                      window: int = 0, rules=None):
     """Causal self-attention over a prompt whose positions are 0..S-1, each
     query seeing the last ``window`` positions when ``window`` > 0.
 
     Returns (y, k, v); k (roped) and v are (B, S, n, hd), the numbers the
-    reference's ``_kv_from_prefill`` recomputes for the cache."""
+    reference's ``_kv_from_prefill`` recomputes for the cache (this rank's
+    kv heads under rules)."""
+    s, sel, x, p = _split(p, x, cfg, rules)
     q, k, v = _qkv(p, x, cfg, positions)
     out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
+        q.transpose(1, 2), _select(k, sel, 2).transpose(1, 2),
+        _select(v, sel, 2).transpose(1, 2), causal=True, window=window
     )  # (B, H, S, hd)
-    return _out_proj(p, out.transpose(1, 2)), k, v
+    return _out_proj(p, out.transpose(1, 2), s), k, v
 
 
 def attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, rules=None) -> torch.Tensor:
     """``attention_prefill`` for the training loss: the output only, no
     cache. Under autograd the attention runs the flash kernels' forward and
     backward (``ops.flash_attention``)."""
+    s, sel, x, p = _split(p, x, cfg, rules)
     q, k, v = _qkv(p, x, cfg, positions)
     out = ops.flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True, window=window
+        q.transpose(1, 2), _select(k, sel, 2).transpose(1, 2),
+        _select(v, sel, 2).transpose(1, 2), causal=True, window=window
     )
-    return _out_proj(p, out.transpose(1, 2))
+    return _out_proj(p, out.transpose(1, 2), s)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
-                     window: int = 0):
+                     window: int = 0, rules=None):
     """One new token per row at position ``pos`` against the layer's cache
     {"k", "v": (B, W, n, hd), "kpos": (B, W) int32}, seeing the last
     ``window`` positions when ``window`` > 0.
@@ -157,6 +218,7 @@ def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
     the token's k/v and position are written into slot ``pos % W`` in
     place, and the kernel reads the cache in this layout through strides."""
     B = x.shape[0]
+    s, sel, x, p = _split(p, x, cfg, rules)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
     slot = pos % cache["k"].shape[1]
@@ -164,10 +226,10 @@ def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
     cache["v"][:, slot] = v[:, 0]
     cache["kpos"][:, slot] = pos
     out = ops.flash_decode(
-        q[:, 0], cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), cache["kpos"], pos,
-        window=window,
+        q[:, 0], _select(cache["k"], sel, 2).transpose(1, 2),
+        _select(cache["v"], sel, 2).transpose(1, 2), cache["kpos"], pos, window=window,
     )  # (B, H, hd)
-    return _out_proj(p, out[:, None])
+    return _out_proj(p, out[:, None], s)
 
 
 def attention_cache_init(cfg, batch: int, length: int, dtype, device) -> Params:
@@ -209,9 +271,13 @@ def mlp_axes(cfg) -> Dict:
     return {"wi": ("embed", "mlp"), "bi": ("mlp",), "wo": ("mlp", "embed"), "bo": ("embed",)}
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, cfg, rules=None) -> torch.Tensor:
+    """The MLP; under rules on this rank's columns of the "mlp" dim, its
+    part summed over "model" (``bo`` added once, after the sum)."""
     dt = x.dtype
+    s = tp.split(rules, p["wo"].shape[0], cfg.d_ff)
+    x = tp.vary(s, x)
     if "wg" in p:
         act = F.silu if cfg.mlp == "swiglu" else gelu
-        return (act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))) @ p["wo"].to(dt)
-    return gelu(x @ p["wi"].to(dt) + p["bi"].to(dt)) @ p["wo"].to(dt) + p["bo"].to(dt)
+        return tp.psum(s, (act(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))) @ p["wo"].to(dt))
+    return tp.psum(s, gelu(x @ p["wi"].to(dt) + p["bi"].to(dt)) @ p["wo"].to(dt)) + p["bo"].to(dt)

@@ -23,15 +23,20 @@ With ``cfg.moe`` an attention block's FFN is the mixture of experts of
 ``loss`` trains every kind.
 
 Over a mesh (``rules``, :mod:`repro_torch.sharding.rules`) each rank runs
-``prefill``, ``decode`` and ``loss`` on its data shard of the batch, and
-every FFN gets the rules, as the reference's ``_ffn_apply`` does: an MoE
-with ``moe_impl="manual"`` takes the expert-parallel path over "model",
-holding its layer leaves as ``run_specs`` says; every other leaf is whole
-on every rank (the reference's "model"-axis split of attention, MLP and
-vocabulary comes from XLA's partitioner and waits for the dry run,
-ROADMAP.md Queue 1, item 9.6). ``loss`` returns the global batch's loss on
-every rank. ``param_axes``, ``abstract_init``, ``input_specs`` and
-``abstract_cache`` give the logical axes and shapes the rules read.
+``prefill``, ``decode`` and ``loss`` on its data shard of the batch and
+holds every leaf as ``run_specs`` says: the rules' spec, the reference's
+layout. The reference gets its "model"-axis split of attention, MLP,
+RG-LRU, RWKV heads, experts and vocabulary from XLA's partitioner; the
+port's blocks split their own work (:mod:`repro_torch.sharding.tp`). The
+vocabulary: the embedding looks up the rows of this rank's block, masked,
+and sums over "model"; the head gives this rank's columns of the logits,
+which ``prefill`` and ``decode`` gather, and the cross-entropy reduces its
+max, its sum of exponentials and the label's logit over "model". Every FFN
+gets the rules, as the reference's ``_ffn_apply`` does: an MoE with
+``moe_impl="manual"`` takes the expert-parallel path over "model".
+``loss`` returns the global batch's loss on every rank. ``param_axes``,
+``abstract_init``, ``input_specs`` and ``abstract_cache`` give the logical
+axes and shapes the rules read.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import MeshRules, constrain, map_specs
+from repro_torch.sharding import tp
+from repro_torch.sharding.rules import MeshRules, constrain, entry_axes, map_specs
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
 _PATTERN_KINDS = ("rec", "attn")
@@ -164,11 +170,27 @@ class ModelDef:
 
     def run_specs(self, rules: MeshRules) -> Dict[str, Any]:
         """How each parameter leaf lies over the mesh when the port runs
-        under ``rules``: the MoE leaves of the manual path as
-        ``moe.manual_specs`` lays them out, every other leaf whole (a spec of
-        Nones). The same structure as ``param_axes``."""
-        specs = map_specs(lambda ax: (None,) * len(ax), self.param_axes())
-        if self.cfg.moe and M.uses_manual(self.cfg, rules):
+        under ``rules``: the rules' spec of every leaf (the reference's
+        ``shard_tree``), the MoE leaves of the manual path as
+        ``moe.manual_specs`` lays them out (the same spec, FSDP of the
+        experts aside). The same structure as ``param_axes``. Rules that
+        lay a dense leaf over the data axes (FSDP of the dense leaves)
+        raise: the port splits dense leaves over "model" only."""
+        specs = map_specs(lambda ax, t: rules.spec_for(tuple(ax), tuple(t.shape)),
+                          self.param_axes(), self.abstract_init())
+        manual = self.cfg.moe and M.uses_manual(self.cfg, rules)
+        dense = dict(specs, layers=[{k: v for k, v in layer.items()
+                                     if not (manual and k == "ffn")}
+                                    for layer in specs["layers"]])
+        on_data = []
+        map_specs(lambda spec: on_data.append(spec) if any(
+            a in rules.data_axes for e in spec for a in entry_axes(e)) else None, dense)
+        if on_data:
+            raise NotImplementedError(
+                f"{self.cfg.name}: rules that lay dense leaves over the data axes (FSDP of the "
+                f"dense leaves, e.g. {on_data[0]}) are not ported yet (ROADMAP.md Queue 1, "
+                f"item 9.9)")
+        if manual:
             for layer in specs["layers"]:
                 if "ffn" in layer:
                     layer["ffn"] = M.manual_specs(self.cfg, rules)
@@ -199,8 +221,29 @@ class ModelDef:
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         return head.to(dtype)
 
-    def _embed(self, params, tokens) -> torch.Tensor:
-        return F.embedding(tokens, params["embed"]).to(activation_dtype(self.cfg))
+    def _vocab_split(self, params, rules) -> Optional[tp.Split]:
+        """The "model"-axis split of the head's vocabulary (None: whole)."""
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return tp.split(rules, head.shape[1], self.cfg.vocab)
+
+    def _embed(self, params, tokens, rules=None) -> torch.Tensor:
+        table = params["embed"]
+        s = tp.split(rules, table.shape[0], self.cfg.vocab)
+        if s is None:
+            return F.embedding(tokens, table).to(activation_dtype(self.cfg))
+        # this rank's block of rows: the tokens inside it, the others zeros
+        local = tokens - tp.offset(s, table.shape[0])
+        inside = (local >= 0) & (local < table.shape[0])
+        e = F.embedding(torch.where(inside, local, torch.zeros_like(local)), table)
+        e = torch.where(inside[..., None], e, torch.zeros_like(e))
+        return tp.psum(s, e).to(activation_dtype(self.cfg))
+
+    def _logits(self, params, x, rules=None) -> torch.Tensor:
+        """x (B, d) -> the whole vocabulary's logits (B, vocab): this rank's
+        columns, gathered over "model" where the vocabulary splits."""
+        s = self._vocab_split(params, rules)
+        logits = tp.vary(s, x) @ self._head(params, x.dtype)
+        return logits if s is None else C.all_gather(logits, s.mesh, "model", dim=-1)
 
     def _ffn_half(self, lp, x, rules=None):
         """(x + the FFN of its norm, the MoE aux term or None)."""
@@ -208,7 +251,7 @@ class ModelDef:
         if self.cfg.moe:
             f, aux = M.moe_apply(lp["ffn"], h, self.cfg, rules)
             return x + f, aux
-        return x + L.mlp_apply(lp["ffn"], h, self.cfg), None
+        return x + L.mlp_apply(lp["ffn"], h, self.cfg, rules), None
 
     def _kv_cache(self, k, v, positions, window: int, cache_len: int) -> Dict[str, torch.Tensor]:
         """The decode cache of an attention layer after the prefill. As the
@@ -220,9 +263,13 @@ class ModelDef:
         kpos = positions.to(torch.int32)
         if window:
             W = min(S, window)
-            return {"k": k[:, -W:].contiguous(), "v": v[:, -W:].contiguous(),
-                    "kpos": kpos[:, -W:].contiguous()}
-        cache = self._block_cache("attn", B, max(cache_len, S), k.dtype, k.device)
+            # copies: a view of the prompt's k / v (at batch 1 a slice is
+            # contiguous) would keep all S positions alive in the cache
+            return {"k": k[:, -W:].clone(), "v": v[:, -W:].clone(), "kpos": kpos[:, -W:].clone()}
+        length = max(cache_len, S)  # k and v hold this rank's kv heads
+        cache = {"k": k.new_zeros((B, length) + tuple(k.shape[2:])),
+                 "v": v.new_zeros((B, length) + tuple(v.shape[2:])),
+                 "kpos": torch.full((B, length), -1, dtype=torch.int32, device=k.device)}
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
         cache["kpos"][:, :S] = kpos
@@ -233,15 +280,16 @@ class ModelDef:
         x = constrain(x, rules, ("batch", "seq", None))
         h = L.norm_apply(lp["ln1"], x)
         if kind == "rwkv":
-            t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg)
+            t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg, rules=rules)
             x = x + t
-            c, shift_c = R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))
+            c, shift_c = R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x), cfg=cfg,
+                                            rules=rules)
             return x + c, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
         if kind == "rec":
-            r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg)
+            r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg, rules=rules)
             return self._ffn_half(lp, x + r, rules)[0], {"h": h_state, "conv": conv}
         window = _window(cfg, kind)
-        a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window)
+        a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window, rules)
         return (self._ffn_half(lp, x + a, rules)[0],
                 self._kv_cache(k, v, positions, window, cache_len))
 
@@ -250,16 +298,16 @@ class ModelDef:
         h = L.norm_apply(lp["ln1"], x)
         if kind == "rwkv":
             t, cache["shift_t"], cache["wkv"] = R.timemix_apply(
-                lp["tm"], h, cfg, cache["shift_t"], cache["wkv"], decode=True)
+                lp["tm"], h, cfg, cache["shift_t"], cache["wkv"], decode=True, rules=rules)
             x = x + t
             c, cache["shift_c"] = R.channelmix_apply(
-                lp["cm"], L.norm_apply(lp["ln2"], x), cache["shift_c"])
+                lp["cm"], L.norm_apply(lp["ln2"], x), cache["shift_c"], cfg=cfg, rules=rules)
             return x + c
         if kind == "rec":
             r, cache["h"], cache["conv"] = G.rglru_block_apply(
-                lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True)
+                lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True, rules=rules)
             return self._ffn_half(lp, x + r, rules)[0]
-        a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind))
+        a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind), rules)
         return self._ffn_half(lp, x + a, rules)[0]
 
     def prefill(self, params, tokens: torch.Tensor, rules: Optional[MeshRules] = None,
@@ -271,7 +319,7 @@ class ModelDef:
         _check_rules(rules)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = constrain(self._embed(params, tokens), rules, ("batch", "seq", None))
+        x = constrain(self._embed(params, tokens, rules), rules, ("batch", "seq", None))
         caches = []
         for kind, lp in zip(self.kinds, params["layers"]):
             x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S, rules)
@@ -279,7 +327,7 @@ class ModelDef:
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
         x = L.norm_apply(params["final_ln"], x[:, -1:])
-        return x[:, 0] @ self._head(params, x.dtype), caches
+        return self._logits(params, x[:, 0], rules), caches
 
     def decode(self, params, tokens: torch.Tensor, pos: int, caches: List[Dict],
                rules: Optional[MeshRules] = None) -> Tuple[torch.Tensor, List[Dict]]:
@@ -287,11 +335,11 @@ class ModelDef:
         Updates each layer's cache in place and returns (logits (B, vocab),
         caches)."""
         _check_rules(rules)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, rules)
         for kind, lp, cache in zip(self.kinds, params["layers"], caches):
             x = self._block_decode(kind, lp, x, cache, pos, rules)
         x = L.norm_apply(params["final_ln"], x)
-        return x[:, 0] @ self._head(params, x.dtype), caches
+        return self._logits(params, x[:, 0], rules), caches
 
     # -- training -------------------------------------------------------------
     def _block_train(self, kind: str, lp, x, positions, rules=None):
@@ -299,12 +347,15 @@ class ModelDef:
         x = constrain(x, rules, ("batch", "seq", None))
         h = L.norm_apply(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
+        cfg = self.cfg
         if kind == "rwkv":
-            x = x + R.timemix_apply(lp["tm"], h, self.cfg)[0]
-            return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x))[0], None
+            x = x + R.timemix_apply(lp["tm"], h, cfg, rules=rules)[0]
+            return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x), cfg=cfg,
+                                          rules=rules)[0], None
         if kind == "rec":
-            return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, self.cfg)[0], rules)
-        a = L.attention_train(lp["attn"], h, self.cfg, positions, _window(self.cfg, kind))
+            return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, cfg, rules=rules)[0],
+                                  rules)
+        a = L.attention_train(lp["attn"], h, cfg, positions, _window(cfg, kind), rules)
         return self._ffn_half(lp, x + a, rules)
 
     def loss(self, params, batch, rules: Optional[MeshRules] = None) -> torch.Tensor:
@@ -329,7 +380,7 @@ class ModelDef:
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=embed.device).expand(B, S)
-        x = constrain(self._embed(params, tokens), rules, ("batch", "seq", None))
+        x = constrain(self._embed(params, tokens, rules), rules, ("batch", "seq", None))
         aux = None
         for kind, lp in zip(self.kinds, params["layers"]):
             if self.cfg.remat:
@@ -343,7 +394,8 @@ class ModelDef:
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask, rules)
+        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask, rules,
+                         self._vocab_split(params, rules))
         return ce if aux is None else ce + 0.01 * aux
 
     # -- caches ---------------------------------------------------------------
@@ -374,30 +426,46 @@ def _check_rules(rules: Optional[MeshRules]) -> None:
     if rules is not None and any(c is not None for c in rules.overrides.get("seq") or ()):
         raise NotImplementedError(
             f"rules that split 'seq' ({rules.overrides['seq']}): sequence parallelism of the "
-            f"residual stream waits for the dry run (ROADMAP.md Queue 1, item 9.6)")
+            f"residual stream is not ported yet (ROADMAP.md Queue 1, item 9.8)")
 
 
-def _ce_piece(hc, head, lc, mc, rules=None):
+def _ce_piece(hc, head, lc, mc, rules=None, vocab: Optional[tp.Split] = None):
     logits = constrain(hc @ head, rules, ("batch", None, "vocab")).to(torch.float32)  # (B, c, V)
-    lz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+    if vocab is None:
+        lz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum((lz - ll) * mc)
+    # this rank's columns of the vocabulary: the max, the sum of exponentials
+    # and the label's logit over "model" (the max is a constant of the
+    # log-sum-exp, so its gradient is zero: detached)
+    mesh, V = vocab.mesh, logits.shape[-1]
+    mx = C.pmax(logits.detach().amax(dim=-1), mesh, "model")
+    lz = mx + torch.log(C.psum(torch.exp(logits - mx[..., None]).sum(dim=-1), mesh, "model"))
+    local = lc - tp.offset(vocab, V)
+    inside = (local >= 0) & (local < V)
+    local = torch.where(inside, local, torch.zeros_like(local))
+    picked = torch.gather(logits, -1, local[..., None])[..., 0]
+    ll = C.psum(torch.where(inside, picked, torch.zeros_like(lz)), mesh, "model")
     return torch.sum((lz - ll) * mc)
 
 
-def _chunked_ce(h, head, labels, mask, rules: Optional[MeshRules] = None) -> torch.Tensor:
+def _chunked_ce(h, head, labels, mask, rules: Optional[MeshRules] = None,
+                vocab: Optional[tp.Split] = None) -> torch.Tensor:
     """sum over chunks of CE_CHUNK positions of the masked cross-entropy,
     each chunk under ``torch.utils.checkpoint``, divided by the mask's sum
     (at least 1): the (B, S, vocab) logits are never all held at once. With
     rules the sum and the mask's sum are the global batch's (summed over
-    the data axes)."""
+    the data axes), and with ``vocab`` (the head's "model"-axis split)
+    ``head`` holds this rank's columns of the vocabulary."""
     T = h.shape[1]
     c = min(CE_CHUNK, T)
     while T % c:
         c //= 2
+    h = tp.vary(vocab, h)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, T, c):
         total = total + checkpoint(_ce_piece, h[:, i:i + c], head, labels[:, i:i + c],
-                                   mask[:, i:i + c], rules, use_reentrant=False)
+                                   mask[:, i:i + c], rules, vocab, use_reentrant=False)
     count = mask.sum()
     if rules is not None:
         total = C.psum(total, rules.mesh, rules.data_axes)

@@ -45,6 +45,13 @@ the partial outputs summed over "model" once a layer
 (:mod:`repro_torch.sharding.collectives`). ``moe_apply`` takes it as the
 reference's dispatcher does: ``moe_impl="manual"``, rules over a mesh with a
 "model" axis that divides the experts.
+
+The auto path under ``rules`` holds the experts as the rules lay them out
+(:mod:`repro_torch.sharding.tp`): each "model" rank the E / n_model
+experts of its block. The router, ``top_k``'s tie order, the capacity and
+the drops stay global: every rank routes the whole batch alike, then
+builds only its experts' buffer rows (:func:`local_plan`), and the combine
+of its experts' slots is a part summed over "model".
 """
 from __future__ import annotations
 
@@ -57,6 +64,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import INIT_STD, _normal
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import tp
 from repro_torch.sharding.rules import MeshRules, constrain
 
 Params = Dict[str, torch.Tensor]
@@ -267,6 +275,18 @@ def combine(out_buf: torch.Tensor, plan: Plan) -> torch.Tensor:
     return _Combine.apply(out_buf.reshape(-1, d), plan.gates, plan.slot_row, plan.row_slot)
 
 
+def local_plan(plan: Plan, first: int, n_local: int) -> Plan:
+    """``plan`` (global: buffer rows (E, B, C)) restricted to the experts
+    ``first .. first + n_local - 1``: their block of buffer rows, and each
+    slot's row within it, or the zero row for a slot of another expert."""
+    per = plan.row_slot.numel() // plan.n_experts  # B * C rows an expert
+    lo, R = first * per, n_local * per
+    rel = plan.slot_row - lo
+    slot_row = torch.where((rel >= 0) & (rel < R), rel, torch.full_like(rel, R))
+    return Plan(gates=plan.gates, slot_row=slot_row, row_slot=plan.row_slot[lo:lo + R],
+                n_experts=n_local, capacity=plan.capacity)
+
+
 def _shared(p: Params, x: torch.Tensor) -> torch.Tensor:
     sp, dt = p["shared"], x.dtype
     return (F.silu(x @ sp["wg"].to(dt)) * (x @ sp["wu"].to(dt))) @ sp["wo"].to(dt)
@@ -292,16 +312,23 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, rules: Optional[MeshRules] = None
 def moe_apply_auto(p: Params, x: torch.Tensor, cfg, rules: Optional[MeshRules] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``moe_apply_auto``: groups are batch rows. With rules
-    ``x`` is this rank's data shard, every expert's weights are whole on
-    every rank, and the aux term is the global batch's."""
+    ``x`` is this rank's data shard, the experts are this rank's block of
+    the "expert" dim (``local_plan``; whole where it does not split) and the
+    shared expert its columns, and the aux term is the global batch's."""
     B, S, d = x.shape
     plan, aux = route(p, x, cfg, rules)
-    buf = dispatch(x, plan)
+    s = tp.split(rules, p["wg"].shape[0], cfg.n_experts)
+    if s is not None:  # the router's work is every rank's alike; the rest a part
+        n_local = p["wg"].shape[0]
+        plan = local_plan(plan, tp.offset(s, n_local), n_local)
+        plan.gates = tp.vary(s, plan.gates)
+    buf = dispatch(tp.vary(s, x), plan)
     constrain(buf.view(plan.n_experts, B, plan.capacity, d), rules,
               ("expert", "batch", None, None))
-    y = combine(expert_ffn(p, buf), plan).view(B, S, d)
+    y = tp.psum(s, combine(expert_ffn(p, buf), plan).view(B, S, d))
     if cfg.n_shared_experts:
-        y = y + _shared(p, x)
+        s2 = tp.split(rules, p["shared"]["wo"].shape[0], cfg.d_ff * cfg.n_shared_experts)
+        y = y + tp.psum(s2, _shared(p, tp.vary(s2, x)))
     return constrain(y, rules, ("batch", None, None)), aux
 
 

@@ -16,6 +16,14 @@ so they stay float32; every other weight is stored in the activation dtype
 for serving and cast to it at use, as the reference casts it, so that
 training's float32 masters run the same arithmetic. Under autograd the
 scan's backward is the CUDA rglru backward kernel on the card.
+
+Under ``rules`` (:mod:`repro_torch.sharding.tp`) the block runs this
+rank's "lru" channels: ``wx`` / ``wy`` are column-split, the conv and the
+scan run on the local channels, ``wo`` is row-split and its output a part
+summed over "model". ``wa`` and ``wi`` are split by rows only (the rules
+give their second "lru" dim no axis), so the gate products are parts of
+the whole width: one reduce-scatter over "model" sums them onto this
+rank's columns.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import tp
 
 RGLRU_C = 8.0
 LAMBDA_INIT = -4.83  # softplus(-4.83) ~ 0.008 -> a ~ exp(-0.032) ~ 0.97
@@ -82,21 +92,28 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = up[:, 0:S] * w[0]
     for i in range(1, cw):
         out = out + up[:, i:i + S] * w[i]
-    return out + b, up[:, S:].contiguous()
+    return out + b, up[:, S:].clone()  # a copy: at batch 1 a view would keep ``up`` alive
 
 
 def rglru_block_apply(p: Params, x: torch.Tensor, cfg, h_state: Optional[torch.Tensor] = None,
-                      conv_state: Optional[torch.Tensor] = None, decode: bool = False):
-    """x: (B, S, d). Returns (out (B, S, d), h (B, lru) float32, conv_state)."""
+                      conv_state: Optional[torch.Tensor] = None, decode: bool = False,
+                      rules=None):
+    """x: (B, S, d). Returns (out (B, S, d), h (B, lru) float32, conv_state;
+    this rank's channels under rules)."""
     B = x.shape[0]
+    s = tp.split(rules, p["wx"].shape[1], lru_width(cfg))
     if h_state is None:
         h_state = torch.zeros((B, p["wx"].shape[1]), dtype=torch.float32, device=x.device)
+    x = tp.vary(s, x)
     dt = x.dtype
     u, conv_state = causal_conv(x @ p["wx"].to(dt), p["conv_w"], p["conv_b"], conv_state)
 
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ p["wa"] + p["ba"])
-    i = torch.sigmoid(uf @ p["wi"] + p["bi"])
+    ga, gi = uf @ p["wa"], uf @ p["wi"]
+    if s is not None:  # parts of the whole width: summed onto this rank's columns
+        ga, gi = C.psum_scatter(torch.stack([ga, gi]), s.mesh, "model", dim=-1).unbind(0)
+    r = torch.sigmoid(ga + p["ba"])
+    i = torch.sigmoid(gi + p["bi"])
     log_a = -RGLRU_C * F.softplus(p["lam"]) * r  # (B, S, lru) <= 0
     m = torch.sqrt(-torch.expm1(2.0 * log_a)) * (i * uf)
 
@@ -107,4 +124,4 @@ def rglru_block_apply(p: Params, x: torch.Tensor, cfg, h_state: Optional[torch.T
         hs, h_state = ops.rglru(log_a, m, h_state)
 
     gate = L.gelu(x @ p["wy"].to(dt))
-    return (hs.to(dt) * gate) @ p["wo"].to(dt), h_state, conv_state
+    return tp.psum(s, (hs.to(dt) * gate) @ p["wo"].to(dt)), h_state, conv_state

@@ -14,6 +14,16 @@ reference casts it with ``.astype(x.dtype)``: serving stores it in that
 dtype already (the cast is then a no-op), training keeps float32 masters.
 Under autograd the prefill's wkv6 runs the CUDA forward and backward
 kernels on the card (``ops.wkv6``).
+
+Under ``rules`` (:mod:`repro_torch.sharding.tp`) the time-mix runs this
+rank's heads: ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``u`` hold them, the wkv
+state and the per-head group norm are local, and of the whole leaves each
+rank uses its channels: the columns of ``wB`` and the entries of ``w0``,
+``ln_scale`` and ``ln_bias``, the rows of ``wo``, whose output is a part
+summed over "model". The whole leaves and the block's input pass
+``tp.vary``, so that each gets its gradient summed over the ranks. The
+channel-mix's ``wk`` is column-split and ``wv`` row-split; ``wr`` stays
+whole and every rank computes its gate alike.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import tp
 
 DECAY_LORA = 64
 GROUP_NORM_EPS = 1e-5
@@ -105,14 +116,20 @@ def wkv6_step(r, k, v, wlog, u, state):
 
 
 def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor] = None,
-                  wkv_state: Optional[torch.Tensor] = None,
-                  decode: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  wkv_state: Optional[torch.Tensor] = None, decode: bool = False,
+                  rules=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (out (B, S, d), x[:, -1] as the next shift, the
-    wkv state (B, H, N, N) float32)."""
+    wkv state (B, H, N, N) float32; this rank's H heads under rules)."""
     B, S, d = x.shape
-    H, N = cfg.n_heads, cfg.resolved_head_dim
+    H, N = p["wr"].shape[1], cfg.resolved_head_dim
+    s = tp.split(rules, H, cfg.n_heads)
     if wkv_state is None:
         wkv_state = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+    last = x[:, -1].clone()  # a copy: at batch 1 a view would keep all of ``x`` alive
+    ch = slice(tp.offset(s, H * N), tp.offset(s, H * N) + H * N)  # this rank's channels
+    if s is not None:
+        x = tp.vary(s, x)
+        p = {k: t if k in ("wr", "wk", "wv", "wg", "u") else tp.vary(s, t) for k, t in p.items()}
     xprev = _shifted(x, shift)
 
     def proj(w, xm):
@@ -123,8 +140,8 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor]
     xw = _lerp(x, xprev, p["mu_w"])
     r, k, v = proj(p["wr"], xr), proj(p["wk"], xk), proj(p["wv"], xv)
     g = F.silu(proj(p["wg"], xg))
-    lora = torch.tanh(xw @ p["wA"].to(x.dtype)) @ p["wB"].to(x.dtype)
-    wlog = -torch.exp(p["w0"] + lora.to(torch.float32)).view(B, S, H, N)
+    lora = torch.tanh(xw @ p["wA"].to(x.dtype)) @ p["wB"][:, ch].to(x.dtype)
+    wlog = -torch.exp(p["w0"][ch] + lora.to(torch.float32)).view(B, S, H, N)
 
     if decode:
         y, wkv_state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], wlog[:, 0], p["u"], wkv_state)
@@ -138,17 +155,20 @@ def timemix_apply(p: Params, x: torch.Tensor, cfg, shift: Optional[torch.Tensor]
     yf = y.to(torch.float32)
     mu = yf.mean(-1, keepdim=True)
     var = ((yf - mu) ** 2).mean(-1, keepdim=True)
-    yn = ((yf - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, S, d)
-    yn = yn * p["ln_scale"] + p["ln_bias"]
-    out = (yn.to(x.dtype) * g.reshape(B, S, d)) @ p["wo"].to(x.dtype)
-    return out, x[:, -1].contiguous(), wkv_state
+    yn = ((yf - mu) * torch.rsqrt(var + GROUP_NORM_EPS)).reshape(B, S, H * N)
+    yn = yn * p["ln_scale"][ch] + p["ln_bias"][ch]
+    out = (yn.to(x.dtype) * g.reshape(B, S, H * N)) @ p["wo"][ch].to(x.dtype)
+    return tp.psum(s, out), last, wkv_state
 
 
-def channelmix_apply(p: Params, x: torch.Tensor,
-                     shift: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def channelmix_apply(p: Params, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
+                     cfg=None, rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, x[:, -1] as the next shift). Under rules ``wk`` holds
+    this rank's columns of the "mlp" dim (``cfg.d_ff``) and ``wv`` its rows."""
+    s = None if cfg is None else tp.split(rules, p["wk"].shape[1], cfg.d_ff)
     xprev = _shifted(x, shift)
     xk, xr = _lerp(x, xprev, p["mu_k"]), _lerp(x, xprev, p["mu_r"])
     dt = x.dtype
-    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    k = torch.square(torch.relu(tp.vary(s, xk) @ p["wk"].to(dt)))
     r = torch.sigmoid(xr @ p["wr"].to(dt))
-    return r * (k @ p["wv"].to(dt)), x[:, -1].contiguous()
+    return r * tp.psum(s, k @ p["wv"].to(dt)), x[:, -1].clone()

@@ -13,12 +13,17 @@ of the group goes on with alike:
 - ``psum`` / ``pmean``: the output is the same on every rank, so its
   gradient is the identity (a second all-reduce would count each rank's
   cotangent ``n`` times);
+- ``pmax``: the elementwise maximum over the ranks; its gradient reaches
+  the elements that equal the maximum (on each rank that holds one);
 - ``pvary``: the identity forward, whose backward sums over the axes
   (jax's ``pvary``): a value every rank holds alike that enters a
   computation each rank does a part of, so that each rank's cotangent is
   a part;
 - ``all_gather`` <-> ``psum_scatter``: each is the other's backward;
 - ``ppermute``: the inverse permutation.
+
+Each collective reports its kind and operand bytes to the dry run's
+counter when one is open (:mod:`repro_torch.roofline.counter`).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.roofline import counter
 from repro_torch.sharding.rules import mesh_axes
 
 AxisNames = Union[str, Tuple[str, ...]]
@@ -62,10 +68,18 @@ def group(mesh, axes: AxisNames):
     return mesh[names]._flatten().get_group()
 
 
-def _all_reduce(x: torch.Tensor, grp) -> torch.Tensor:
+def _run(kind: str, collective, out: torch.Tensor, *src: torch.Tensor) -> None:
+    """``collective(out, *src)``, counted under ``kind`` (the reference's
+    name) by the operand's bytes."""
+    operand = src[0] if src else out
+    counter.collective(kind, operand.numel() * operand.element_size())
+    collective(out, *src)
+
+
+def _all_reduce(x: torch.Tensor, grp, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
     if grp is not None:
-        dist.all_reduce(out, group=grp)
+        _run("all-reduce", lambda o: dist.all_reduce(o, op=op, group=grp), out)
     return out
 
 
@@ -74,7 +88,7 @@ def _gather(x: torch.Tensor, grp, n: int, dim: int) -> torch.Tensor:
         return x
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + src.shape[1:])
-    dist.all_gather_into_tensor(out, src, group=grp)
+    _run("all-gather", lambda o, s: dist.all_gather_into_tensor(o, s, group=grp), out, src)
     return out.movedim(0, dim)
 
 
@@ -85,7 +99,7 @@ def _scatter(x: torch.Tensor, grp, n: int, dim: int) -> torch.Tensor:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} is not a multiple of {n}")
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-    dist.reduce_scatter_tensor(out, src, group=grp)
+    _run("reduce-scatter", lambda o, s: dist.reduce_scatter_tensor(o, s, group=grp), out, src)
     return out.movedim(0, dim)
 
 
@@ -97,6 +111,19 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy, None
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        out = _all_reduce(x, grp, dist.ReduceOp.MAX)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, out = ctx.saved_tensors
+        return torch.where(x == out, dy, torch.zeros_like(dy)), None
 
 
 class _PVary(torch.autograd.Function):
@@ -141,6 +168,12 @@ def pmean(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
     return psum(x, mesh, axes) / axis_size(mesh, axes)
 
 
+def pmax(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the ranks of ``axes``, on every
+    one of them (jax's ``pmax``)."""
+    return _PMax.apply(x, group(mesh, axes))
+
+
 def pvary(x: torch.Tensor, mesh, axes: AxisNames) -> torch.Tensor:
     """``x`` itself; its gradient is summed over the ranks of ``axes``."""
     return _PVary.apply(x, group(mesh, axes))
@@ -168,6 +201,7 @@ def _permute(x: torch.Tensor, mesh, axis: str, perm: Sequence[Tuple[int, int]]) 
         if s == me and d == me:
             out = src.clone()
         elif s == me:
+            counter.collective("collective-permute", src.numel() * src.element_size())
             ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(grp, d), grp))
         elif d == me:
             ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(grp, s), grp))

@@ -255,9 +255,10 @@ def constrain(x: torch.Tensor, rules: Optional[MeshRules], logical: Tuple) -> to
     its local tensors, so it returns ``x`` itself. With rules it checks that
     ``x`` is a local tensor the port runs: one logical axis a dim, and a
     "batch" dim that is this rank's share of a global batch which the spec
-    lays over exactly the data axes (the port splits activations over the
-    data axes only; "model"-axis splits of the other dims wait for the dry
-    run, ROADMAP.md Queue 1, item 9.6)."""
+    lays over exactly the data axes (the residual stream is split over the
+    data axes only: the "model" axis splits the work inside each block,
+    :mod:`repro_torch.sharding.tp`, and sequence parallelism is not ported,
+    ROADMAP.md Queue 1, item 9.8)."""
     if rules is None:
         return x
     if len(logical) != x.dim():

@@ -6,10 +6,11 @@ With ``rules`` the train step is the SPMD counterpart of the reference's
 ``jit`` with shardings: each rank runs ``ModelDef.loss`` on its data shard
 of the batch (the global loss on every rank) and holds each parameter, and
 its optimizer state, as ``ModelDef.run_specs`` says (``shard_state`` cuts a
-global state so). The steps run eagerly. ``abstract_state``,
-``state_shardings``, ``batch_shardings`` and ``cache_shardings`` give the
-reference's layouts as DTensor placements (:mod:`repro_torch.sharding.rules`),
-for the dry run (ROADMAP.md Queue 1, item 9.6).
+global state so): the rules' layout, "model"-axis splits included. The
+steps run eagerly. ``abstract_state``, ``state_shardings``,
+``batch_shardings`` and ``cache_shardings`` give the reference's layouts as
+DTensor placements (:mod:`repro_torch.sharding.rules`), which the dry run
+(``launch/dryrun.py``) reads.
 """
 from __future__ import annotations
 
@@ -41,10 +42,14 @@ def make_train_step(model: ModelDef, rules: Optional[MeshRules] = None, lr: floa
     With ``rules`` the state is this rank's (``shard_state``) and the batch
     its data shard. Each rank's gradient is its shard's part of the global
     loss's gradient; the parts of a leaf that every data rank holds whole
-    are summed over the data axes. A leaf split over "model" (the manual
-    MoE's experts) is this rank's own and is not reduced there, and a leaf
-    split over the data axes (FSDP) got its sum from the reduce-scatter in
-    its gather's backward. The update is then each rank's on its own
+    are summed over the data axes. A leaf split over "model" is this rank's
+    own and is not reduced there. A leaf whole over "model" that a rank
+    uses only in part (rwkv6's ``wo``, ``wB`` and group-norm leaves, the kv
+    projections that a rank's heads read, an MoE's gates) gets its sum over
+    "model" where it is used: it passes ``sharding.tp.vary``, whose
+    backward sums the ranks' parts. A leaf split over the data axes (FSDP
+    of the manual MoE's experts) got its sum from the reduce-scatter in its
+    gather's backward. The update is then each rank's on its own
     shards, so only optimizers whose update is elementwise (AdamW, momentum
     SGD) run under rules: Adafactor's factored statistics and the int8
     compression's scale are taken over a whole leaf, and raise."""

@@ -105,6 +105,14 @@ ORCHESTRATOR_MODULES = (
 )
 
 
+# the "model"-axis split and the dry run (fake tensors over a fake process
+# group, the counter, the kernels' shape-only path, the sweep, the report)
+DRYRUN_MODULES = (
+    "repro_torch.kernels.fake", "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_all",
+    "repro_torch.roofline.counter", "repro_torch.roofline.report", "repro_torch.sharding.tp",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -159,6 +167,13 @@ def test_sharding_module_imported_without_jax(module, import_all):
 def test_orchestrator_module_imported_without_jax(module, import_all):
     """Each module of the live orchestrator is among those the no-jax import
     loads (``__main__`` too: its CLI call is guarded)."""
+    assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", DRYRUN_MODULES)
+def test_dryrun_module_imported_without_jax(module, import_all):
+    """Each module of the "model"-axis split and the dry run is among those
+    the no-jax import loads."""
     assert module in import_all[1]
 
 

@@ -1,6 +1,6 @@
 """Runs the port's sharding on gloo meshes of CPU processes, for the tests
-``test_torch_sharding.py``, ``test_torch_moe_manual.py`` and
-``test_torch_pipeline.py``.
+``test_torch_sharding.py``, ``test_torch_moe_manual.py``,
+``test_torch_pipeline.py`` and ``test_torch_tp.py``.
 
 ``run(fn, n, tmp_path, *args)`` spawns n processes, each joining a gloo
 process group through a FileStore under ``tmp_path`` (no TCP port: the
@@ -204,4 +204,58 @@ def train_cases(rank: int, state, tokens, lr: float):
         new, m = ts(shard_state(model, rules, state_2x1), {"tokens": tokens[1]})
         out["remesh"] = {"loss": float(m["loss"]), "coord": rules.coordinate(),
                          "state": ref_layout(new)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the "model"-axis split (tensor parallelism) of whole models under rules
+# ---------------------------------------------------------------------------
+
+
+def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
+    """Each case {name, arch, change, state (the reference's initial train
+    state, numpy), feed (the reference's greedy tokens of the decode steps,
+    (steps, B))} on each (n_data, n_model) mesh of ``meshes``: this rank's
+    shards as ``run_specs`` lays them out (``shard_state``), its data shard
+    of ``tokens`` (B, S) through ``prefill`` (cache S + steps), ``steps``
+    decode steps fed ``feed``, ``loss`` and one AdamW step. Returns
+    {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each step),
+    "loss", "step_loss", "params" (this rank's, by reference path, after
+    the step), "coord"}}."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model_api import _stacks_for
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train.optim import leaf_groups
+    from repro_torch.train.step import make_train_step, shard_state
+
+    out = {}
+    for shape in meshes:
+        rules = MeshRules(make_host_mesh(*shape, "cpu"))
+        d = rules.coordinate()["data"]
+        n = len(tokens) // rules.axes["data"]
+        rows = slice(d * n, (d + 1) * n)
+        for c in cases:
+            cfg = dataclasses.replace(get_arch(c["arch"]).reduced(), **c["change"])
+            model = build_model(cfg)
+            st = shard_state(model, rules, convert.train_state_from_jax(c["state"], cfg))
+            toks = torch.from_numpy(np.asarray(tokens[rows])).long()
+            S = toks.shape[1]
+            with torch.no_grad():
+                lg, cache = model.prefill(st["params"], toks, rules, cache_len=S + steps)
+                logits = [lg]
+                for i in range(steps):
+                    feed = torch.from_numpy(np.asarray(c["feed"][i][rows])).long()[:, None]
+                    lg, cache = model.decode(st["params"], feed, S + i, cache, rules)
+                    logits.append(lg)
+                loss = float(model.loss(st["params"], {"tokens": toks}, rules))
+            ts, _ = make_train_step(model, rules=rules, lr=lr)
+            new, m = ts(st, {"tokens": toks})
+            params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
+                      for path, ts_, stacked in leaf_groups(new["params"], _stacks_for(cfg))}
+            out[(shape, c["name"])] = {"logits": logits, "loss": loss,
+                                       "step_loss": float(m["loss"]), "params": params,
+                                       "coord": rules.coordinate()}
     return out
