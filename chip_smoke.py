@@ -56,7 +56,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 and with bf16 log_a, a nonzero h0 and dh_final, the float32
    kernel and plain version each also against the formulas in float64,
    and the forward's edge cases), each also run twice and required to give
-   the same bits, and the forward's lse;
+   the same bits, and the forward's lse; whisper-tiny's attention
+   (``whisper_rows``): flash_attention with a key length of its own, not
+   causal, bf16 and float32, at its cross shape q (4, 6, 416, 64) over k/v
+   (4, 6, 1500, 64) and its encoder's (4, 6, 1500, 64), the ragged key
+   lengths 1, 63, 65 and 1500 beside 40 and 100 queries, and flash_decode
+   over the 1500-frame memory with every slot valid, each with its lse
+   (flash_attention) and the same bits twice; a causal or windowed call
+   with its own key length must raise; the int8 cache's dequantize of k
+   and v at gemma-2b's decode shape, timed beside its flash_decode row;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
    exists, one PyTorch library call. A profiler trace counts only the
@@ -87,25 +95,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every kernel forward and backward launched on each rank on its local
    slices (its counter, and the profiler's kernels by name); first the
    attention kernels on a kv-head view at an offset, bit for bit as on a
-   contiguous copy;
+   contiguous copy; rwkv6's ``layers/0/tm/ln_bias`` gradient on one rank,
+   kernel path and plain path, each against the same loss's gradient in
+   float64 (``leaf_f64_check``);
    dryrun: ``python -m repro_torch.launch.dryrun`` on two cells
    (DRYRUN_CELLS), each in a subprocess on fake tensors (no device memory):
    peak GB a device and the three roofline terms, analytic from the
    H100's data-sheet peaks;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
    recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
-   qwen2.5-3b and olmoe-1b-7b (prompt 512) at full width, random weights
-   from a seed,
+   qwen2.5-3b and olmoe-1b-7b (prompt 512), whisper-tiny (1500 seeded
+   frames, prompt 416: its decoder context of 448 with the new tokens) and
+   gemma-2b with its KV cache in int8 (its logits' distance from the
+   bf16-cache run printed) at full width, random weights from a seed,
    through ``repro_torch.launch.serve``: 4 requests, 32 new tokens each.
    For each: the exact kernel launch counts of the run (counts set to 0
    just before it), finite logits, the prefill and the first decode steps
    against the plain versions on the same weights, and a profile of a
-   prefill and a few decode steps. Then each of the seven at full width in
-   float32, kernel path against plain path (5 tokens; qwen's qkv biases
-   made nonzero), and a reduced float32 model of gemma, rwkv6,
-   recurrentgemma (5 layers, so that its remainder stack runs), qwen2.5
-   and olmoe on the card against the same weights on the CPU, each printing
-   the launches of the float32 attention routes it made;
+   prefill and a few decode steps. Then each of the eight at full width in
+   float32, kernel path against plain path (5 tokens; qwen's and whisper's
+   qkv biases made nonzero), and a reduced float32 model of gemma, rwkv6,
+   recurrentgemma (5 layers, so that its remainder stack runs), qwen2.5,
+   olmoe, whisper and gemma with the int8 cache on the card against the
+   same weights on the CPU, each printing the launches of the float32
+   attention routes it made;
    train: gemma-2b, rwkv6-1.6b, granite-3-2b and qwen2.5-3b at full width
    and depth, recurrentgemma-9b at full width and 9 layers, deepseek-7b at
    full width and 16 layers and olmoe-1b-7b at full width and a cut depth
@@ -253,18 +266,21 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 #   granite-3-2b       0.03125       0.1807
 #   qwen2.5-3b         0             0.2051
 #   olmoe-1b-7b        0.01562       0.1484
-# gemma-2b's, rwkv6-1.6b's and the dense swiglu configs' near-tie is the
-# tighter 0.0625, two bf16 steps for logits in [4, 8) (qwen2.5-3b's tokens
-# all agreed, so twice its reading would be 0); olmoe-1b-7b's is twice its
-# reading, one bf16 step for logits in [4, 8). The float32 full-width phase
+#   whisper-tiny       0             0.01625
+# gemma-2b's, rwkv6-1.6b's, the dense swiglu configs' and whisper-tiny's
+# near-tie is the tighter 0.0625, two bf16 steps for logits in [4, 8)
+# (qwen2.5-3b's and whisper-tiny's tokens all agreed, so twice their reading
+# would be 0); olmoe-1b-7b's is twice its reading, one bf16 step for logits
+# in [4, 8). whisper-tiny's drift limit is about twice its reading (4
+# decoder layers of d 384: the smallest drift of the served configs). The float32 full-width phase
 # shows that the kernels themselves agree (tokens equal, logits within 1e-3)
 # at the same shapes.
 TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875,
                  "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625,
-                 "olmoe-1b-7b": 0.03125}
+                 "olmoe-1b-7b": 0.03125, "whisper-tiny": 0.0625}
 BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55,
                      "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42,
-                     "olmoe-1b-7b": 0.3}
+                     "olmoe-1b-7b": 0.3, "whisper-tiny": 0.035}
 # The backward kernels against their plain versions, (atol, rtol). Both sum
 # in float32 from the same inputs in another order; in bf16 the outputs are
 # rounded once more, and a value that lies on a rounding boundary may land
@@ -276,10 +292,21 @@ LOGITS_TOL_F32 = 1e-4  # reduced float32 model, card kernels vs CPU plain versio
 LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain versions
 
 ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
-# the serve runs: (arch, prompt length); recurrentgemma's prompt is its window
+# the serve runs: (arch, prompt length); recurrentgemma's prompt is its
+# window; whisper-tiny's 416 + NEW = 448 is its published decoder context
 SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048),
           ("deepseek-7b", 512), ("granite-3-2b", 512), ("qwen2.5-3b", 512),
-          ("olmoe-1b-7b", 512))
+          ("olmoe-1b-7b", 512), ("whisper-tiny", 416))
+# the int8 KV cache's serve run: ARCH at full width with its cache in int8
+# (the dry run's kv_int8 cell's arch), held to ARCH's limits above against
+# its own plain replay (the same int8 cache on the plain path)
+INT8 = {"kv_cache_dtype": "int8"}
+# whisper-tiny's attention rows: its 6 heads of 64 over its 1500 frames, its
+# serve prompt; the cross calls' ragged key lengths (one key, a k-tile less
+# one, a k-tile and one, the frames), each beside fewer and more queries
+WHISPER, WHISPER_PROMPT = "whisper-tiny", 416
+CROSS_KEY_LENGTHS = (1, 63, 65, 1500)
+CROSS_QUERY_LENGTHS = (40, 100)
 # the configs whose attention and decode shapes get rows of their own in the
 # kernel phase: the dense swiglu configs and olmoe (MHA, 16 heads of 128)
 ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b")
@@ -450,6 +477,12 @@ FT_FULL_LAYERS = 4
 # NVIDIA H100 80GB HBM3 at 700 W), on one rank as on two
 TP_RANKS = 2
 TP_ARCHS = (("gemma-2b", 2), ("rwkv6-1.6b", 2), ("recurrentgemma-9b", 3))
+# that leaf's one-rank gradient on the kernel path and on the plain path,
+# each against the same loss's gradient in float64 (``leaf_f64_check``):
+# which of the two float32 paths carries the difference between them
+F64_LEAF = ("rwkv6-1.6b", "layers/0/tm/ln_bias")
+# the kernels on that leaf's path, each run alone on the kernel path
+F64_LEAF_KERNELS = ("rmsnorm", "rmsnorm_bwd", "wkv6", "wkv6_bwd")
 TP_BATCH, TP_PROMPT, TP_STEPS = 2, 256, 8
 TP_LOGITS_TOL, TP_LOSS_RTOL, TP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
 # kernel -> the names of its CUDA kernels in a profiler trace (substrings)
@@ -975,6 +1008,8 @@ def kernel_phase(dev):
     # -- flash_decode: the model's (B, W, n, hd) cache read as a view --------
     decode_cases(dev, randn)
     rows += decode_rows(dev, randn)
+    int8_dequantize_timing(dev, randn, rows)
+    rows += whisper_rows(dev, randn)
     rows.append(wkv6_row(randn, dev))
     rows.append(wkv6_bwd_row(randn, dev))
     rows += rglru_row(randn, dev)
@@ -1348,6 +1383,143 @@ def decode_rows(dev, randn):
                       lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
                                                              enable_gqa=True)),
         ))
+    return rows
+
+
+def int8_dequantize_timing(dev, randn, rows) -> None:
+    """An int8 cache's dequantize (``models.layers._dequantize_kv``, plain
+    torch: no Pallas kernel computes it) of k and v at ARCH's decode shape
+    (BATCH x 544 slots, its one KV head of 256), as a decode step runs it
+    before flash_decode in every layer: per call and on the device, beside
+    the bf16 flash_decode row of the same shape, with its bound (the int8
+    values and float16 scales read once, the bf16 cache written once)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import _dequantize_kv
+
+    cfg = get_arch(ARCH)
+    W, K, hd = PROMPT + NEW, cfg.n_kv_heads, cfg.resolved_head_dim
+    q8 = [randn(BATCH, W, K, hd, dtype=torch.float32).mul_(40).round_().clamp_(-127, 127)
+          .to(torch.int8) for _ in range(2)]
+    sc = [randn(BATCH, W, K, dtype=torch.float32).abs().mul_(0.01).to(torch.float16)
+          for _ in range(2)]
+
+    def deq():
+        return [_dequantize_kv(q, s_, torch.bfloat16) for q, s_ in zip(q8, sc)]
+
+    out = deq()
+    for o, q, s_ in zip(out, q8, sc):  # the arithmetic, element by element
+        if not torch.equal(o, (q.float() * s_.float()[..., None]).to(torch.bfloat16)):
+            fail("int8 dequantize: not q * scale rounded to bf16")
+    ms, dev_ms = time_ms(deq), device_ms(deq)
+    bnd = bound(nbytes(*q8, *sc, *out), 2 * sum(q.numel() for q in q8), "float32")
+    row3 = next(r for r in rows if r["name"] == "flash_decode")
+    print(f"  int8 dequantize of k and v ({BATCH},{W},{K},{hd}) at {ARCH}'s decode shape: "
+          f"{ms:.5f} ms per call, {dev_ms:.5f} on the device (bound {bnd['bound_ms']:.6f} by "
+          f"{bnd['bound_by']}), beside flash_decode's {row3['device_ms']:.5f} on the device at "
+          f"the same shape ({row3['shape']})")
+
+
+def whisper_rows(dev, randn):
+    """flash_attention with a key length of its own (not causal), the
+    encoder's not-causal self-attention and flash_decode over the memory, at
+    whisper-tiny's shapes (BATCH x WHISPER_PROMPT queries, 6 heads of 64, its
+    1500 frames), each against its plain version, two calls the same bits,
+    timed beside SDPA: bf16 and float32 (the 3xTF32 route, with its lse).
+    First the ragged key lengths CROSS_KEY_LENGTHS beside fewer and more
+    queries (CROSS_QUERY_LENGTHS), both routes, MHA and g 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_arch(WHISPER)
+    H, hd, Fr = cfg.n_heads, cfg.resolved_head_dim, cfg.encoder_seq
+    B, S = BATCH, WHISPER_PROMPT
+    print(f"kernel flash_attention with its own key length, flash_decode over the memory "
+          f"({WHISPER})")
+
+    def tensors(B_, S_, Sk, H_, K_, dtype):
+        """q (B, H, S, hd), k / v (B, K, Sk, hd): views of (B, S, heads, hd)."""
+        q = randn(B_, S_, H_, hd, dtype=dtype).transpose(1, 2)
+        k, v = (randn(B_, Sk, K_, hd, dtype=dtype).transpose(1, 2) for _ in range(2))
+        return q, k, v
+
+    def check(label, q, k, v, dtype):
+        """The kernel against its plain version (and its lse in float32);
+        two calls the same bits. Returns max |kernel - plain|."""
+        tol = TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+        out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+        ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=False, return_lse=True)
+        err = compare(f"flash_attention {label}", out, ref, tol)
+        compare(f"flash_attention lse {label}", lse, lse_ref, LSE_TOL)
+        if not torch.equal(fa.flash_attention(q, k, v, causal=False), out):
+            fail(f"flash_attention {label}: two calls on the same inputs differ")
+        return err
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for Sk in CROSS_KEY_LENGTHS:
+            for Sq in CROSS_QUERY_LENGTHS:
+                for K_ in (H, H // 2):
+                    check(f"{name} ({2},{H},{Sq},{hd}) over {Sk} keys, {K_} KV heads",
+                          *tensors(2, Sq, Sk, H, K_, dtype), dtype)
+        for S_ in (1, 64):  # a single query, exactly a q-tile of keys and queries
+            check(f"{name} ({2},{H},{S_},{hd}) over 64 keys", *tensors(2, S_, 64, H, H, dtype),
+                  dtype)
+    for causal, window in ((True, 0), (False, 8)):
+        q, k, v = tensors(1, 16, 24, 2, 2, torch.bfloat16)
+        try:
+            fa.flash_attention(q, k, v, causal=causal, window=window)
+        except ValueError:
+            continue
+        fail(f"flash_attention: 24 keys for 16 queries with causal={causal}, window={window} "
+             f"did not raise")
+
+    rows = []
+    for dtype, rate in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32 3xTF32")):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for what, S_ in (("cross-attention", S), ("encoder self-attention", Fr)):
+            q, k, v = tensors(B, S_, Fr, H, H, dtype)
+            label = (f"q ({B},{H},{S_},{hd}), k/v ({B},{H},{Fr},{hd}) {name}, not causal "
+                     f"({WHISPER} {what})")
+            err = check(label, q, k, v, dtype)
+            bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * S_ * Fr * B * H, rate)
+            rows.append(dict(
+                name="flash_attention", route="cuda", f32_route=dtype == torch.float32,
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:75", shape=label,
+                max_abs_err=err, **bnd,
+                **timings(lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=False),
+                          lambda q=q, k=k, v=v: fa.flash_attention_ref(q, k, v, causal=False),
+                          lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+                          iters=10),
+            ))
+            del q, k, v
+    # a decode step's cross-attention: one query a row over all 1500 frames
+    qd = randn(B, H, hd)
+    kc, vc = (randn(B, Fr, H, hd).transpose(1, 2) for _ in range(2))
+    kpos = torch.arange(Fr, dtype=torch.int32, device=dev).expand(B, Fr).contiguous()
+    label = f"q ({B},{H},{hd}) bf16, memory {Fr} slots, all valid ({WHISPER} cross-attention)"
+    want = da.flash_decode_ref(qd, kc, vc, kpos, Fr - 1)
+    out = da.flash_decode(qd, kc, vc, kpos, Fr - 1)
+    err = compare(f"flash_decode {label}", out, want, DECODE_TOL_BF16)
+    if not torch.equal(da.flash_decode(qd, kc, vc, kpos, Fr - 1), out):
+        fail(f"flash_decode {label}: two calls on the same inputs differ")
+    n_valid = B * Fr
+    bnd = bound(2 * nbytes(qd) + 2 * n_valid * H * hd * kc.element_size() + nbytes(kpos),
+                4 * hd * H * n_valid, "bfloat16")
+    q4 = qd[:, :, None]
+    rows.append(dict(
+        name="flash_decode", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:60", shape=label, max_abs_err=err, **bnd,
+        **timings(lambda: da.flash_decode(qd, kc, vc, kpos, Fr - 1),
+                  lambda: da.flash_decode_ref(qd, kc, vc, kpos, Fr - 1),
+                  lambda: F.scaled_dot_product_attention(q4, kc, vc)),
+    ))
     return rows
 
 
@@ -1774,7 +1946,7 @@ def rglru_bwd_rows(randn, dev):
     return rows
 
 
-def plain_replay(model, params, prompt, tokens, n_steps: int):
+def plain_replay(model, params, prompt, tokens, n_steps: int, frames=None):
     """The same weights through the plain versions on the card, fed the
     kernel run's greedy tokens: logits of the prefill and n_steps decodes."""
     import torch
@@ -1783,7 +1955,7 @@ def plain_replay(model, params, prompt, tokens, n_steps: int):
 
     S = prompt.shape[1]
     with torch.inference_mode(), ops.plain_versions():
-        ref, caches = model.prefill(params, prompt, cache_len=S + NEW)
+        ref, caches = model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
         steps = [ref]
         for i in range(n_steps):
             ref, caches = model.decode(params, tokens[:, i:i + 1], S + i, caches)
@@ -1792,43 +1964,53 @@ def plain_replay(model, params, prompt, tokens, n_steps: int):
 
 
 def want_launches(model) -> dict:
-    """The exact launches of one prefill and NEW - 1 decode steps: two norms
-    per layer and the final one per forward; per attention layer one
-    flash_attention in the prefill and one flash_decode per step; one wkv6
-    per rwkv layer and one rglru per rec layer, in the prefill only (their
-    decode steps are plain torch, as in the reference)."""
-    kinds = model.kinds
-    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
-    return {"rmsnorm": (2 * len(kinds) + 1) * NEW, "flash_attention": n_attn,
+    """The exact launches of one prefill and NEW - 1 decode steps: two RMS
+    norms per layer and the final one per forward (none with layer norms:
+    plain torch); per attention layer one flash_attention in the prefill
+    and one flash_decode per step, and per xattn layer one more of each
+    (its cross-attention over the memory); one flash_attention per encoder
+    layer, in the prefill; one wkv6 per rwkv layer and one rglru per rec
+    layer, in the prefill only (their decode steps are plain torch, as in
+    the reference)."""
+    kinds, cfg = model.kinds, model.cfg
+    n_attn = sum(k in ("attn", "attn_local", "xattn") for k in kinds) + kinds.count("xattn")
+    rms = (2 * len(kinds) + 1) * NEW if cfg.norm == "rms" else 0
+    return {"rmsnorm": rms, "flash_attention": n_attn + cfg.encoder_layers,
             "flash_decode": n_attn * (NEW - 1), "wkv6": kinds.count("rwkv"),
             "rglru": kinds.count("rec"), "rmsnorm_bwd": 0, "flash_attention_bwd": 0,
             "wkv6_bwd": 0, "rglru_bwd": 0}
 
 
-def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
+def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
+    """One serve run at full width through ``launch.serve`` (with the config
+    ``changes``: the int8 cache): exact launches, finite logits, the prefill
+    and 4 decode steps against the plain path's replay, a profile. Returns
+    (the launch counts, the logits of every step on the host)."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     model, params, prompt = serve.setup(arch, full=True, batch=BATCH, prompt_len=prompt_len,
-                                        device="cuda", seed=0)
+                                        device="cuda", seed=0, changes=changes)
+    frames = serve.make_frames(model, BATCH, prompt.device)
     cfg = model.cfg
-    serve.generate(model, params, prompt, 3)  # warm-up (cuBLAS, allocator)
+    label = arch + (f" {cfg.kv_cache_dtype} cache" if cfg.kv_cache_dtype else "")
+    serve.generate(model, params, prompt, 3, frames)  # warm-up (cuBLAS, allocator)
 
     ops.reset_launch_counts()
-    gen = serve.generate(model, params, prompt, NEW)
+    gen = serve.generate(model, params, prompt, NEW, frames)
     counts = ops.launch_counts()
     want = want_launches(model)
-    print(f"serve {arch} launches {counts} (want {want})")
+    print(f"serve {label} launches {counts} (want {want})")
     if counts != want:
-        fail(f"{arch}: kernel launch counts {counts} != {want}")
+        fail(f"{label}: kernel launch counts {counts} != {want}")
     logits = torch.stack(gen.logits)
     if logits.shape != (NEW, BATCH, cfg.vocab) or not torch.isfinite(logits).all():
-        fail(f"{arch} serve logits: shape {tuple(logits.shape)}, finite "
+        fail(f"{label} serve logits: shape {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
 
-    steps = plain_replay(model, params, prompt, gen.tokens, 4)
+    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames)
     gaps, diffs = [], []
     for i, ref in enumerate(steps):
         got_tok = gen.tokens[:, i]
@@ -1843,28 +2025,45 @@ def serve_phase(arch: str, prompt_len: int, card: str) -> dict:
         gaps.append(gap)
         diffs.append(diff)
         if gap > TOKEN_TIE_TOL[arch]:
-            fail(f"{arch} step {i}: greedy token {got_tok.tolist()} vs plain "
+            fail(f"{label} step {i}: greedy token {got_tok.tolist()} vs plain "
                  f"{ref_f.argmax(dim=-1).tolist()} beyond a near-tie ({gap:.4g} > "
                  f"{TOKEN_TIE_TOL[arch]})")
         if diff > BF16_LOGITS_DRIFT[arch]:
-            fail(f"{arch} step {i}: max |logits kernel - plain| {diff:.4g} > "
+            fail(f"{label} step {i}: max |logits kernel - plain| {diff:.4g} > "
                  f"{BF16_LOGITS_DRIFT[arch]}")
-    print(f"  {arch} over the prefill and 4 decode steps: largest gap {max(gaps):.4g} (limit "
+    print(f"  {label} over the prefill and 4 decode steps: largest gap {max(gaps):.4g} (limit "
           f"{TOKEN_TIE_TOL[arch]}), largest max |kernel - plain| {max(diffs):.4g} (limit "
           f"{BF16_LOGITS_DRIFT[arch]})")
 
     res = serve.summary(arch, gen)
-    print(f"serve {arch} full width, batch {BATCH}, prompt {prompt_len}, {NEW} new tokens on "
-          f"{card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
+    extra = f", {cfg.encoder_seq} frames" if cfg.encoder_layers else ""
+    print(f"serve {label} full width, batch {BATCH}, prompt {prompt_len}{extra}, {NEW} new "
+          f"tokens on {card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
           f"decode_p99_s {res['decode_p99_s']} tokens_per_s {res['tokens_per_s']}")
-    print(json.dumps({"serve": res, "prompt": prompt_len, "launches": counts, "card": card}))
-    profile_serve(model, params, prompt, res)
+    print(json.dumps({"serve": res, "prompt": prompt_len, "kv_cache_dtype": cfg.kv_cache_dtype,
+                      "launches": counts, "card": card}))
+    profile_serve(model, params, prompt, res, frames)
+    host_logits = logits.float().cpu()
     del model, params, gen, logits, steps
     torch.cuda.empty_cache()
-    return counts
+    return counts, host_logits
 
 
-def profile_serve(model, params, prompt, res) -> None:
+def int8_against_bf16_cache(int8_logits, bf16_logits) -> None:
+    """How far ARCH's int8-cache serve run lies from its bf16-cache run on
+    the same weights and prompt (printed, not a limit: the caches hold other
+    numbers): max |logits diff| of each step while the greedy tokens agree,
+    and the steps they agree for."""
+    agree = (int8_logits.argmax(-1) == bf16_logits.argmax(-1)).all(dim=-1)
+    n_agree = int(agree.int().cumprod(0).sum())
+    diffs = [float((int8_logits[i] - bf16_logits[i]).abs().max())
+             for i in range(min(n_agree + 1, len(agree)))]
+    print(f"serve {ARCH} int8 cache against the bf16 cache (same weights and prompt): greedy "
+          f"tokens equal for {n_agree} of {len(agree)} steps; max |logits int8 - bf16| by step "
+          f"up to the first other token {[round(d, 4) for d in diffs]}")
+
+
+def profile_serve(model, params, prompt, res, frames=None) -> None:
     """Where a prefill and a decode step spend their time: device time per
     step (torch.profiler), its share of the unprofiled wall time of the
     serve run (prefill_s, decode_p50_s), and the kernels with the most
@@ -1874,11 +2073,11 @@ def profile_serve(model, params, prompt, res) -> None:
 
     B, S = prompt.shape
     with torch.inference_mode():
-        _, caches = model.prefill(params, prompt, cache_len=S + NEW)
+        _, caches = model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
         tok = prompt[:, -1:]
 
         def prefill():
-            model.prefill(params, prompt, cache_len=S + NEW)
+            model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
 
         def decode_steps(n=8):
             for i in range(n):
@@ -1908,12 +2107,14 @@ def profile_serve(model, params, prompt, res) -> None:
 
 
 def random_qkv_bias(params, gen) -> None:
-    """Fills the qkv biases (qwen2.5), zeros at init as in the reference,
-    with normal values from ``gen``, so that a check also holds the add."""
-    for lp in params["layers"]:
-        for key in ("bq", "bk", "bv"):
-            if key in lp.get("attn", {}):
-                lp["attn"][key].normal_(generator=gen)
+    """Fills the qkv biases (qwen2.5, whisper's self- and cross-attention in
+    the encoder and the decoder), zeros at init as in the reference, with
+    normal values from ``gen``, so that a check also holds the add."""
+    for lp in params["layers"] + params.get("encoder", []):
+        for mixer in ("attn", "xattn"):
+            for key in ("bq", "bk", "bv"):
+                if key in lp.get(mixer, {}):
+                    lp[mixer][key].normal_(generator=gen)
 
 
 def full_width_f32_phase(dev, arch: str, prompt_len: int):
@@ -1940,10 +2141,11 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     random_qkv_bias(params, g)
     prompt = torch.randint(0, cfg.vocab, (BATCH, prompt_len), generator=g, device=dev,
                            dtype=torch.int64)
+    frames = serve.make_frames(model, BATCH, dev, seed=3)
     ops.reset_launch_counts()
-    gen = serve.generate(model, params, prompt, 5)
+    gen = serve.generate(model, params, prompt, 5, frames)
     counts = f32_launches(f"full-width f32 {arch}")
-    steps = plain_replay(model, params, prompt, gen.tokens, 4)
+    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames)
     worst = 0.0
     for i, ref in enumerate(steps):
         worst = max(worst, float((gen.logits[i] - ref).abs().max()))
@@ -2321,9 +2523,10 @@ def reduced_reference_phase(dev):
     the same weights on the CPU (plain versions): gemma, rwkv6,
     recurrentgemma with 5 layers (its pattern group plus the remainder
     stack) and a prompt of three windows, qwen2.5 (its qkv bias made
-    nonzero) and olmoe (its mixture of experts on the card against the
-    CPU). Returns the float32 attention routes' launches of the card's
-    runs."""
+    nonzero), olmoe (its mixture of experts on the card against the CPU),
+    whisper (16 frames, 40 tokens: a cross call of 16 keys at hd 16, its
+    biases nonzero) and gemma with the int8 cache. Returns the float32
+    attention routes' launches of the card's runs."""
     import dataclasses
 
     import torch
@@ -2341,10 +2544,11 @@ def reduced_reference_phase(dev):
         return t.cpu()
 
     ops.reset_launch_counts()
-    for arch, n_layers, prompt_len in (("gemma-2b", 2, 40), ("rwkv6-1.6b", 2, 40),
-                                       ("recurrentgemma-9b", 5, 48), ("qwen2.5-3b", 2, 40),
-                                       ("olmoe-1b-7b", 2, 40)):
-        cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers)
+    for arch, n_layers, prompt_len, changes in (
+            ("gemma-2b", 2, 40, {}), ("rwkv6-1.6b", 2, 40, {}), ("recurrentgemma-9b", 5, 48, {}),
+            ("qwen2.5-3b", 2, 40, {}), ("olmoe-1b-7b", 2, 40, {}), (WHISPER, 2, 40, {}),
+            ("gemma-2b", 2, 40, INT8)):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers, **changes)
         model = build_model(cfg)
         g = torch.Generator(device=dev)
         g.manual_seed(5)
@@ -2352,8 +2556,10 @@ def reduced_reference_phase(dev):
         random_qkv_bias(params, g)
         prompt = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device=dev,
                                dtype=torch.int64)
-        got = serve.generate(model, params, prompt, 6)
-        want = serve.generate(model, to_cpu(params), prompt.cpu(), 6)
+        frames = serve.make_frames(model, 2, dev, seed=5)
+        got = serve.generate(model, params, prompt, 6, frames)
+        want = serve.generate(model, to_cpu(params), prompt.cpu(), 6,
+                              None if frames is None else frames.cpu())
         for i, (a, b) in enumerate(zip(got.logits, want.logits)):
             err = float((a.cpu() - b).abs().max())
             if not err <= LOGITS_TOL_F32:
@@ -2361,8 +2567,9 @@ def reduced_reference_phase(dev):
                      f"{LOGITS_TOL_F32}")
         if not torch.equal(got.tokens.cpu(), want.tokens):
             fail(f"reduced f32 {arch}: greedy tokens differ between card and CPU")
-        print(f"reduced f32 {arch} ({n_layers} layers {model.kinds}): card kernels == CPU "
-              f"plain versions within {LOGITS_TOL_F32}, tokens equal")
+        print(f"reduced f32 {arch}{' int8 cache' if changes else ''} ({n_layers} layers "
+              f"{model.kinds}): card kernels == CPU plain versions within {LOGITS_TOL_F32}, "
+              f"tokens equal")
     return f32_launches("reduced f32 models")
 
 
@@ -3451,6 +3658,122 @@ def tp_run(cfg, rules, dev, seed: int, plain: bool = False) -> dict:
             "serve_s": t1 - t0, "train_s": t2 - t1}
 
 
+class _Float64Torch:
+    """``torch`` with ``torch.float32`` read as ``torch.float64``: a module
+    that names float32 for its arithmetic (norms, the RWKV group norm and
+    wkv6's plain version, the cross-entropy) computes in float64 when its
+    ``torch`` is this."""
+
+    def __init__(self, torch):
+        self._torch = torch
+
+    def __getattr__(self, name):
+        return self._torch.float64 if name == "float32" else getattr(self._torch, name)
+
+
+@contextlib.contextmanager
+def float64_plain_path():
+    """The plain versions, with every float32 that the modules of the
+    model's loss name read as float64 while it is open."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as k_rmsnorm
+    from repro_torch.kernels import rwkv6 as k_rwkv6
+    from repro_torch.models import layers, model_api, rglru, rwkv6
+
+    mods = (ops, k_rmsnorm, k_rwkv6, layers, model_api, rglru, rwkv6)
+    saved = [m.torch for m in mods]
+    for m in mods:
+        m.torch = _Float64Torch(torch)
+    try:
+        with ops.plain_versions():
+            yield
+    finally:
+        for m, t in zip(mods, saved):
+            m.torch = t
+
+
+@contextlib.contextmanager
+def only_kernel(name: str):
+    """Every kernel entry of ``kernels.ops`` but ``name`` (a forward, or a
+    backward as "<kernel>_bwd") runs its plain version while this is open:
+    which kernel carries a path's error."""
+    from repro_torch.kernels import ops
+
+    saved = []
+    for table, suffix in ((ops._FWD, ""), (ops._BWD, "_bwd")):
+        for kernel, impls in table.items():
+            if kernel + suffix != name:
+                saved.append((impls, impls["kernel"]))
+                impls["kernel"] = impls["plain"]
+    try:
+        yield
+    finally:
+        for impls, fn in saved:
+            impls["kernel"] = fn
+
+
+def leaf_f64_check(cfg, dev, g_kernel, g_plain) -> None:
+    """F64_LEAF's one-rank gradient (``tp_run``'s parameters and prompt,
+    seed 5) on the kernel path and on the plain path, each against the same
+    loss's gradient in float64 (the float32 parameters widened, the plain
+    path in float64: ``float64_plain_path``). Prints each path's max error
+    as a share of the float64 gradient's largest magnitude, and which is the
+    larger; then the same for each of F64_LEAF_KERNELS alone on the kernel
+    path (``only_kernel``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import _paths
+    from repro_torch.utils.tree import flatten, unflatten
+
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    params = model.init(g, dev, param_dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT), generator=g, device=dev)
+    leaves, treedef = flatten(params)
+    live = [p.detach().double().requires_grad_() for p in leaves]
+    names = ["/".join(path) for path, _ in _paths(unflatten(treedef, list(range(len(live)))))]
+    order = [i for _, i in _paths(unflatten(treedef, list(range(len(live)))))]
+    index = order[names.index(F64_LEAF[1])]
+    del params, leaves
+    t0 = time.perf_counter()
+    with float64_plain_path():
+        model64 = build_model(dataclasses.replace(cfg, dtype="float64"))
+        loss = model64.loss(unflatten(treedef, live), {"tokens": prompt})
+        (g64,) = torch.autograd.grad(loss, [live[index]])
+    g64 = g64.cpu()
+    if g64.dtype != torch.float64 or not torch.isfinite(g64).all():
+        fail(f"tp {F64_LEAF}: the float64 gradient is {g64.dtype}, finite "
+             f"{bool(torch.isfinite(g64).all())}")
+    scale = float(g64.abs().max())
+    errs = {path: float((gr.double() - g64).abs().max()) / scale
+            for path, gr in (("kernel", g_kernel), ("plain", g_plain))}
+    # each kernel alone on the kernel path (the others' plain versions): the
+    # one that carries the kernel path's error
+    alone = {}
+    for name in F64_LEAF_KERNELS:
+        live32 = [p.detach().float().requires_grad_() for p in live]
+        with only_kernel(name):
+            loss32 = model.loss(unflatten(treedef, live32), {"tokens": prompt})
+            (g32,) = torch.autograd.grad(loss32, [live32[index]])
+        alone[name] = float((g32.double().cpu() - g64).abs().max()) / scale
+    worse = max(errs, key=errs.get)
+    print(f"  each kernel alone on the kernel path (the others plain), against float64: "
+          f"{ {k: float(f'{v:.3g}') for k, v in alone.items()} }")
+    print(f"tp {F64_LEAF[0]} {F64_LEAF[1]} against float64 (one rank, loss "
+          f"{float(loss.detach()):.6f}, {time.perf_counter() - t0:.1f} s): kernel path "
+          f"{errs['kernel']:.3g}, plain path {errs['plain']:.3g} of the float64 gradient's "
+          f"largest magnitude {scale:.4g}; the {worse} path's error is the larger; kernel - plain "
+          f"{float((g_kernel - g_plain).abs().max()) / scale:.3g}")
+    del live, g64, loss
+    free_device_memory()
+
+
 def _tp_rank(rank: int, tmp: str) -> None:
     """One of TP_RANKS processes on the card: a gloo group through a file
     store, a check that gloo runs every collective of the split on CUDA
@@ -3586,6 +3909,10 @@ def tp_phase(card: str) -> dict:
             plain = tp_run(tp_config(arch, layers), None, dev, seed=5, plain=True)
             noise[arch] = {n: float((g - want[arch]["grads"][n]).abs().max())
                            for n, g in plain["grads"].items()}
+            if arch == F64_LEAF[0]:
+                free_device_memory()
+                leaf_f64_check(tp_config(arch, layers), dev, want[arch]["grads"][F64_LEAF[1]],
+                               plain["grads"][F64_LEAF[1]])
             del plain
             print(f"tp {arch} ({layers} layers) one rank: prefill + {TP_STEPS} decode "
                   f"{want[arch]['serve_s']:.3f} s, loss and grads {want[arch]['train_s']:.3f} s")
@@ -3759,9 +4086,20 @@ def main() -> int:
         launches[name] += n
     for arch, prompt_len in SERVES:
         t1_s = time.perf_counter()
-        for name, n in serve_phase(arch, prompt_len, card).items():
+        counts, logits = serve_phase(arch, prompt_len, card)
+        for name, n in counts.items():
             launches[name] += n
+        if arch == ARCH:
+            bf16_cache_logits = logits
+        del logits
         print(f"serve {arch}: {time.perf_counter() - t1_s:.1f} s")
+    t1_s = time.perf_counter()
+    counts, int8_logits = serve_phase(ARCH, PROMPT, card, changes=INT8)
+    for name, n in counts.items():
+        launches[name] += n
+    int8_against_bf16_cache(int8_logits, bf16_cache_logits)
+    del int8_logits, bf16_cache_logits
+    print(f"serve {ARCH} int8 cache: {time.perf_counter() - t1_s:.1f} s")
     lap("serve")
     for arch, prompt_len in SERVES:
         t1_s = time.perf_counter()

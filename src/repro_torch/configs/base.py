@@ -45,11 +45,11 @@ class ArchConfig:
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
     moe_impl: str = "auto"  # auto | manual (expert parallelism over the mesh's "model" axis)
-    # --- features of the reference's other families; the port's
-    # build_model refuses a config that sets any of them ---
-    encoder_layers: int = 0  # whisper
-    num_img_tokens: int = 0  # phi-3-vision
-    kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8"
+    # --- enc-dec (whisper), multimodal stubs, the KV cache's storage ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # whisper: 1500 precomputed frame embeddings
+    num_img_tokens: int = 0  # phi-3-vision; the port's build_model refuses it
+    kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8" (serving)
     # --- numerics and training ---
     dtype: str = "bfloat16"  # activation dtype
     param_dtype: str = "float32"  # the training masters' dtype (serving keeps ``dtype``)
@@ -73,7 +73,7 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """A tiny same-family variant for CPU tests; the same changes as
         ``repro.configs.base.ArchConfig.reduced`` for the families the port
-        runs (dense, moe, rwkv, block pattern)."""
+        runs (dense, moe, rwkv, block pattern, encoder-decoder)."""
         changes = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -97,6 +97,9 @@ class ArchConfig:
             changes["window"] = 16
         if self.lru_width:
             changes["lru_width"] = 64
+        if self.encoder_layers:
+            changes["encoder_layers"] = 1
+            changes["encoder_seq"] = 16
         if self.attn_free:
             changes["n_heads"] = 4
             changes["head_dim"] = 16
@@ -167,4 +170,5 @@ def _ensure_loaded():
         qwen25_3b,
         recurrentgemma_9b,
         rwkv6_1b6,
+        whisper_tiny,
     )

@@ -10,9 +10,12 @@ layer in model order: every repeat of stack 0's unit, then stack 1's. An
 MoE layer's ``ffn`` keeps the reference's leaves: ``router`` (d, E), the
 experts' ``wg`` / ``wu`` (E, d, f) and ``wo`` (E, f, d) with the expert
 axis first, and a ``shared`` sub-tree when the config has shared experts.
+An encoder-decoder's (whisper) ``encoder`` stack (``encoder/b0``) becomes
+one dict a layer under ``"encoder"``; ``pos_embed``, ``enc_pos`` and
+``enc_ln`` carry over as they are.
 
 Leaves the reference uses in float32 arithmetic without
-``.astype(x.dtype)`` stay float32: the norms, the rwkv time-mix's
+``.astype(x.dtype)`` stay float32: the norms (a layer norm's bias too), the rwkv time-mix's
 ``models.rwkv6.F32_KEYS`` and the RG-LRU's ``models.rglru.F32_KEYS`` (the
 same tuples the models' ``init`` reads). Every other weight is cast to the
 activation dtype, as the reference casts it at use, so the products are
@@ -35,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import rglru, rwkv6
 from repro_torch.models.model_api import _stacks_for, activation_dtype, build_model
 
-_NORM_KEYS = ("ln1", "ln2", "final_ln")
+_NORM_KEYS = ("ln1", "ln2", "lnx", "final_ln", "enc_ln")
 #: float32 leaves by the sub-tree that holds them
 F32_LEAVES = {"tm": rwkv6.F32_KEYS, "rec": rglru.F32_KEYS}
 
@@ -74,6 +77,13 @@ def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu",
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _tensor(values["lm_head"], dt, device)
+    if "pos_embed" in values:
+        params["pos_embed"] = _tensor(values["pos_embed"], dt, device)
+    if cfg.encoder_layers:
+        params["enc_pos"] = _tensor(values["enc_pos"], dt, device)
+        params["encoder"] = [_convert(values["encoder"]["b0"], dt, device, layer=rep)
+                             for rep in range(cfg.encoder_layers)]
+        params["enc_ln"] = _convert(values["enc_ln"], torch.float32, device)
     return params
 
 

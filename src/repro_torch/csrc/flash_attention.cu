@@ -1,5 +1,8 @@
 // Blocked causal / sliding-window GQA attention, forward only, for prefill
-// self-attention with positions 0..S-1. Two kernels in one source, chosen
+// self-attention with positions 0..S-1, and not-causal attention of S
+// queries over Sk keys (an encoder's self-attention, Sk = S; a
+// cross-attention over an encoder's memory, Sk != S, which is never causal
+// or windowed: the wrapper refuses that). Two kernels in one source, chosen
 // by the input type, both on Hopper's tensor cores: bfloat16 on wgmma,
 // float32 on mma.sync as 3xTF32. Asked for it (a non-null lse), either also
 // writes each row's float32 log-sum-exp, the input of the backward in
@@ -87,6 +90,9 @@
 //   that breaks the rule.
 // - Measured: see PERF.md §6 (chip_smoke.py).
 //
+// Keys: every key loop, the tensor maps and cp.async reads of K and V, and
+// the ragged-tile guards run to Sk; queries, o and lse to S.
+//
 // Both read q, k, v and write o through element strides, so the model's
 // (B, S, H, hd) projections are passed as (B, H, S, hd) views without a
 // copy. The division keeps the Pallas kernel's max(l, 1e-30) guard.
@@ -149,8 +155,8 @@ template <int HD>
 __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int B, int H, int K, int S, Strides st, int causal,
-                     int window, float scale_log2) {
+                     float* __restrict__ lse, int B, int H, int K, int S, int Sk, Strides st,
+                     int causal, int window, float scale_log2) {
   using Sh = F32Shape<HD>;
   constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV, NU = Sh::NU, NG = Sh::NG;
   extern __shared__ __align__(16) float smem[];
@@ -167,7 +173,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
   const int q0 = qb * F_BQ;
 
   // the block's k-tiles
-  const int n_kt = (S + F_BK - 1) / F_BK;
+  const int n_kt = (Sk + F_BK - 1) / F_BK;
   const int q_last = min(q0 + F_BQ, S) - 1;
   const int kt_hi = causal ? min(n_kt, q_last / F_BK + 1) : n_kt;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / F_BK : 0;
@@ -177,9 +183,9 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
   const float* kbase = k + b * st.kb + kvh * st.kh;
   const float* vbase = v + b * st.vb + kvh * st.vh;
   load_rows<HD, F_BQ, LDQ, F_THREADS>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, kt_lo * F_BK, S);
+  load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, kt_lo * F_BK, Sk);
   rt::cp_async_commit();
-  load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, kt_lo * F_BK, S);
+  load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, kt_lo * F_BK, Sk);
   rt::cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -255,14 +261,14 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
     }
     __syncthreads();  // every warp is done with this tile's K
     if (more) {
-      load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LDQ, F_THREADS>(sK, kbase, st.ks, (kt + 1) * F_BK, Sk);
       rt::cp_async_commit();
     }
 
     if (active) {
       // online softmax; sc[j][e]: key 8j + 2tq + (e & 1), row gr + 8·(e >> 1)
       const int k0 = kt * F_BK;
-      const bool masked = (k0 + F_BK > S) || (causal && k0 + F_BK - 1 > qw0) ||
+      const bool masked = (k0 + F_BK > Sk) || (causal && k0 + F_BK - 1 > qw0) ||
                           (window > 0 && k0 <= qw1 - window);
       float mx0 = rt::kNegInit, mx1 = rt::kNegInit;
 #pragma unroll
@@ -273,7 +279,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
           if (masked) {
             const int kp = k0 + 8 * j + 2 * tq + (e & 1);
             const int qp = e < 2 ? qpos0 : qpos1;
-            bool ok = kp < S;
+            bool ok = kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             x = ok ? x : -INFINITY;
@@ -346,7 +352,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
     }
     __syncthreads();  // every warp is done with this tile's V
     if (more) {
-      load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LDV, F_THREADS>(sV, vbase, st.vs, (kt + 1) * F_BK, Sk);
       rt::cp_async_commit();
     }
   }
@@ -388,7 +394,7 @@ __global__ void __launch_bounds__(F_THREADS, F32Shape<HD>::MIN_BLOCKS)
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-               int K, int S, const Strides& st, int causal, int window, float scale,
+               int K, int S, int Sk, const Strides& st, int causal, int window, float scale,
                cudaStream_t stream) {
   // the 16-byte copies and stores: 16-byte aligned bases, every batch, head
   // and sequence stride a multiple of 4 floats (the wrapper copies a tensor
@@ -407,7 +413,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   flash_f32_kernel<HD><<<(unsigned)blocks, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, B, H, K, S, st, causal, window,
+      static_cast<float*>(o), lse, B, H, K, S, Sk, st, causal, window,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -435,16 +441,17 @@ struct TcShape {
   static constexpr int SMEM = BAR_OFF + 64 + SW_ATOM;  // + 5 mbarriers, + alignment slack
 };
 
-// The tensor maps view q, k and v as 4-d (hd, S, heads, B) bf16 tensors
-// with boxes of (64 columns, rows, 1, 1) in the 128-byte swizzle: each box
-// lands as one 64-column block of swizzled 128-byte rows, the layout the
-// wgmma descriptors name. Rows past S and columns past hd are zero-filled.
+// The tensor maps view q as a 4-d (hd, S, heads, B) bf16 tensor and k and
+// v as (hd, Sk, heads, B), with boxes of (64 columns, rows, 1, 1) in the
+// 128-byte swizzle: each box lands as one 64-column block of swizzled
+// 128-byte rows, the layout the wgmma descriptors name. Rows past S (Sk)
+// and columns past hd are zero-filled.
 template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                    float* __restrict__ lse, int B, int H, int K, int S, long long ob,
+                    float* __restrict__ lse, int B, int H, int K, int S, int Sk, long long ob,
                     long long oh, long long os, int causal, int window, float scale_log2) {
   using Sh = TcShape<HD>;
   constexpr int NDB = Sh::NDB;
@@ -466,7 +473,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int tid = threadIdx.x;
 
   // the block's k-tiles
-  const int n_kt = (S + TC_BK - 1) / TC_BK;
+  const int n_kt = (Sk + TC_BK - 1) / TC_BK;
   const int q_last = min(q0 + TC_BQ, S) - 1;
   const int kt_hi = causal ? min(n_kt, q_last / TC_BK + 1) : n_kt;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / TC_BK : 0;
@@ -551,7 +558,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 
       // online softmax over the tile; sc[4j + e]: key 8j + cq + (e & 1), row r0 + 8·(e >> 1)
       const int k0 = kt * TC_BK;
-      const bool masked = (k0 + TC_BK > S) || (causal && k0 + TC_BK - 1 > qw0) ||
+      const bool masked = (k0 + TC_BK > Sk) || (causal && k0 + TC_BK - 1 > qw0) ||
                           (window > 0 && k0 <= qw1 - window);
       float mx0 = rt::kNegInit, mx1 = rt::kNegInit;
 #pragma unroll
@@ -562,7 +569,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
           if (masked) {
             const int kp = k0 + 8 * j + cq + (e & 1);
             const int qp = e < 2 ? qpos0 : qpos1;
-            bool ok = kp < S;
+            bool ok = kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             x = ok ? x : -INFINITY;
@@ -662,7 +669,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-              int K, int S, const Strides& st, int causal, int window, float scale,
+              int K, int S, int Sk, const Strides& st, int causal, int window, float scale,
               cudaStream_t stream) {
   constexpr int smem = TcShape<HD>::SMEM;
   static int smem_set[rt::kMaxDevices];
@@ -673,17 +680,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   if (!encode_map(&tq, q, HD, S, H, B, st.qb, st.qh, st.qs, TC_BQ) ||
-      !encode_map(&tk, k, HD, S, K, B, st.kb, st.kh, st.ks, TC_BK) ||
-      !encode_map(&tv, v, HD, S, K, B, st.vb, st.vh, st.vs, TC_BK))
+      !encode_map(&tk, k, HD, Sk, K, B, st.kb, st.kh, st.ks, TC_BK) ||
+      !encode_map(&tv, v, HD, Sk, K, B, st.vb, st.vh, st.vs, TC_BK))
     return (int)cudaErrorInvalidValue;
   flash_tc_kernel<HD><<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, H, K, S, st.ob, st.oh, st.os, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, H, K, S, Sk, st.ob, st.oh, st.os, causal,
       window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 using LaunchFn = int (*)(const void*, const void*, const void*, void*, float*, int, int, int,
-                         int, const Strides&, int, int, float, cudaStream_t);
+                         int, int, const Strides&, int, int, float, cudaStream_t);
 
 LaunchFn pick(int dtype, int hd) {
   const bool bf = dtype == rt::kBF16;
@@ -708,16 +715,20 @@ LaunchFn pick(int dtype, int hd) {
 //
 // lse: (B, H, S) float32, each row's log-sum-exp of its scaled, masked
 // scores (the backward's input), or null when the caller does not ask.
+//
+// Sk: the keys' length (k and v are (B, K, Sk, hd)); Sk != S only with
+// causal = 0 and window = 0.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int B, int H, int K, int S, int hd,
+                                  void* lse, int B, int H, int K, int S, int Sk, int hd,
                                   const long long* strides, int causal, int window, float scale,
                                   int dtype, void* stream) {
-  if (B <= 0 || K <= 0 || H % K != 0 || S <= 0 || B > 65535 || H > 65535)
+  if (B <= 0 || K <= 0 || H % K != 0 || S <= 0 || Sk <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  if (Sk != S && (causal || window)) return (int)cudaErrorInvalidValue;
   const LaunchFn fn = pick(dtype, hd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],  strides[5],
              strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
-  return fn(q, k, v, o, static_cast<float*>(lse), B, H, K, S, st, causal, window, scale,
+  return fn(q, k, v, o, static_cast<float*>(lse), B, H, K, S, Sk, st, causal, window, scale,
             static_cast<cudaStream_t>(stream));
 }

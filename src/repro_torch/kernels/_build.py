@@ -39,8 +39,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "rt_rmsnorm": [_P, _P, _P, _LL, _LL, _F, _I, _I, _P],
     "rt_rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _I, _P],
-    "rt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _I, _I, _F, _I,
-                           _P],
+    "rt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I, _F,
+                           _I, _P],
     "rt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _STRIDES, _I, _I, _F, _I, _P],
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES,

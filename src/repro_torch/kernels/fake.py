@@ -25,8 +25,11 @@ def _bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def visible_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that ``flash_attention``'s mask keeps a (b, h)."""
+def visible_pairs(S: int, causal: bool, window: int, Sk: int = 0) -> int:
+    """(query, key) pairs that ``flash_attention``'s mask keeps a (b, h):
+    of a cross-attention (Sk keys, neither causal nor windowed) all S·Sk."""
+    if Sk and Sk != S:
+        return S * Sk
     w = min(window, S) if window else S
     if not causal:  # query q keeps the keys above q - w: all but max(0, q - w + 1)
         return S * S - (S - w) * (S - w + 1) // 2
@@ -50,7 +53,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
     B, H, S, hd = q.shape
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, S), dtype=F32, device=q.device) if return_lse else None
-    counter.kernel("flash_attention", 4 * hd * visible_pairs(S, causal, window) * B * H,
+    pairs = visible_pairs(S, causal, window, k.shape[2])
+    counter.kernel("flash_attention", 4 * hd * pairs * B * H,
                    2 * _bytes(q) + _bytes(k, v) + (_bytes(lse) if return_lse else 0))
     return out if lse is None else (out, lse)
 

@@ -5,7 +5,10 @@ versions.
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas kernel); the plain version is ``repro/kernels/ref.py::attention_ref``
 in torch. Causal / sliding-window GQA attention over positions 0..S-1,
-forward only, with a float32 running max, sum and accumulator. Both types
+forward only, with a float32 running max, sum and accumulator; not causal
+(an encoder's self-attention), k and v may hold their own number of keys
+Sk (a cross-attention over an encoder's memory; the Pallas kernel takes
+one S, so that shape is held against the reference's ``_sdpa``). Both types
 run on the tensor cores: bfloat16 on wgmma, with the probabilities
 rounded to bfloat16 for P·V as SDPA does; float32 on mma.sync as 3×TF32
 (each operand split into a TF32 high and low part, three products), which
@@ -46,16 +49,33 @@ f32_bwd_launches = 0
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal: bool = True, window: int = 0):
+    """(B, H, K, S, Sk, hd) of q (B, H, S, hd) and k / v (B, K, Sk, hd).
+    Sk != S (a cross-attention) only when not causal and not windowed."""
     B, H, S, hd = q.shape
-    K = k.shape[1]
-    if k.shape != (B, K, S, hd) or v.shape != k.shape or H % K:
+    K, Sk = k.shape[1], k.shape[2]
+    if k.shape != (B, K, Sk, hd) or v.shape != k.shape or H % K or Sk < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} are not (B,H,S,hd)/(B,K,S,hd) with H % K == 0")
+                         f"v {tuple(v.shape)} are not (B,H,S,hd)/(B,K,Sk,hd) with H % K == 0")
+    if Sk != S and (causal or window):
+        raise ValueError(f"flash_attention: {Sk} keys for {S} queries is a cross-attention, "
+                         f"which is neither causal nor windowed (causal={causal}, "
+                         f"window={window})")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k and v must share a dtype")
+    return B, H, K, S, Sk, hd
+
+
+def _check_bwd(q, k, v, causal: bool, window: int):
+    """``_check``, and Sk == S: the backward of a cross-attention is not
+    ported yet."""
+    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
+    if Sk != S:
+        raise NotImplementedError(f"flash_attention_bwd: {Sk} keys for {S} queries: the "
+                                  f"backward of a cross-attention is not ported yet "
+                                  f"(ROADMAP.md Queue 1, item 9.7b-train)")
     return B, H, K, S, hd
 
 
@@ -76,14 +96,15 @@ def tma_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse: bool = False):
-    """CUDA kernel. q: (B, H, S, hd); k/v: (B, K, S, hd). Returns (B, H, S, hd)
-    in q's dtype, as a view of a (B, S, H, hd) buffer: the model's next
-    step, the output projection, reads that layout without a copy. With
-    ``return_lse``, returns (out, lse (B, H, S) float32)."""
+    """CUDA kernel. q: (B, H, S, hd); k/v: (B, K, Sk, hd), Sk = S unless
+    not causal and not windowed. Returns (B, H, S, hd) in q's dtype, as a
+    view of a (B, S, H, hd) buffer: the model's next step, the output
+    projection, reads that layout without a copy. With ``return_lse``,
+    returns (out, lse (B, H, S) float32)."""
     global launches, f32_launches
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: the CUDA kernel takes CUDA tensors on one device")
-    B, H, K, S, hd = _check(q, k, v)
+    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
@@ -100,7 +121,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
                                  *out.stride()[:3])
     err = _build.lib().rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, H, K, S, hd, strides,
+        None if lse is None else lse.data_ptr(), B, H, K, S, Sk, hd, strides,
         int(bool(causal)), int(window), 1.0 / math.sqrt(hd), _build.dtype_code(q),
         _build.stream_arg(q.device),
     )
@@ -123,7 +144,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     global bwd_launches, f32_bwd_launches
     if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
         raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
-    B, H, K, S, hd = _check(q, k, v)
+    B, H, K, S, hd = _check_bwd(q, k, v, causal, window)
     if o.shape != q.shape or dout.shape != q.shape or not (o.dtype == dout.dtype == q.dtype):
         raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and dout "
                          f"{dout.dtype} {tuple(dout.shape)} must be q's {q.dtype} "
@@ -155,10 +176,13 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     return dq, dk, dv
 
 
-def _mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
+def _mask(S: int, causal: bool, window: int, device, Sk: int = 0) -> torch.Tensor:
+    """(S, Sk) visible pairs of queries 0..S-1 and keys 0..Sk-1 (Sk = S
+    when 0)."""
+    Sk = Sk or S
     qpos = torch.arange(S, dtype=torch.int32, device=device)[:, None]
-    kpos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    kpos = torch.arange(Sk, dtype=torch.int32, device=device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (kpos <= qpos)
     if window:
@@ -168,14 +192,15 @@ def _mask(S: int, causal: bool, window: int, device) -> torch.Tensor:
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         return_lse: bool = False):
-    """Plain version: naive full-matrix attention (``ref.attention_ref``);
-    with ``return_lse``, also each row's log-sum-exp of its masked scores."""
-    B, H, K, S, hd = _check(q, k, v)
+    """Plain version: naive full-matrix attention (``ref.attention_ref``; the
+    reference's ``_sdpa`` for Sk != S); with ``return_lse``, also each
+    row's log-sum-exp of its masked scores."""
+    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
     g = H // K
     kk = torch.repeat_interleave(k, g, dim=1).to(torch.float32)
     vv = torch.repeat_interleave(v, g, dim=1).to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk) / math.sqrt(hd)
-    mask = _mask(S, causal, window, q.device)
+    mask = _mask(S, causal, window, q.device, Sk)
     s = torch.where(mask, s, torch.full((), NEG_INF, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
@@ -187,7 +212,7 @@ def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, windo
     matrices in float32 (P = exp(s - lse) on the visible pairs, D =
     rowsum(dO * O), dS = P * (dO·Vᵀ - D)), dK and dV summed over each
     group's query heads."""
-    B, H, K, S, hd = _check(q, k, v)
+    B, H, K, S, hd = _check_bwd(q, k, v, causal, window)
     g = H // K
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32

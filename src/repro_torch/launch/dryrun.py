@@ -167,13 +167,17 @@ def _step(model, rules, shape, grad_compression: bool, device):
     local_params = map_specs(lambda spec, t: rules.local_shard(t, spec), specs, params_meta)
     if shape.kind == "prefill":
         prefill_step = make_prefill_step(model, rules)
+        inputs = {name: (_placed(rules, t, sh), t.dtype) for (name, t), sh in zip(
+            values.items(), batch_shardings(model, rules, shape).values())}
 
         def run():
             params = _fresh(local_params, device)
-            tokens = torch.empty(tok_shape, dtype=torch.int32, device=device)
+            # the tokens int32, an encoder-decoder's frames too
+            batch = {name: torch.empty(shp, dtype=dt, device=device)
+                     for name, (shp, dt) in inputs.items()}
             with torch.no_grad():
-                out = prefill_step(params, {"tokens": tokens})
-            return flatten(params)[0] + [tokens], flatten(out)[0]
+                out = prefill_step(params, batch)
+            return flatten(params)[0] + list(batch.values()), flatten(out)[0]
 
         return run, tree_bytes(params_meta)
     decode_step = make_decode_step(model, rules)

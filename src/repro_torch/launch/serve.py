@@ -6,13 +6,18 @@
 The port of ``repro/launch/serve.py``: the same flags and the same exit
 contract (``repro_torch.orchestrator.contract``); ``--json`` makes the final
 line one JSON status object. Weights and the prompt are random, from a
-seeded ``torch.Generator``. It runs on ``cuda`` (the hand-written kernels)
+seeded ``torch.Generator``, and so are an encoder-decoder's frames (B,
+encoder_seq, d; ``make_frames``), the stub of precomputed frame embeddings
+the reference draws too. The int8 KV cache is a config field (``kv_cache_dtype``), as in
+the reference, which has no flag for it: ``setup(..., changes={
+"kv_cache_dtype": "int8"})``. It runs on ``cuda`` (the hand-written kernels)
 unless ``--device cpu`` is given (the plain torch versions); without a CUDA
 device and without that flag it raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -29,11 +34,14 @@ from repro_torch.utils.device import resolve_device
 
 
 def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_len: int = 64,
-          device: str = "cuda", seed: int = 0):
-    """Build the model, its random weights and a random prompt (B, S)."""
+          device: str = "cuda", seed: int = 0, changes: Optional[dict] = None):
+    """Build the model (its config with ``changes`` applied), its random
+    weights and a random prompt (B, S)."""
     cfg = get_arch(arch)
     if not full:
         cfg = cfg.reduced()
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
     dev = resolve_device(device)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
@@ -42,6 +50,20 @@ def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen, device=dev,
                            dtype=torch.int64)
     return model, params, prompt
+
+
+def make_frames(model, batch: int, device, seed: int = 0) -> Optional[torch.Tensor]:
+    """An encoder-decoder's random frames (B, encoder_seq, d), float32 from a
+    generator of their own seeded ``seed``, as the reference draws them
+    from a key of their own; None for a decoder-only model."""
+    cfg = model.cfg
+    if not cfg.encoder_layers:
+        return None
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev,
+                       dtype=torch.float32)
 
 
 def ring_warning(model, prompt_len: int) -> Optional[str]:
@@ -66,9 +88,11 @@ class Generation:
     decode_s: List[float]  # one per decode step
 
 
-def generate(model, params, prompt: torch.Tensor, new_tokens: int) -> Generation:
-    """Prefill with ``cache_len = S + new_tokens``, then ``new_tokens - 1``
-    greedy decode steps; each phase is timed to the device's completion."""
+def generate(model, params, prompt: torch.Tensor, new_tokens: int,
+             frames: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill (of ``prompt`` and, for an encoder-decoder, ``frames``) with
+    ``cache_len = S + new_tokens``, then ``new_tokens - 1`` greedy decode
+    steps; each phase is timed to the device's completion."""
     B, S = prompt.shape
     on_card = prompt.device.type == "cuda"
 
@@ -79,7 +103,7 @@ def generate(model, params, prompt: torch.Tensor, new_tokens: int) -> Generation
     with torch.inference_mode():
         sync()
         t0_s = time.perf_counter()
-        logits, caches = model.prefill(params, prompt, cache_len=S + new_tokens)
+        logits, caches = model.prefill(params, prompt, cache_len=S + new_tokens, frames=frames)
         sync()
         prefill_s = time.perf_counter() - t0_s
         tok = torch.argmax(logits, dim=-1)[:, None]
@@ -127,10 +151,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     model, params, prompt = setup(args.arch, full=args.full, batch=args.batch,
                                   prompt_len=args.prompt_len, device=args.device)
+    frames = make_frames(model, args.batch, prompt.device)
     warning = ring_warning(model, args.prompt_len)
     if warning:
         print(warning, file=sys.stderr)
-    gen = generate(model, params, prompt, args.new_tokens)
+    gen = generate(model, params, prompt, args.new_tokens, frames)
     res = summary(args.arch, gen)
     if args.as_json:
         print(json.dumps(res))

@@ -1,17 +1,20 @@
-"""Shared layers (counterpart of ``repro/models/layers.py``): RMS norm,
-rotary embeddings, causal or sliding-window GQA attention for prefill and
-for decode against a ring-buffer KV cache, and the MLP variants (swiglu /
-geglu / gelu).
+"""Shared layers (counterpart of ``repro/models/layers.py``): RMS and layer
+norm, rotary embeddings, causal or sliding-window GQA attention for
+prefill and for decode against a ring-buffer KV cache (stored in the
+activation dtype or in int8 with per-(token, head) float16 scales), an
+encoder's not-causal self-attention, the cross-attention of a decoder over
+an encoder's memory, and the MLP variants (swiglu / geglu / gelu).
 
 Parameters are plain dicts of tensors with the reference's shapes and
 names. Each matrix weight is cast to the activation dtype at use, as the
 reference casts it with ``.astype(x.dtype)``: serving stores the matrices
 in the activation dtype already (the cast is then a no-op), training keeps
-float32 masters; the qkv biases (qwen2.5) follow the matrices. Norm scales
-stay float32 because the norm multiplies in float32.
-The norm, prefill attention and decode attention go through
-:mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the projections
-and the MLP are plain matrix products.
+float32 masters; the qkv biases (qwen2.5, whisper) follow the matrices.
+Norm scales and biases stay float32 because the norm computes in float32.
+The RMS norm, prefill attention and decode attention go through
+:mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the layer norm
+(no Pallas kernel computes it in the reference), the projections, the
+int8 cache's quantization and the MLP are plain torch ops.
 
 Under ``rules`` each function runs on this rank's shards
 (:mod:`repro_torch.sharding.tp`). Attention: q (and k / v where "kv_heads"
@@ -42,16 +45,29 @@ def _normal(gen, shape, std, device, dtype):
     return w.mul_(std).to(dtype)
 
 
-def norm_init(dim: int, device) -> Params:
-    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+def norm_init(dim: int, device, kind: str = "rms") -> Params:
+    """{"scale"} (ones), and for ``kind="layer"`` {"bias"} (zeros), float32."""
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if kind == "layer":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
 
 
-NORM_AXES = {"scale": ("embed",)}
+def norm_axes(kind: str = "rms") -> Dict:
+    return {"scale": ("embed",), "bias": ("embed",)} if kind == "layer" else {"scale": ("embed",)}
 
 
-def norm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm (the reference's ``norm_apply(..., kind="rms")``)."""
-    return ops.rmsnorm(x, p["scale"], eps)
+def norm_apply(p: Params, x: torch.Tensor, kind: str = "rms", eps: float = 1e-6) -> torch.Tensor:
+    """The reference's ``norm_apply``: RMS norm (the kernel), or with
+    ``kind="layer"`` the layer norm in float32 with the reference's
+    arithmetic: the mean, the mean of the squared deviations, then
+    (x - mean) * rsqrt(var + eps) * scale + bias, cast back."""
+    if kind != "layer":
+        return ops.rmsnorm(x, p["scale"], eps)
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -105,20 +121,28 @@ def attention_axes(cfg) -> Dict:
 #: the logical axes of an attention layer's decode cache
 CACHE_AXES = {"k": ("batch", "seq", "kv_heads", "head_dim"),
               "v": ("batch", "seq", "kv_heads", "head_dim"), "kpos": ("batch", "seq")}
+#: and of the int8 cache's scales
+SCALE_AXES = {"k_scale": ("batch", "seq", "kv_heads"), "v_scale": ("batch", "seq", "kv_heads")}
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor):
+def cache_axes(cfg) -> Dict:
+    return {**CACHE_AXES, **SCALE_AXES} if cfg.kv_cache_dtype == "int8" else dict(CACHE_AXES)
+
+
+def _proj(x: torch.Tensor, p: Params, w: str, b: str) -> torch.Tensor:
+    """x (B, S, d) @ p[w] (d, h, hd) -> (B, S, h, hd), plus the bias p[b]
+    where the layer has the qkv biases (qwen2.5, whisper), cast at use."""
     B, S, d = x.shape
-    _, H, hd = p["wq"].shape
-    n = p["wk"].shape[1]
-    q = (x @ p["wq"].to(x.dtype).reshape(d, H * hd)).view(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
-    v = (x @ p["wv"].to(x.dtype).reshape(d, n * hd)).view(B, S, n, hd)
-    if "bq" in p:  # qkv bias (qwen2.5): added before RoPE, cast at use
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    if cfg.rope_theta > 0:
+    _, h, hd = p[w].shape
+    y = (x @ p[w].to(x.dtype).reshape(d, h * hd)).view(B, S, h, hd)
+    return y + p[b].to(x.dtype) if b in p else y
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor, rope: bool = True):
+    """q, k, v (B, S, heads, hd), the biases added before RoPE; no RoPE
+    with ``rope=False`` (learned positions, an encoder)."""
+    q, k, v = _proj(x, p, "wq", "bq"), _proj(x, p, "wk", "bk"), _proj(x, p, "wv", "bv")
+    if rope and cfg.rope_theta > 0:
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
     return q, k, v
@@ -178,20 +202,47 @@ def _out_proj(p: Params, out: torch.Tensor, s: Optional[tp.Split] = None) -> tor
 
 
 def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-                      window: int = 0, rules=None):
+                      window: int = 0, rules=None, causal: bool = True, rope: bool = True):
     """Causal self-attention over a prompt whose positions are 0..S-1, each
-    query seeing the last ``window`` positions when ``window`` > 0.
+    query seeing the last ``window`` positions when ``window`` > 0; with
+    ``causal=False`` every query sees every position (an encoder's).
 
-    Returns (y, k, v); k (roped) and v are (B, S, n, hd), the numbers the
-    reference's ``_kv_from_prefill`` recomputes for the cache (this rank's
-    kv heads under rules)."""
+    Returns (y, k, v); k (roped unless ``rope=False``) and v are (B, S, n,
+    hd), the numbers the reference's ``_kv_from_prefill`` recomputes for
+    the cache (this rank's kv heads under rules)."""
     s, sel, x, p = _split(p, x, cfg, rules)
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, rope)
     out = ops.flash_attention(
         q.transpose(1, 2), _select(k, sel, 2).transpose(1, 2),
-        _select(v, sel, 2).transpose(1, 2), causal=True, window=window
+        _select(v, sel, 2).transpose(1, 2), causal=causal, window=window
     )  # (B, H, S, hd)
     return _out_proj(p, out.transpose(1, 2), s), k, v
+
+
+def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor, cfg, rules=None,
+                    decode: bool = False) -> torch.Tensor:
+    """x (B, S, d) attends to every position of an encoder's ``memory`` (B,
+    Sm, d): q from x, k and v projected from the memory, with the biases
+    and no RoPE (the reference's ``attention_apply(..., memory=...)``,
+    which projects the memory again at every decode step, as this does).
+    The prefill runs ``flash_attention`` with the memory's own key length,
+    not causal; a decode step (S = 1, ``decode=True``) runs
+    ``flash_decode`` over the memory's k/v with every slot valid (kpos =
+    0..Sm-1 at position Sm - 1): the reference's all-true mask. Under
+    rules the heads split as in self-attention."""
+    B = x.shape[0]
+    s, sel, x, p = _split(p, x, cfg, rules)
+    memory = tp.vary(s, memory)
+    q = _proj(x, p, "wq", "bq")
+    k = _select(_proj(memory, p, "wk", "bk"), sel, 2).transpose(1, 2)  # (B, n, Sm, hd)
+    v = _select(_proj(memory, p, "wv", "bv"), sel, 2).transpose(1, 2)
+    if decode:
+        Sm = memory.shape[1]
+        kpos = torch.arange(Sm, dtype=torch.int32, device=x.device).expand(B, Sm).contiguous()
+        out = ops.flash_decode(q[:, 0], k, v, kpos, Sm - 1)[:, None]  # (B, 1, H, hd)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k, v, causal=False).transpose(1, 2)
+    return _out_proj(p, out, s)
 
 
 def attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
@@ -209,36 +260,68 @@ def attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,
-                     window: int = 0, rules=None):
+                     window: int = 0, rules=None, rope: bool = True):
     """One new token per row at position ``pos`` against the layer's cache
-    {"k", "v": (B, W, n, hd), "kpos": (B, W) int32}, seeing the last
-    ``window`` positions when ``window`` > 0.
+    {"k", "v": (B, W, n, hd), "kpos": (B, W) int32} (int8 k / v with
+    {"k_scale", "v_scale": (B, W, n) float16} for an int8 cache), seeing
+    the last ``window`` positions when ``window`` > 0.
 
     The reference returns a new cache from ``dynamic_update_slice``; here
-    the token's k/v and position are written into slot ``pos % W`` in
-    place, and the kernel reads the cache in this layout through strides."""
+    the token's k/v (quantized first in an int8 cache, as the reference
+    quantizes the token before it attends to it) and position are written
+    into slot ``pos % W`` in place. The kernel reads the cache in this
+    layout through strides; an int8 cache is dequantized whole first."""
     B = x.shape[0]
     s, sel, x, p = _split(p, x, cfg, rules)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, rope)
     slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
     cache["kpos"][:, slot] = pos
-    out = ops.flash_decode(
-        q[:, 0], _select(cache["k"], sel, 2).transpose(1, 2),
-        _select(cache["v"], sel, 2).transpose(1, 2), cache["kpos"], pos, window=window,
-    )  # (B, H, hd)
+    if "k_scale" in cache:
+        kv = {}
+        for name, t in (("k", k), ("v", v)):
+            cache[name][:, slot], cache[f"{name}_scale"][:, slot] = _quantize_kv(t[:, 0])
+            kv[name] = _dequantize_kv(_select(cache[name], sel, 2),
+                                      _select(cache[f"{name}_scale"], sel, 2), x.dtype)
+        ck, cv = kv["k"], kv["v"]
+    else:
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        ck, cv = _select(cache["k"], sel, 2), _select(cache["v"], sel, 2)
+    out = ops.flash_decode(q[:, 0], ck.transpose(1, 2), cv.transpose(1, 2), cache["kpos"], pos,
+                           window=window)  # (B, H, hd)
     return _out_proj(p, out[:, None], s)
 
 
 def attention_cache_init(cfg, batch: int, length: int, dtype, device) -> Params:
+    """An empty cache: k / v in ``dtype``, or for ``cfg.kv_cache_dtype ==
+    "int8"`` int8 k / v and float16 per-(token, head) scales (the
+    reference's layout); kpos -1 (empty)."""
     n, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
-        "k": torch.zeros((batch, length, n, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, length, n, hd), dtype=dtype, device=device),
+    kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    cache = {
+        "k": torch.zeros((batch, length, n, hd), dtype=kv_dtype, device=device),
+        "v": torch.zeros((batch, length, n, hd), dtype=kv_dtype, device=device),
         "kpos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
     }
+    if cfg.kv_cache_dtype == "int8":
+        for name in SCALE_AXES:
+            cache[name] = torch.zeros((batch, length, n), dtype=torch.float16, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x (..., hd) -> (int8 values, float16 scales (...)), the reference's
+    arithmetic: the float32 amax over hd, scale = max(amax, 1e-6) / 127,
+    round half to even of x / scale, clipped to +-127."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.float16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale.to(torch.float32)[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The decoder-only model (counterpart of ``repro/models/model_api.py``):
-embedding, the blocks, ``final_ln``, the tied or untied head, ``loss``,
-``prefill``, ``decode`` and ``init_cache``.
+"""The model (counterpart of ``repro/models/model_api.py``): embedding, the
+blocks, ``final_ln``, the tied or untied head, ``loss``, ``prefill``,
+``decode`` and ``init_cache``; for an encoder-decoder config (whisper) the
+encoder, learned positions and the cross-attention too.
 
 A model is a list of *stacks*, each a (pattern unit, repeats) pair, as in
 the reference: (("attn",), 18) for gemma, (("rwkv",), 24) for rwkv6,
@@ -17,10 +18,27 @@ Block kinds and their caches:
   attn_local  sliding-window attention + FFN       {"k", "v", "kpos"}, min(S, window) slots
   rec         RG-LRU temporal block + FFN          {"h" float32, "conv"}
   rwkv        RWKV6 time-mix + channel-mix         {"wkv" float32, "shift_t", "shift_c"}
+  enc         not-causal encoder attention + FFN   (none: the encoder runs in the prefill)
+  xattn       causal self-attention + cross-attention to the encoder's memory + FFN
+                                                   {"k", "v", "kpos"}
+
+With ``cfg.kv_cache_dtype == "int8"`` every attention cache holds int8 k /
+v and float16 "k_scale" / "v_scale" (B, W, n), the reference's layout.
 
 With ``cfg.moe`` an attention block's FFN is the mixture of experts of
 :mod:`repro_torch.models.moe`, whose load-balance term ``loss`` adds.
-``loss`` trains every kind.
+``loss`` trains every kind but the encoder-decoder's (ROADMAP.md Queue 1,
+item 9.7b-train).
+
+An encoder-decoder config (``cfg.encoder_layers``; whisper) adds
+``"pos_embed"`` (32768 learned positions, added to the tokens; no RoPE
+anywhere), ``"enc_pos"`` (added to the frames), ``"encoder"`` (one dict a
+layer, kind ``enc``) and ``"enc_ln"``; its layers are ``xattn``. The
+prefill takes ``frames`` (B, encoder_seq, d), the stub of precomputed
+frame embeddings, encodes them and keeps the memory as the cache's last
+entry, ``{"memory": (B, encoder_seq, d)}``: the reference's
+``caches["memory"]``. Each decode step projects the memory's k / v again,
+as the reference does.
 
 Over a mesh (``rules``, :mod:`repro_torch.sharding.rules`) each rank runs
 ``prefill``, ``decode`` and ``loss`` on its data shard of the batch and
@@ -58,23 +76,28 @@ from repro_torch.sharding import tp
 from repro_torch.sharding.rules import MeshRules, constrain, entry_axes, map_specs
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
+_ENC_DEC_TRAIN = ("the encoder-decoder's training (its loss, and flash_attention_bwd with the "
+                  "cross-attention's own key length) is not ported yet (ROADMAP.md Queue 1, "
+                  "item 9.7b-train)")
 _PATTERN_KINDS = ("rec", "attn")
 #: the cross-entropy's chunk of positions (the reference's ``_chunked_ce``)
 CE_CHUNK = 512
+#: learned positions of an encoder-decoder (the reference's ``pos_embed`` rows)
+POS_ROWS = 32768
+#: the logical axes of the frames and of the encoder's memory
+MEMORY_AXES = ("batch", "frames", None)
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
     if set(cfg.block_pattern) - set(_PATTERN_KINDS):
         return f"the {'/'.join(cfg.block_pattern)} block pattern (only {_PATTERN_KINDS})"
-    if cfg.encoder_layers:
-        return "the encoder-decoder blocks (enc, xattn)"
-    if cfg.moe and (cfg.block_pattern or cfg.attn_free):
-        return "the mixture-of-experts FFN in a recurrent block"
+    if cfg.moe and (cfg.block_pattern or cfg.attn_free or cfg.encoder_layers):
+        return "the mixture-of-experts FFN in a recurrent or encoder-decoder block"
     if cfg.num_img_tokens:
         return "image-token inputs"
-    if cfg.kv_cache_dtype:
+    if cfg.kv_cache_dtype not in ("", "int8"):
         return f"the {cfg.kv_cache_dtype} KV cache"
-    if cfg.norm != "rms":
+    if cfg.norm not in ("rms", "layer"):
         return f"the {cfg.norm} norm"
     return None
 
@@ -90,6 +113,8 @@ def _stacks_for(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
         if rem:
             stacks.append((unit[:rem], 1))
         return stacks
+    if cfg.encoder_layers:  # whisper's decoder
+        return [(("xattn",), cfg.n_layers)]
     return [(("attn",), cfg.n_layers)]
 
 
@@ -110,18 +135,25 @@ class ModelDef:
         # each layer's block kind in model order: the stacks' units, repeated
         self.kinds = [kind for unit, reps in _stacks_for(self.cfg) for _ in range(reps)
                       for kind in unit]
+        # learned positions and no RoPE (whisper), as the reference's _learned_pos
+        self.learned_pos = self.cfg.encoder_layers > 0
+
+    def _ln(self, p, x):
+        return L.norm_apply(p, x, self.cfg.norm)
 
     # -- init ---------------------------------------------------------------
     def _block_init(self, kind: str, gen, device, dt) -> Dict[str, Any]:
         cfg, d = self.cfg, self.cfg.d_model
+        norm = functools.partial(L.norm_init, d, device, cfg.norm)
         if kind == "rwkv":
-            return {"ln1": L.norm_init(d, device), "tm": R.timemix_init(gen, cfg, device, dt),
-                    "ln2": L.norm_init(d, device), "cm": R.channelmix_init(gen, cfg, device, dt)}
+            return {"ln1": norm(), "tm": R.timemix_init(gen, cfg, device, dt),
+                    "ln2": norm(), "cm": R.channelmix_init(gen, cfg, device, dt)}
         mixer = ({"rec": G.rglru_block_init(gen, cfg, device, dt)} if kind == "rec"
                  else {"attn": L.attention_init(gen, cfg, device, dt)})
+        if kind == "xattn":
+            mixer.update(lnx=norm(), xattn=L.attention_init(gen, cfg, device, dt))
         ffn = M.moe_init(gen, cfg, device, dt) if cfg.moe else L.mlp_init(gen, cfg, device, dt)
-        return {"ln1": L.norm_init(d, device), **mixer, "ln2": L.norm_init(d, device),
-                "ffn": ffn}
+        return {"ln1": norm(), **mixer, "ln2": norm(), "ffn": ffn}
 
     def init(self, gen: torch.Generator, device, param_dtype: Optional[torch.dtype] = None
              ) -> Dict[str, Any]:
@@ -129,7 +161,8 @@ class ModelDef:
         decay LoRA 0.01), norm scales 1, and the reference's constant
         initialisers for the rwkv and RG-LRU parameters. The matrices are
         stored in ``param_dtype`` (default: the activation dtype, for
-        serving; training passes float32 masters, cast at use)."""
+        serving; training passes float32 masters, cast at use). An
+        encoder-decoder's learned positions are normal with std 0.01."""
         cfg = self.cfg
         dt = param_dtype or activation_dtype(cfg)
         params: Dict[str, Any] = {
@@ -137,36 +170,60 @@ class ModelDef:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab), L.INIT_STD, device, dt)
-        params["final_ln"] = L.norm_init(cfg.d_model, device)
+        params["final_ln"] = L.norm_init(cfg.d_model, device, cfg.norm)
+        if self.learned_pos:
+            params["pos_embed"] = L._normal(gen, (POS_ROWS, cfg.d_model), 0.01, device, dt)
         params["layers"] = [self._block_init(kind, gen, device, dt) for kind in self.kinds]
+        if cfg.encoder_layers:
+            params["enc_pos"] = L._normal(gen, (cfg.encoder_seq, cfg.d_model), 0.01, device, dt)
+            params["encoder"] = [self._block_init("enc", gen, device, dt)
+                                 for _ in range(cfg.encoder_layers)]
+            params["enc_ln"] = L.norm_init(cfg.d_model, device, cfg.norm)
         return params
 
     # -- logical axes and abstract trees ---------------------------------------
     def _block_axes(self, kind: str) -> Dict[str, Any]:
-        cfg, norm = self.cfg, dict(L.NORM_AXES)
+        cfg = self.cfg
+        norm = functools.partial(L.norm_axes, cfg.norm)
         if kind == "rwkv":
-            return {"ln1": norm, "tm": dict(R.TIMEMIX_AXES), "ln2": dict(norm),
+            return {"ln1": norm(), "tm": dict(R.TIMEMIX_AXES), "ln2": norm(),
                     "cm": dict(R.CHANNELMIX_AXES)}
         mixer = ({"rec": dict(G.RGLRU_AXES)} if kind == "rec"
                  else {"attn": L.attention_axes(cfg)})
+        if kind == "xattn":
+            mixer.update(lnx=norm(), xattn=L.attention_axes(cfg))
         ffn = M.moe_axes(cfg) if cfg.moe else L.mlp_axes(cfg)
-        return {"ln1": norm, **mixer, "ln2": dict(norm), "ffn": ffn}
+        return {"ln1": norm(), **mixer, "ln2": norm(), "ffn": ffn}
 
     def param_axes(self) -> Dict[str, Any]:
         """The logical axes of every leaf of ``init``'s tree, the same
         structure: a layer's are the reference's with its leading "layers"
         entry dropped (the port keeps one dict a layer)."""
+        cfg = self.cfg
         axes: Dict[str, Any] = {"embed": ("vocab", "embed")}
-        if not self.cfg.tie_embeddings:
+        if not cfg.tie_embeddings:
             axes["lm_head"] = ("embed", "vocab")
-        axes["final_ln"] = dict(L.NORM_AXES)
+        axes["final_ln"] = L.norm_axes(cfg.norm)
+        if self.learned_pos:
+            axes["pos_embed"] = (None, "embed")
         axes["layers"] = [self._block_axes(kind) for kind in self.kinds]
+        if cfg.encoder_layers:
+            axes["enc_pos"] = (None, "embed")
+            axes["encoder"] = [self._block_axes("enc") for _ in range(cfg.encoder_layers)]
+            axes["enc_ln"] = L.norm_axes(cfg.norm)
         return axes
 
     def abstract_init(self) -> Dict[str, Any]:
         """``init``'s tree on the meta device (shapes and dtypes, no
-        storage), the matrices in ``cfg.param_dtype`` as training holds them."""
-        return self.init(None, "meta", param_dtype=getattr(torch, self.cfg.param_dtype))
+        storage), the matrices in ``cfg.param_dtype`` as training holds them;
+        a ``param_dtype`` other than float32 holds every floating leaf in
+        it, the norms too, as the reference's ``init`` casts them."""
+        pd = getattr(torch, self.cfg.param_dtype)
+        params = self.init(None, "meta", param_dtype=pd)
+        if pd == torch.float32:
+            return params
+        return map_specs(lambda _, t: t.to(pd) if t.is_floating_point() else t,
+                         self.param_axes(), params)
 
     def run_specs(self, rules: MeshRules) -> Dict[str, Any]:
         """How each parameter leaf lies over the mesh when the port runs
@@ -199,18 +256,27 @@ class ModelDef:
     def input_specs(self, shape: ShapeCfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
         """(the inputs of a step of ``shape`` as meta tensors, their logical
         axes): the reference's ``input_specs`` split into values and axes."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         meta = functools.partial(torch.empty, dtype=torch.int32, device="meta")
         if shape.kind == "decode":
             return {"tokens": meta((B, 1)), "pos": meta(())}, {"tokens": ("batch", None),
                                                              "pos": ()}
-        return {"tokens": meta((B, S))}, {"tokens": ("batch", "seq")}
+        values, axes = {"tokens": meta((B, S))}, {"tokens": ("batch", "seq")}
+        if cfg.encoder_layers:
+            values["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                           dtype=activation_dtype(cfg), device="meta")
+            axes["frames"] = MEMORY_AXES
+        return values, axes
 
     def cache_axes(self) -> List[Dict[str, Tuple]]:
         """The logical axes of ``init_cache``'s tree (the reference's with
         its leading "layers" entry dropped)."""
         by_kind = {"rwkv": R.CACHE_AXES, "rec": G.CACHE_AXES}
-        return [dict(by_kind.get(kind, L.CACHE_AXES)) for kind in self.kinds]
+        axes = [dict(by_kind.get(kind) or L.cache_axes(self.cfg)) for kind in self.kinds]
+        if self.cfg.encoder_layers:
+            axes.append({"memory": MEMORY_AXES})
+        return axes
 
     def abstract_cache(self, B: int, seq_len: int) -> Tuple[List[Dict], List[Dict]]:
         """(``init_cache(B, seq_len)`` on the meta device, its axes)."""
@@ -247,7 +313,7 @@ class ModelDef:
 
     def _ffn_half(self, lp, x, rules=None):
         """(x + the FFN of its norm, the MoE aux term or None)."""
-        h = L.norm_apply(lp["ln2"], x)
+        h = self._ln(lp["ln2"], x)
         if self.cfg.moe:
             f, aux = M.moe_apply(lp["ffn"], h, self.cfg, rules)
             return x + f, aux
@@ -258,75 +324,122 @@ class ModelDef:
         reference's ``_kv_from_prefill``: a windowed layer keeps exactly the
         last min(S, window) positions, in order; a full layer gets
         ``max(cache_len, S)`` slots, positions 0..S-1 then empty ones
-        (kpos = -1), so decode appends without wrapping."""
+        (kpos = -1, k / v and scales zero), so decode appends without
+        wrapping. An int8 cache holds the kept positions quantized."""
         B, S = positions.shape
         kpos = positions.to(torch.int32)
         if window:
             W = min(S, window)
+            k, v, kpos = k[:, -W:], v[:, -W:], kpos[:, -W:]
+        if self.cfg.kv_cache_dtype == "int8":
+            (k, k_scale), (v, v_scale) = L._quantize_kv(k), L._quantize_kv(v)
+            entries = {"k": k, "v": v, "kpos": kpos, "k_scale": k_scale, "v_scale": v_scale}
+        else:
+            entries = {"k": k, "v": v, "kpos": kpos}
+        if window:
             # copies: a view of the prompt's k / v (at batch 1 a slice is
             # contiguous) would keep all S positions alive in the cache
-            return {"k": k[:, -W:].clone(), "v": v[:, -W:].clone(), "kpos": kpos[:, -W:].clone()}
+            return {name: t.clone() for name, t in entries.items()}
         length = max(cache_len, S)  # k and v hold this rank's kv heads
-        cache = {"k": k.new_zeros((B, length) + tuple(k.shape[2:])),
-                 "v": v.new_zeros((B, length) + tuple(v.shape[2:])),
-                 "kpos": torch.full((B, length), -1, dtype=torch.int32, device=k.device)}
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
-        cache["kpos"][:, :S] = kpos
+        cache = {}
+        for name, t in entries.items():
+            cache[name] = (torch.full((B, length), -1, dtype=torch.int32, device=k.device)
+                           if name == "kpos" else t.new_zeros((B, length) + tuple(t.shape[2:])))
+            cache[name][:, :S] = t
         return cache
 
-    def _block_prefill(self, kind: str, lp, x, positions, cache_len: int, rules=None):
+    def _block_prefill(self, kind: str, lp, x, positions, cache_len: int, rules=None,
+                       memory=None):
+        """(the block's output, its cache; None for an ``enc`` block)."""
         cfg = self.cfg
         x = constrain(x, rules, ("batch", "seq", None))
-        h = L.norm_apply(lp["ln1"], x)
+        h = self._ln(lp["ln1"], x)
         if kind == "rwkv":
             t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg, rules=rules)
             x = x + t
-            c, shift_c = R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x), cfg=cfg,
+            c, shift_c = R.channelmix_apply(lp["cm"], self._ln(lp["ln2"], x), cfg=cfg,
                                             rules=rules)
             return x + c, {"wkv": wkv, "shift_t": shift_t, "shift_c": shift_c}
         if kind == "rec":
             r, h_state, conv = G.rglru_block_apply(lp["rec"], h, cfg, rules=rules)
             return self._ffn_half(lp, x + r, rules)[0], {"h": h_state, "conv": conv}
         window = _window(cfg, kind)
-        a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window, rules)
-        return (self._ffn_half(lp, x + a, rules)[0],
-                self._kv_cache(k, v, positions, window, cache_len))
+        a, k, v = L.attention_prefill(lp["attn"], h, cfg, positions, window, rules,
+                                      causal=kind != "enc", rope=not self.learned_pos)
+        x = x + a
+        if kind == "xattn":
+            x = x + L.cross_attention(lp["xattn"], self._ln(lp["lnx"], x), memory, cfg, rules)
+        cache = None if kind == "enc" else self._kv_cache(k, v, positions, window, cache_len)
+        return self._ffn_half(lp, x, rules)[0], cache
 
-    def _block_decode(self, kind: str, lp, x, cache, pos: int, rules=None):
+    def _block_decode(self, kind: str, lp, x, cache, pos: int, rules=None, memory=None):
         cfg = self.cfg
-        h = L.norm_apply(lp["ln1"], x)
+        h = self._ln(lp["ln1"], x)
         if kind == "rwkv":
             t, cache["shift_t"], cache["wkv"] = R.timemix_apply(
                 lp["tm"], h, cfg, cache["shift_t"], cache["wkv"], decode=True, rules=rules)
             x = x + t
             c, cache["shift_c"] = R.channelmix_apply(
-                lp["cm"], L.norm_apply(lp["ln2"], x), cache["shift_c"], cfg=cfg, rules=rules)
+                lp["cm"], self._ln(lp["ln2"], x), cache["shift_c"], cfg=cfg, rules=rules)
             return x + c
         if kind == "rec":
             r, cache["h"], cache["conv"] = G.rglru_block_apply(
                 lp["rec"], h, cfg, cache["h"], cache["conv"], decode=True, rules=rules)
             return self._ffn_half(lp, x + r, rules)[0]
-        a = L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind), rules)
-        return self._ffn_half(lp, x + a, rules)[0]
+        x = x + L.attention_decode(lp["attn"], h, cfg, cache, pos, _window(cfg, kind), rules,
+                                   rope=not self.learned_pos)
+        if kind == "xattn":
+            x = x + L.cross_attention(lp["xattn"], self._ln(lp["lnx"], x), memory, cfg, rules,
+                                      decode=True)
+        return self._ffn_half(lp, x, rules)[0]
+
+    def _encode(self, params, frames: torch.Tensor, rules=None) -> torch.Tensor:
+        """The encoder's memory (B, encoder_seq, d): the frames plus
+        ``enc_pos``, the ``enc`` blocks, then ``enc_ln``."""
+        dt = activation_dtype(self.cfg)
+        frames = frames.to(dt)
+        B, S, _ = frames.shape
+        x = frames + params["enc_pos"][None, :S].to(dt)
+        positions = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
+        for lp in params["encoder"]:
+            x, _ = self._block_prefill("enc", lp, x, positions, S, rules)
+        return self._ln(params["enc_ln"], x)
+
+    def _inputs(self, params, tokens, pos0: int, rules=None) -> torch.Tensor:
+        """The token embeddings, plus (whisper) the learned positions of
+        positions pos0 .. pos0 + S - 1, every row's the same."""
+        x = self._embed(params, tokens, rules)
+        if self.learned_pos:
+            x = x + params["pos_embed"][pos0:pos0 + tokens.shape[1]].to(x.dtype)
+        return x
 
     def prefill(self, params, tokens: torch.Tensor, rules: Optional[MeshRules] = None,
-                cache_len: Optional[int] = None) -> Tuple[torch.Tensor, List[Dict]]:
-        """tokens: (B, S) int (with rules, this rank's data shard). Returns
+                cache_len: Optional[int] = None, frames: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+        """tokens: (B, S) int (with rules, this rank's data shard); an
+        encoder-decoder also takes ``frames`` (B, encoder_seq, d). Returns
         the last position's logits (B, vocab) and the per-layer caches (see
         ``_kv_cache`` for the attention layers; the recurrent layers keep
-        their final states)."""
+        their final states), then, for an encoder-decoder, {"memory"}."""
         _check_rules(rules)
         B, S = tokens.shape
+        memory = None
+        if self.cfg.encoder_layers:
+            if frames is None:
+                raise ValueError(f"{self.cfg.name}: the prefill of an encoder-decoder takes "
+                                 f"frames (B, {self.cfg.encoder_seq}, {self.cfg.d_model})")
+            memory = self._encode(params, frames, rules)
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = constrain(self._embed(params, tokens, rules), rules, ("batch", "seq", None))
+        x = constrain(self._inputs(params, tokens, 0, rules), rules, ("batch", "seq", None))
         caches = []
         for kind, lp in zip(self.kinds, params["layers"]):
-            x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S, rules)
+            x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S, rules, memory)
             caches.append(cache)
+        if memory is not None:
+            caches.append({"memory": memory})
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
-        x = L.norm_apply(params["final_ln"], x[:, -1:])
+        x = self._ln(params["final_ln"], x[:, -1:])
         return self._logits(params, x[:, 0], rules), caches
 
     def decode(self, params, tokens: torch.Tensor, pos: int, caches: List[Dict],
@@ -335,22 +448,23 @@ class ModelDef:
         Updates each layer's cache in place and returns (logits (B, vocab),
         caches)."""
         _check_rules(rules)
-        x = self._embed(params, tokens, rules)
+        memory = caches[-1]["memory"] if self.cfg.encoder_layers else None
+        x = self._inputs(params, tokens, pos, rules)
         for kind, lp, cache in zip(self.kinds, params["layers"], caches):
-            x = self._block_decode(kind, lp, x, cache, pos, rules)
-        x = L.norm_apply(params["final_ln"], x)
+            x = self._block_decode(kind, lp, x, cache, pos, rules, memory)
+        x = self._ln(params["final_ln"], x)
         return self._logits(params, x[:, 0], rules), caches
 
     # -- training -------------------------------------------------------------
     def _block_train(self, kind: str, lp, x, positions, rules=None):
         """(the block's output, its MoE aux term or None)."""
         x = constrain(x, rules, ("batch", "seq", None))
-        h = L.norm_apply(lp["ln1"], x)
+        h = self._ln(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
         cfg = self.cfg
         if kind == "rwkv":
             x = x + R.timemix_apply(lp["tm"], h, cfg, rules=rules)[0]
-            return x + R.channelmix_apply(lp["cm"], L.norm_apply(lp["ln2"], x), cfg=cfg,
+            return x + R.channelmix_apply(lp["cm"], self._ln(lp["ln2"], x), cfg=cfg,
                                           rules=rules)[0], None
         if kind == "rec":
             return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, cfg, rules=rules)[0],
@@ -376,6 +490,8 @@ class ModelDef:
         identity, so each rank's backward gives its shard's part of every
         gradient; ``train.step`` sums the parts)."""
         _check_rules(rules)
+        if self.cfg.encoder_layers:
+            raise NotImplementedError(f"{self.cfg.name}: {_ENC_DEC_TRAIN}")
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         B, S = tokens.shape
@@ -390,7 +506,7 @@ class ModelDef:
                 x, a = self._block_train(kind, lp, x, positions, rules)
             if a is not None:
                 aux = a if aux is None else aux + a
-        x = L.norm_apply(params["final_ln"], x)
+        x = self._ln(params["final_ln"], x)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0
@@ -414,9 +530,15 @@ class ModelDef:
         return L.attention_cache_init(cfg, B, length, dt, device)
 
     def init_cache(self, B: int, seq_len: int, device) -> List[Dict]:
-        """Empty caches for a fresh sequence of up to ``seq_len`` positions."""
-        dt = activation_dtype(self.cfg)
-        return [self._block_cache(kind, B, seq_len, dt, device) for kind in self.kinds]
+        """Empty caches for a fresh sequence of up to ``seq_len`` positions
+        (and an encoder-decoder's zero memory)."""
+        cfg = self.cfg
+        dt = activation_dtype(cfg)
+        caches = [self._block_cache(kind, B, seq_len, dt, device) for kind in self.kinds]
+        if cfg.encoder_layers:
+            caches.append({"memory": torch.zeros((B, cfg.encoder_seq, cfg.d_model), dtype=dt,
+                                                 device=device)})
+        return caches
 
 
 def _check_rules(rules: Optional[MeshRules]) -> None:

@@ -66,8 +66,11 @@ def leaf_groups(params, stacks: Stacks) -> List[Tuple[Path, List[torch.Tensor], 
     """The reference's leaves as groups of the port's tensors: (path,
     tensors, stacked). ``params["layers"]`` is split into the stacks'
     repeats and each block's leaf is grouped over the repeats
-    (``stack{i}/b{j}/...``, stacked); every other leaf is a group of one."""
-    out = [(p, [t], False) for p, t in _paths({k: v for k, v in params.items() if k != "layers"})]
+    (``stack{i}/b{j}/...``, stacked), an encoder-decoder's
+    ``params["encoder"]`` over its layers (``encoder/b0/...``, stacked);
+    every other leaf is a group of one."""
+    out = [(p, [t], False) for p, t in _paths({k: v for k, v in params.items()
+                                               if k not in ("layers", "encoder")})]
     first = 0
     for si, (unit, reps) in enumerate(stacks):
         n = len(unit)
@@ -76,6 +79,10 @@ def leaf_groups(params, stacks: Stacks) -> List[Tuple[Path, List[torch.Tensor], 
             for sub, _ in _paths(layers[0]):
                 out.append(((f"stack{si}", f"b{j}") + sub, [_get(lp, sub) for lp in layers], True))
         first += reps * n
+    if "encoder" in params:
+        layers = params["encoder"]
+        out += [(("encoder", "b0") + sub, [_get(lp, sub) for lp in layers], True)
+                for sub, _ in _paths(layers[0])]
     return out
 
 

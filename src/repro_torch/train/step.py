@@ -191,7 +191,8 @@ def make_prefill_step(model: ModelDef, rules: Optional[MeshRules] = None):
     def prefill_step(params, batch, cache_len=None):
         tokens = torch.as_tensor(batch["tokens"]).to(device=params["embed"].device,
                                                      dtype=torch.int64)
-        return model.prefill(params, tokens, rules, cache_len=cache_len)
+        return model.prefill(params, tokens, rules, cache_len=cache_len,
+                             frames=batch.get("frames"))
 
     return prefill_step
 

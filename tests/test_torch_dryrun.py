@@ -6,6 +6,7 @@ Every cell runs in a subprocess of its own (``python -m
 repro_torch.launch.dryrun``): its ``fake`` process group of 256 or 512
 ranks is the process's. The kernels' fake path, the counter's collectives
 and the report run here or in a small subprocess."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,22 +39,33 @@ from repro_torch.roofline.counter import StepCounter
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
-# (arch, shape, mesh, variant): the three cells the checks read, a skipped
-# cell, and cells the port cannot run (unported archs and variants)
+# (arch, shape, mesh, variant): the three cells the checks read, the
+# serving cells of whisper-tiny and of the int8 KV cache, a skipped cell,
+# and cells the port cannot run (unported archs and variants, whisper's
+# training)
 CELLS = {
     "train": ("gemma-2b", "train_4k", "single", "baseline"),
     "decode": ("olmoe-1b-7b", "decode_32k", "multi", "baseline"),
     "prefill": ("recurrentgemma-9b", "prefill_32k", "single", "baseline"),
+    "whisper_prefill": ("whisper-tiny", "prefill_32k", "single", "baseline"),
+    "whisper_decode": ("whisper-tiny", "decode_32k", "single", "baseline"),
+    "kv_int8": ("gemma-2b", "decode_32k", "single", "kv_int8"),
+    "serve_bf16_kv8": ("gemma-2b", "decode_32k", "single", "serve_bf16_kv8"),
     "skipped": ("gemma-2b", "long_500k", "single", "baseline"),
     "kimi": ("kimi-k2-1t-a32b", "train_4k", "single", "baseline"),
-    "whisper": ("whisper-tiny", "decode_32k", "single", "baseline"),
+    "whisper_train": ("whisper-tiny", "train_4k", "single", "baseline"),
     "phi": ("phi-3-vision-4.2b", "prefill_32k", "multi", "baseline"),
     "sp_model": ("gemma-2b", "train_4k", "single", "sp_model"),
     "fsdp": ("deepseek-7b", "train_4k", "single", "fsdp"),
-    "kv_int8": ("gemma-2b", "decode_32k", "single", "kv_int8"),
+    "seq_shard": ("gemma-2b", "prefill_32k", "multi", "seq_shard"),
     "flash": ("gemma-2b", "train_4k", "single", "flash"),
 }
 MAIN = ("train", "decode", "prefill")
+SERVE_CELLS = ("whisper_prefill", "whisper_decode", "kv_int8", "serve_bf16_kv8")
+# the config changes of the variants above (the reference's ``launch/dryrun.py``
+# VARIANTS entries)
+VARIANT_CONFIG = {"baseline": {}, "kv_int8": {"kv_cache_dtype": "int8"},
+                  "serve_bf16_kv8": {"kv_cache_dtype": "int8", "param_dtype": "bfloat16"}}
 CELL_TIMEOUT_S = 60
 
 
@@ -99,9 +111,9 @@ class FakeMesh:
 def _reference_trees(name: str):
     """[(values, axes or None)] of the reference's step inputs for the cell:
     its abstract train state, or parameters (and cache), and the batch."""
-    arch, shape_name, _, _ = CELLS[name]
+    arch, shape_name, _, variant = CELLS[name]
     cfg, shape = jax_get_arch(arch), JAX_SHAPES[shape_name]
-    model = jax_build_model(cfg)
+    model = jax_build_model(dataclasses.replace(cfg, **VARIANT_CONFIG[variant]))
     values, axes = split_params(model.abstract_init())
     if shape.kind == "train":
         _, _, abstract_state, _, _ = jax_make_train_step(model)
@@ -117,7 +129,9 @@ def _reference_trees(name: str):
     if shape.kind == "decode":
         trees.append(split_params(model.abstract_cache(shape.global_batch, shape.seq_len)))
     batch, baxes = split_params(model.input_specs(shape))
-    trees.append(({"tokens": batch["tokens"]}, {"tokens": baxes["tokens"]}))
+    names = ("tokens", "frames") if shape.kind == "prefill" else ("tokens",)
+    trees.append(({k: batch[k] for k in names if k in batch},
+                  {k: baxes[k] for k in names if k in baxes}))
     return trees
 
 
@@ -136,7 +150,7 @@ def _local_bytes(values, axes, rules) -> int:
     return total
 
 
-@pytest.mark.parametrize("name", MAIN)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
 def test_state_bytes_global_equal_the_references(cells, name):
     """``state_bytes_global`` is the reference's ``tree_bytes`` of the same
     abstract state (its ``jax.eval_shape``s, no compile)."""
@@ -144,18 +158,21 @@ def test_state_bytes_global_equal_the_references(cells, name):
     assert cells[name]["state_bytes_global"] == sum(tree_bytes(v) for v, _ in trees)
 
 
-@pytest.mark.parametrize("name", MAIN)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
 def test_rank0_arguments_are_the_reference_spec_slices(cells, name):
     """Rank 0's argument bytes are the sum of the reference's spec slices of
-    its state (or parameters and cache) and batch under the same mesh. The
-    port's decode tokens are int64 (the reference's int32), its train and
-    prefill tokens int32."""
+    its state (or parameters and cache) and batch under the same mesh (an
+    encoder-decoder's prefill batch holds its frames). The port's decode
+    tokens are int64 (the reference's int32), its train and prefill tokens
+    int32."""
     arch, shape_name, mesh, _ = CELLS[name]
     rules = JaxMeshRules(FakeMesh(make_production_mesh(multi_pod=mesh == "multi")))
     trees = _reference_trees(name)
     want = sum(_local_bytes(v, a, rules) for v, a in trees)
     if SHAPES[shape_name].kind == "decode":
         want += _local_bytes(*trees[-1], rules)  # int64 tokens: twice the int32 bytes
+    assert set(trees[-1][0]) == ({"tokens", "frames"} if name == "whisper_prefill"
+                                 else {"tokens"})
     assert cells[name]["memory"]["argument_bytes"] == want
 
 
@@ -172,10 +189,12 @@ def test_skipped_cells_equal_the_references_applicable(cells):
     assert "memory" not in cells["skipped"]
 
 
-@pytest.mark.parametrize("name", ("kimi", "whisper", "phi", "sp_model", "fsdp", "kv_int8"))
+@pytest.mark.parametrize("name", ("kimi", "whisper_train", "phi", "sp_model", "fsdp",
+                                  "seq_shard"))
 def test_unported_archs_and_variants_give_an_error(cells, name):
-    """An arch or variant the port cannot run writes its NotImplementedError
-    text under "error", with the cell's keys, and exits 0."""
+    """An arch or variant the port cannot run (whisper's training among
+    them) writes its NotImplementedError text under "error", with the
+    cell's keys, and exits 0."""
     arch, shape, mesh, variant = CELLS[name]
     r = cells[name]
     assert (r["arch"], r["shape"], r["mesh"], r["variant"]) == (arch, shape, mesh, variant)
@@ -183,7 +202,7 @@ def test_unported_archs_and_variants_give_an_error(cells, name):
     assert "memory" not in r and "roofline" not in r
 
 
-@pytest.mark.parametrize("name", MAIN)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
 def test_record_keys_and_roofline(cells, name):
     """The reference's keys (``trace_s`` for ``lower_s`` / ``compile_s``),
     the roofline on the H100's peaks, the memory identity."""
@@ -243,6 +262,35 @@ def test_no_work_is_missing(cells, name):
         moe_pad = cfg.n_experts / cfg.top_k if kind == "decode" else cfg.capacity_factor
     remat = 8 / 6 if kind == "train" else 1.0
     assert total <= n_model * (remat * moe_pad * r["model_flops_global"] + attn), (total, attn)
+
+
+def test_whisper_error_names_its_roadmap_item(cells):
+    assert "9.7b-train" in cells["whisper_train"]["error"]
+
+
+def test_whisper_prefill_counts_every_cross_pair(cells):
+    """The whisper prefill cell's flash_attention FLOPs on rank 0 (its 2 of
+    the 32 rows; 6 heads do not divide the "model" axis of 16, so whole):
+    per layer the encoder's 1500² pairs (not causal), the decoder's causal
+    S(S+1)/2 and the cross-attention's S·1500, 4·hd FLOPs a pair per (b,
+    h), 4 encoder and 4 decoder layers."""
+    cfg, S = get_arch("whisper-tiny"), SHAPES["prefill_32k"].seq_len
+    F = cfg.encoder_seq
+    B_local, H, hd = 2, cfg.n_heads, cfg.resolved_head_dim
+    pairs = cfg.encoder_layers * F * F + cfg.n_layers * (S * (S + 1) // 2 + S * F)
+    k = cells["whisper_prefill"]["kernels"]["flash_attention"]
+    assert k["calls"] == cfg.encoder_layers + 2 * cfg.n_layers
+    assert k["flops"] == 4 * hd * pairs * B_local * H
+
+
+def test_whisper_decode_reads_the_memory_in_every_layer(cells):
+    """The whisper decode cell: per decoder layer one flash_decode over the
+    32768-slot self cache and one over the 1500-frame memory."""
+    cfg = get_arch("whisper-tiny")
+    k = cells["whisper_decode"]["kernels"]["flash_decode"]
+    B_local, H, hd = 128 // 16, cfg.n_heads, cfg.resolved_head_dim
+    assert k["calls"] == 2 * cfg.n_layers
+    assert k["flops"] == 4 * hd * H * B_local * cfg.n_layers * (32768 + cfg.encoder_seq)
 
 
 def test_flash_variant_reports_its_base_variants_numbers(cells):
@@ -450,4 +498,4 @@ def test_report_tables_equal_the_references(cells, tmp_path):
     for arch in ("gemma-2b", "olmoe-1b-7b", "kimi-k2-1t-a32b"):
         assert report.perf_rows(mine, arch) == jax_report.perf_rows(ref, arch)
     n_ok, n_skip, n_err, _ = report.dryrun_summary(mine)
-    assert (n_ok, n_skip, n_err) == (4, 1, 6)
+    assert (n_ok, n_skip, n_err) == (8, 1, 6)

@@ -113,6 +113,16 @@ DRYRUN_MODULES = (
 )
 
 
+# the served configs, each registering on import (whisper-tiny since the
+# encoder-decoder slice)
+CONFIG_MODULES = (
+    "repro_torch.configs.deepseek_7b", "repro_torch.configs.gemma_2b",
+    "repro_torch.configs.granite_3_2b", "repro_torch.configs.olmoe_1b_7b",
+    "repro_torch.configs.qwen25_3b", "repro_torch.configs.recurrentgemma_9b",
+    "repro_torch.configs.rwkv6_1b6", "repro_torch.configs.whisper_tiny",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -128,6 +138,12 @@ def test_import_every_module_loads_no_jax(import_all):
     n_modules, _ = import_all
     assert n_modules >= 15 + len(PAPER_MODULES) + len(CAMPAIGN_MODULES) + len(SERVING_MODULES) \
         + len(TRAIN_MODULES)
+
+
+@pytest.mark.parametrize("module", CONFIG_MODULES)
+def test_config_module_imported_without_jax(module, import_all):
+    """Each served config's module is among those the no-jax import loads."""
+    assert module in import_all[1]
 
 
 @pytest.mark.parametrize("module", PAPER_MODULES)
@@ -273,7 +289,7 @@ def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
         get_arch("kimi-k2-1t-a32b")
     cfg = get_arch("gemma-2b")
-    for change in (dict(encoder_layers=1), dict(num_img_tokens=4),
+    for change in (dict(kv_cache_dtype="fp8"), dict(num_img_tokens=4),
                    dict(block_pattern=("rec", "full"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change))

@@ -122,13 +122,20 @@ def test_param_and_cache_axes_match_jax(arch):
     each layer's leading "layers" entry dropped, ``abstract_init`` (the meta
     device) has the reference's shapes, the cache and the inputs carry the
     reference's axes, and the port's spec of each per-layer leaf is the
-    reference's stacked leaf's without its first entry."""
+    reference's stacked leaf's without its first entry. An encoder-decoder's
+    encoder layers are held as its decoder layers are (against the
+    reference's ``encoder/b0``), and its cache's last entry, the memory, as
+    the reference's ``memory``."""
     jcfg, tcfg = _port_pairs(arch)
     jmodel, tmodel = jax_build_model(jcfg), build_model(tcfg)
     jvalues, jaxes = split_params(jmodel.abstract_init())
     taxes, tvals = tmodel.param_axes(), tmodel.abstract_init()
-    assert {k: v for k, v in taxes.items() if k != "layers"} == \
-        {k: v for k, v in jaxes.items() if not k.startswith("stack")}
+    assert {k: v for k, v in taxes.items() if k not in ("layers", "encoder")} == \
+        {k: v for k, v in jaxes.items() if not k.startswith("stack") and k != "encoder"}
+    for i, enc in enumerate(taxes.get("encoder", ())):
+        assert enc == _drop_layers(jaxes["encoder"]["b0"]), i
+        assert map_specs(lambda ax, t: tuple(t.shape), enc, tvals["encoder"][i]) == \
+            jax.tree.map(lambda v: tuple(v.shape[1:]), jvalues["encoder"]["b0"]), i
     jrules, trules = _rule_pairs(False, False, {})
     for i in range(len(taxes["layers"])):
         want = _layer_of(tcfg, jaxes, i)
@@ -144,6 +151,11 @@ def test_param_and_cache_axes_match_jax(arch):
     assert all(t.device.type == "meta" for _, t in _paths(tvals))
     jc_vals, jc_axes = split_params(jmodel.abstract_cache(2, 64))
     tc_vals, tc_axes = tmodel.abstract_cache(2, 64)
+    if tcfg.encoder_layers:
+        memory_axes, memory = tc_axes.pop(), tc_vals.pop()
+        assert memory_axes == {"memory": tuple(jc_axes["memory"])}
+        assert tuple(memory["memory"].shape) == tuple(jc_vals["memory"].shape)
+    assert len(tc_axes) == len(tc_vals) == len(tmodel.kinds)
     for i, (ax, val) in enumerate(zip(tc_axes, tc_vals)):
         want = _layer_of(tcfg, jc_axes, i)
         wval = _layer_of(tcfg, jc_vals, i)

@@ -5,7 +5,9 @@ Every leaf lies as the rules say (``ModelDef.run_specs``): attention heads
 (and kv heads where they divide the axis), MLP columns, RG-LRU channels,
 RWKV heads, experts and vocabulary over "model". Each rank runs
 ``prefill``, four decode steps, ``loss`` and one AdamW step on its shards
-and its data shard of the batch (``tests/torch_mesh.py::tp_cases``). The
+and its data shard of the batch (``tests/torch_mesh.py::tp_cases``);
+whisper-tiny, which serves only, runs the prefill (of its frames too) and
+the decode steps. The
 reference runs the same steps on the global batch on one device, as
 ``tests/test_torch_sharding.py::test_train_step_under_rules_matches_jax``
 holds it: XLA's partitioner changes no value under rules, so the
@@ -58,13 +60,65 @@ CASES = {
     # the auto path, its 4 experts over "model"
     "olmoe": ("olmoe-1b-7b", {}),
 }
+# serving only: whisper (no loss yet: ROADMAP.md item 9.7b-train), its 4
+# heads on 2 kv heads split alike on 2 ranks, kv whole on 4, its
+# cross-attention split as its self-attention, every bias nonzero; the int8
+# KV cache with its single kv head whole (gemma) and with an uneven map of
+# 12 heads on 3 kv heads (the scales gathered as the int8 k / v are)
+SERVE_CASES = {"whisper": ("whisper-tiny", {}),
+               "gemma-int8": ("gemma-2b", dict(kv_cache_dtype="int8")),
+               "gqa-uneven-int8": ("granite-3-2b", dict(n_heads=12, n_kv_heads=3,
+                                                        kv_cache_dtype="int8"))}
+ALL_CASES = {**CASES, **SERVE_CASES}
 MESHES = ((1, 2), (2, 2), (1, 4))
 BIAS_KEYS = ("bq", "bk", "bv")
 
 
 def _jcfg(name: str):
-    arch, change = CASES[name]
+    arch, change = ALL_CASES[name]
     return dataclasses.replace(jax_get_arch(arch).reduced(), **change)
+
+
+def _nonzero_biases(tree, rng):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _nonzero_biases(val, rng)
+        elif key in BIAS_KEYS + ("bi", "bo", "bias"):
+            tree[key] = 0.5 * rng.standard_normal(val.shape).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _frames(name: str):
+    """An encoder-decoder's frames (B, F, d), else None."""
+    jcfg = _jcfg(name)
+    if not jcfg.encoder_layers:
+        return None
+    return np.random.default_rng(5).standard_normal(
+        (B, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_reference(name: str):
+    """A serving-only case on the global batch: ({"params": its initial
+    values (numpy; every bias nonzero)}, the prefill's and each decode
+    step's logits, the greedy tokens fed to the decode steps)."""
+    jcfg = _jcfg(name)
+    model = jax_build_model(jcfg)
+    values = jax.tree.map(np.asarray, split_params(model.init(jax.random.key(0)))[0])
+    _nonzero_biases(values, np.random.default_rng(11))
+    params = jax.tree.map(jnp.asarray, values)
+    batch = {"tokens": jnp.asarray(_tokens())}
+    if _frames(name) is not None:
+        batch["frames"] = jnp.asarray(_frames(name))
+    lg, cache = jax.jit(lambda p, b: model.prefill(p, b, cache_len=S + STEPS))(params, batch)
+    decode = jax.jit(model.decode)
+    logits, feed = [np.asarray(lg)], []
+    for i in range(STEPS):
+        tok = np.asarray(jnp.argmax(lg, -1)).astype(np.int32)
+        feed.append(tok)
+        lg, cache = decode(params, jnp.asarray(tok[:, None]), jnp.int32(S + i), cache)
+        logits.append(np.asarray(lg))
+    return {"params": values}, logits, np.stack(feed)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,6 +189,10 @@ def ranks(tmp_path_factory):
     for name, (arch, change) in CASES.items():
         state, _, feed, *_ = _reference(name)
         cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed))
+    for name, (arch, change) in SERVE_CASES.items():
+        state, _, feed = _serve_reference(name)
+        cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed,
+                          frames=_frames(name), train=False))
     out = {}
     for world in (2, 4):
         meshes = [m for m in MESHES if m[0] * m[1] == world]
@@ -150,13 +208,13 @@ def _rows(coord, shape):
     return slice(coord["data"] * n, (coord["data"] + 1) * n)
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", ALL_CASES)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_prefill_and_decode_match_jax(ranks, mesh, name):
     """Each rank's prefill logits and four decode steps' logits (the whole
     vocabulary, gathered over "model") on its rows of the batch, and their
     greedy tokens, against the reference's."""
-    _, logits, feed, *_ = _reference(name)
+    _, logits, feed, *_ = (_serve_reference if name in SERVE_CASES else _reference)(name)
     for r in ranks[(mesh, name)]:
         rows = _rows(r["coord"], mesh)
         for step, (got, want) in enumerate(zip(r["logits"], logits)):
@@ -186,7 +244,7 @@ def test_loss_and_train_step_match_jax(ranks, mesh, name):
             assert float(np.abs(got - want).max()) <= TOL, (path, float(np.abs(got - want).max()))
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", ALL_CASES)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def test_leaf_shapes_are_the_reference_spec_slices(ranks, mesh, name):
     """Each rank's leaf shapes are the reference spec's slices: the global

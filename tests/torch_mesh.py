@@ -215,13 +215,15 @@ def train_cases(rank: int, state, tokens, lr: float):
 def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
     """Each case {name, arch, change, state (the reference's initial train
     state, numpy), feed (the reference's greedy tokens of the decode steps,
-    (steps, B))} on each (n_data, n_model) mesh of ``meshes``: this rank's
-    shards as ``run_specs`` lays them out (``shard_state``), its data shard
-    of ``tokens`` (B, S) through ``prefill`` (cache S + steps), ``steps``
-    decode steps fed ``feed``, ``loss`` and one AdamW step. Returns
-    {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each step),
-    "loss", "step_loss", "params" (this rank's, by reference path, after
-    the step), "coord"}}."""
+    (steps, B)), frames (an encoder-decoder's (B, F, d), else None), train
+    (False: serving only, ``state`` holds its params)} on each (n_data,
+    n_model) mesh of ``meshes``: this rank's shards as ``run_specs`` lays
+    them out (``shard_state``), its data shard of ``tokens`` (B, S) (and of
+    the frames) through ``prefill`` (cache S + steps), ``steps`` decode
+    steps fed ``feed``, then, when training, ``loss`` and one AdamW step.
+    Returns {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each
+    step), "loss", "step_loss", "params" (this rank's, by reference path,
+    after the step; before it when serving only), "coord"}}."""
     from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_host_mesh
@@ -240,16 +242,31 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
         for c in cases:
             cfg = dataclasses.replace(get_arch(c["arch"]).reduced(), **c["change"])
             model = build_model(cfg)
-            st = shard_state(model, rules, convert.train_state_from_jax(c["state"], cfg))
+            train = c.get("train", True)
+            state = (convert.train_state_from_jax(c["state"], cfg) if train else
+                     {"params": convert.from_jax_values(c["state"]["params"], cfg,
+                                                        param_dtype=torch.float32),
+                      "step": torch.zeros((), dtype=torch.int32)})
+            st = shard_state(model, rules, state)
             toks = torch.from_numpy(np.asarray(tokens[rows])).long()
+            frames = c.get("frames")
+            frames = None if frames is None else torch.from_numpy(np.asarray(frames[rows]))
             S = toks.shape[1]
             with torch.no_grad():
-                lg, cache = model.prefill(st["params"], toks, rules, cache_len=S + steps)
+                lg, cache = model.prefill(st["params"], toks, rules, cache_len=S + steps,
+                                          frames=frames)
                 logits = [lg]
                 for i in range(steps):
                     feed = torch.from_numpy(np.asarray(c["feed"][i][rows])).long()[:, None]
                     lg, cache = model.decode(st["params"], feed, S + i, cache, rules)
                     logits.append(lg)
+            if not train:
+                params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
+                          for path, ts_, stacked in leaf_groups(st["params"], _stacks_for(cfg))}
+                out[(shape, c["name"])] = {"logits": logits, "params": params,
+                                           "coord": rules.coordinate()}
+                continue
+            with torch.no_grad():
                 loss = float(model.loss(st["params"], {"tokens": toks}, rules))
             ts, _ = make_train_step(model, rules=rules, lr=lr)
             new, m = ts(st, {"tokens": toks})
