@@ -11,8 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    flash_attention kernels runs on the tensor cores (HGMMA for the bf16
    forward and backward, HMMA for the float32 forward's and backward's
    3xTF32), and in ptxas's report that the hd-256 instantiations of the
-   backward's kernels and of the float32 forward, the hd-64 and hd-128
-   ones of the bf16 backward's kernels, all 5 of the rmsnorm backward's
+   backward's kernels and of the float32 forward, the hd-64, hd-96 and
+   hd-128 ones of the bf16 backward's kernels, all 5 of the rmsnorm backward's
    warp kernel, the N-64 ones of the wkv6 backward's kernels (its row
    passes, chunk contributions and scan) and all 4 of the rglru backward
    do not spill (the bf16 forward's registers at every head dim are
@@ -23,10 +23,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
-   with bf16 inputs; deepseek-7b, granite-3-2b, qwen2.5-3b and olmoe-1b-7b:
-   flash_attention and its backward at (4, 32, 512, 128) MHA, (4, 32, 512,
-   64) g 4, (4, 16, 512, 128) g 8 and (4, 16, 512, 128) MHA, flash_decode
-   over their 544-slot caches, rmsnorm and its backward at (2048, 4096)
+   with bf16 inputs; deepseek-7b, granite-3-2b, qwen2.5-3b, olmoe-1b-7b and
+   phi-3-vision-4.2b: flash_attention and its backward at (4, 32, 512,
+   128) MHA, (4, 32, 512, 64) g 4, (4, 16, 512, 128) g 8, (4, 16, 512, 128)
+   MHA and (4, 32, 768, 96) MHA (phi-3-vision's 256 image and 512 text
+   positions; also in float32, forward and backward), flash_decode over
+   their 544-slot caches (phi-3-vision's 800), each twice for the same
+   bits, rmsnorm and its backward at (2048, 4096)
    bf16) plus ragged / window / ring / empty-row /
    strong-decay / float32 / head-dim cases (flash_attention's float32
    route also at hd 256 with a window, with a base one element off, at the
@@ -60,7 +63,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``whisper_rows``): flash_attention with a key length of its own, not
    causal, bf16 and float32, at its cross shape q (4, 6, 416, 64) over k/v
    (4, 6, 1500, 64) and its encoder's (4, 6, 1500, 64), the ragged key
-   lengths 1, 63, 65 and 1500 beside 40 and 100 queries, and flash_decode
+   lengths 1, 63, 65 and 1500 beside 40 and 100 queries (and 65 keys at
+   head dim 96), and flash_decode
    over the 1500-frame memory with every slot valid, each with its lse
    (flash_attention) and the same bits twice; a causal or windowed call
    with its own key length must raise; the int8 cache's dequantize of k
@@ -105,32 +109,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
    recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
    qwen2.5-3b and olmoe-1b-7b (prompt 512), whisper-tiny (1500 seeded
-   frames, prompt 416: its decoder context of 448 with the new tokens) and
+   frames, prompt 416: its decoder context of 448 with the new tokens),
+   phi-3-vision-4.2b (256 seeded image embeddings before a prompt of 512:
+   768 prefilled positions, decode steps after them) and
    gemma-2b with its KV cache in int8 (its logits' distance from the
    bf16-cache run printed) at full width, random weights from a seed,
    through ``repro_torch.launch.serve``: 4 requests, 32 new tokens each.
    For each: the exact kernel launch counts of the run (counts set to 0
    just before it), finite logits, the prefill and the first decode steps
    against the plain versions on the same weights, and a profile of a
-   prefill and a few decode steps. Then each of the eight at full width in
+   prefill and a few decode steps. Then each of the nine at full width in
    float32, kernel path against plain path (5 tokens; qwen's and whisper's
    qkv biases made nonzero), and a reduced float32 model of gemma, rwkv6,
    recurrentgemma (5 layers, so that its remainder stack runs), qwen2.5,
-   olmoe, whisper and gemma with the int8 cache on the card against the
+   olmoe, whisper, gemma with the int8 cache and phi-3-vision (4 image
+   tokens) on the card against the
    same weights on the CPU, each printing the launches of the float32
    attention routes it made;
-   train: gemma-2b, rwkv6-1.6b, granite-3-2b and qwen2.5-3b at full width
-   and depth, recurrentgemma-9b at full width and 9 layers, deepseek-7b at
-   full width and 16 layers and olmoe-1b-7b at full width and a cut depth
-   (TRAIN_ARCHS) through
+   train: gemma-2b, rwkv6-1.6b, granite-3-2b, qwen2.5-3b and
+   phi-3-vision-4.2b at full width and depth, recurrentgemma-9b at full
+   width and 9 layers, deepseek-7b at full width and 16 layers and
+   olmoe-1b-7b at full width and a cut depth (TRAIN_ARCHS) through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
    AdamW, batch 4 x 512, 5 steps on one repeated batch): the exact launch
    counts of the run, including the backward kernels (every block
    recomputed once in the backward), a falling loss, step s, tokens/s and
    peak memory; one step's gradients against the plain path's, leaf by
    leaf (rwkv6's in float32 activations, its bf16 readings printed:
-   GRAD_F32_ARCHS); a profile of a step; the FTTrainer's lossless invariant at
-   reduced size under hybrid, agent, core and checkpoint (gemma) and
+   GRAD_F32_ARCHS; phi-3-vision's batch with 256 seeded image embeddings
+   a row, so that the loss's image offset runs forward and backward); a
+   profile of a step; the FTTrainer's lossless invariant at reduced size
+   under hybrid, agent, core and checkpoint (gemma) and
    hybrid (rwkv6, recurrentgemma, olmoe), and ``launch.fig15``'s two tables; one
    hybrid run of gemma-2b at full width and FT_FULL_LAYERS layers with a
    predicted failure (one migration of the whole state through host
@@ -267,20 +276,23 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 #   qwen2.5-3b         0             0.2051
 #   olmoe-1b-7b        0.01562       0.1484
 #   whisper-tiny       0             0.01625
+#   phi-3-vision-4.2b  0             0.2539
 # gemma-2b's, rwkv6-1.6b's, the dense swiglu configs' and whisper-tiny's
 # near-tie is the tighter 0.0625, two bf16 steps for logits in [4, 8)
-# (qwen2.5-3b's and whisper-tiny's tokens all agreed, so twice their reading
-# would be 0); olmoe-1b-7b's is twice its reading, one bf16 step for logits
-# in [4, 8). whisper-tiny's drift limit is about twice its reading (4
-# decoder layers of d 384: the smallest drift of the served configs). The float32 full-width phase
+# (qwen2.5-3b's, whisper-tiny's and phi-3-vision-4.2b's tokens all agreed,
+# so twice their reading would be 0); olmoe-1b-7b's is twice its reading,
+# one bf16 step for logits in [4, 8). whisper-tiny's drift limit is about
+# twice its reading (4 decoder layers of d 384: the smallest drift of the
+# served configs), phi-3-vision-4.2b's too (its 256 image tokens and 512
+# text tokens, the chip runs of its slice). The float32 full-width phase
 # shows that the kernels themselves agree (tokens equal, logits within 1e-3)
 # at the same shapes.
 TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875,
                  "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625,
-                 "olmoe-1b-7b": 0.03125, "whisper-tiny": 0.0625}
+                 "olmoe-1b-7b": 0.03125, "whisper-tiny": 0.0625, "phi-3-vision-4.2b": 0.0625}
 BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55,
                      "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42,
-                     "olmoe-1b-7b": 0.3, "whisper-tiny": 0.035}
+                     "olmoe-1b-7b": 0.3, "whisper-tiny": 0.035, "phi-3-vision-4.2b": 0.5}
 # The backward kernels against their plain versions, (atol, rtol). Both sum
 # in float32 from the same inputs in another order; in bf16 the outputs are
 # rounded once more, and a value that lies on a rounding boundary may land
@@ -293,10 +305,12 @@ LOGITS_TOL_FULL_F32 = 1e-3  # full-width float32 model, card kernels vs plain ve
 
 ARCH, BATCH, PROMPT, NEW = "gemma-2b", 4, 512, 32
 # the serve runs: (arch, prompt length); recurrentgemma's prompt is its
-# window; whisper-tiny's 416 + NEW = 448 is its published decoder context
+# window; whisper-tiny's 416 + NEW = 448 is its published decoder context;
+# phi-3-vision's 512 text tokens follow its 256 image tokens: 768 prefilled
+# positions, a cache of 800
 SERVES = (("gemma-2b", 512), ("rwkv6-1.6b", 512), ("recurrentgemma-9b", 2048),
           ("deepseek-7b", 512), ("granite-3-2b", 512), ("qwen2.5-3b", 512),
-          ("olmoe-1b-7b", 512), ("whisper-tiny", 416))
+          ("olmoe-1b-7b", 512), ("whisper-tiny", 416), ("phi-3-vision-4.2b", 512))
 # the int8 KV cache's serve run: ARCH at full width with its cache in int8
 # (the dry run's kv_int8 cell's arch), held to ARCH's limits above against
 # its own plain replay (the same int8 cache on the plain path)
@@ -308,8 +322,12 @@ WHISPER, WHISPER_PROMPT = "whisper-tiny", 416
 CROSS_KEY_LENGTHS = (1, 63, 65, 1500)
 CROSS_QUERY_LENGTHS = (40, 100)
 # the configs whose attention and decode shapes get rows of their own in the
-# kernel phase: the dense swiglu configs and olmoe (MHA, 16 heads of 128)
-ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b")
+# kernel phase: the dense swiglu configs, olmoe (MHA, 16 heads of 128) and
+# phi-3-vision (MHA, 32 heads of 96, PROMPT text tokens after its image
+# tokens: ``row_seq``)
+ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b", "phi-3-vision-4.2b")
+# the vision config: its float32 attention rows and its training
+VISION_ARCH = "phi-3-vision-4.2b"
 # the mixture-of-experts config: its MoE layer alone at full width, bf16,
 # BATCH x PROMPT (moe_layer_phase)
 MOE_ARCH = "olmoe-1b-7b"
@@ -410,10 +428,12 @@ WORKER_ABORT_S = 300.0
 # gradients: it runs 10 (tools/train_peak.py on the same card: 56.16, 62.41
 # and 68.66 GiB allocated at 8, 9 and 10 layers, 6.25 GiB a layer; 10
 # reserves 70.74 GiB and leaves 10.52 GiB unallocated, deepseek-7b's
-# headroom at 16).
+# headroom at 16). phi-3-vision-4.2b trains at its full 32 layers (3.821 B
+# parameters; tools/train_peak.py on the same card: 52.09 and 58.84 GiB
+# allocated at 28 and 32 layers, 60.99 reserved at 32).
 TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9),
                ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16),
-               ("olmoe-1b-7b", 10))
+               ("olmoe-1b-7b", 10), ("phi-3-vision-4.2b", None))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
 # the FT invariant at reduced size (tests/test_trainer_integration.py's
 # schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
@@ -430,7 +450,9 @@ FT_FULL_STEPS, FT_FULL_FAIL_T, FT_FULL_LEAD_S = 6, 3.0, 0.5
 # reading was 0.067 (layers/16/attn/wk) on an NVIDIA H100 80GB HBM3 at
 # 700 W; the limit is about twice that. A gradient that is dropped or of
 # the wrong sign reads 1 or more. The losses agree within LOSS_TOL_TRAIN
-# relative (the reading: 1.3e-5).
+# relative (the reading: 1.3e-5). phi-3-vision-4.2b's 32 layers, with its
+# image embeddings in the batch, read 0.1242 (layers/31/attn/wq; median
+# 0.06959) on the same card: the limit holds it as it is.
 GRAD_TOL_BF16 = 0.15
 LOSS_TOL_TRAIN = 1e-3
 # rwkv6-1.6b's bf16 gradients of the leaves that feed r and k (mu_r, mu_k,
@@ -458,9 +480,11 @@ LEFTOVER_BYTES = 2 ** 30
 # the full-width FT run: ARCH at full width with its depth cut to
 # FT_FULL_LAYERS of 18 (its two runs took 293.4 and 370.6 s of 1111.2 and
 # 1298.7 s at full depth, the 28 GiB migration 122-197 s of that, on an
-# NVIDIA H100 80GB HBM3 at 700 W; at 4 layers the script took 815.1 s):
-# one migration of the whole state, bit-identical to the failure-free run
-FT_FULL_LAYERS = 4
+# NVIDIA H100 80GB HBM3 at 700 W; at 4 layers the script took 815.1 s, and
+# 907.3 and 1125.3 s once phi-3-vision served and trained too, its 11.58 GB
+# migration 49.7 and 59.0 s of that; at 2 the state is 8.9 GB): one
+# migration of the whole state, bit-identical to the failure-free run
+FT_FULL_LAYERS = 2
 # the "model"-axis split on the card (tp_phase): TP_RANKS processes share
 # the one card in a (1, TP_RANKS) mesh over gloo, each arch at full width
 # in float32 with its depth cut (arch, layers): two layers of gemma-2b and
@@ -663,12 +687,12 @@ def timings(kernel, plain, library=None, iters: int = 20) -> dict:
 
 
 # kernel -> (instantiations, the tensor-core instruction each one's SASS
-# must hold): the bf16 forward at 5 head dims and the bf16 backward's dK/dV
-# and dQ kernels at 5 each on wgmma (HGMMA); the float32 forward and the
-# float32 backward (its dK/dV and dQ blocks in one kernel) at 5 head dims
+# must hold): the bf16 forward at 6 head dims and the bf16 backward's dK/dV
+# and dQ kernels at 6 each on wgmma (HGMMA); the float32 forward and the
+# float32 backward (its dK/dV and dQ blocks in one kernel) at 6 head dims
 # each on mma.sync (HMMA)
-TENSOR_CORE_KERNELS = {"flash_tc_kernel": (5, "HGMMA"), "flash_bwd_tc_kernel": (10, "HGMMA"),
-                       "flash_f32_kernel": (5, "HMMA"), "flash_bwd_f32_kernel": (5, "HMMA")}
+TENSOR_CORE_KERNELS = {"flash_tc_kernel": (6, "HGMMA"), "flash_bwd_tc_kernel": (12, "HGMMA"),
+                       "flash_f32_kernel": (6, "HMMA"), "flash_bwd_f32_kernel": (6, "HMMA")}
 
 
 def sass_check(lib_path: Path) -> None:
@@ -737,15 +761,15 @@ RMSNORM_BWD_WARP_KERNELS = 5
 def spill_check(lib_path: Path) -> None:
     """The hd-256 instantiations (``Li256E`` in the mangled name: gemma's and
     recurrentgemma's training and serve shapes) of the bf16 backward's two
-    kernels and of the float32 forward and backward, the hd-64 and hd-128
-    ones of the bf16 backward's two kernels (the dense swiglu configs'
-    training shapes), every instantiation of the rmsnorm backward's warp
+    kernels and of the float32 forward and backward, the hd-64, hd-96 and
+    hd-128 ones of the bf16 backward's two kernels (the dense swiglu
+    configs' and phi-3-vision's training shapes), every instantiation of the rmsnorm backward's warp
     kernel and of the rglru backward, and the N-64 ones (``Li64E``) of the
     wkv6 backward's kernels must not spill. (``main`` prints the bf16
     forward's registers at every head dim before this check.)"""
     bwd = ptxas_report(lib_path, "flash_bwd_tc_kernel")
     checks = [("flash_bwd_tc_kernel", 2, [r for r in bwd if f"Li{hd}E" in r[0]], f"hd-{hd} ")
-              for hd in (256, 64, 128)]
+              for hd in (256, 64, 96, 128)]
     checks += [(kernel, 1, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
                 "hd-256 ") for kernel in ("flash_f32_kernel", "flash_bwd_f32_kernel")]
     checks.append(("rmsnorm_bwd_warp_kernel", RMSNORM_BWD_WARP_KERNELS,
@@ -817,6 +841,12 @@ def f32_launches(what: str) -> dict:
     counts = ops.f32_launch_counts()
     print(f"{what}: float32 route launches {counts}")
     return counts
+
+
+def row_seq(cfg) -> int:
+    """The positions a ROW_ARCHS config's serve run prefills: PROMPT text
+    tokens after its image tokens (none but phi-3-vision's 256)."""
+    return PROMPT + cfg.num_img_tokens
 
 
 def ring_kpos(B: int, W: int, pos: int, device):
@@ -918,11 +948,13 @@ def kernel_phase(dev):
     # a base one element off 16 bytes: the wrapper copies q, the same kernel runs
     qo = randn(1 * 200 * 4 * 64 + 1, dtype=torch.float32)[1:].view(1, 200, 4, 64).transpose(1, 2)
     f32_case("q base one element off (1,4,200,64)", qo, kf, vf)
-    for hd_ in fa.HEAD_DIMS[:-1]:  # the other bf16 instantiations, ragged S = 200
+    for hd_ in fa.HEAD_DIMS[:-1]:  # the other instantiations of both routes, ragged S = 200
         qh, kh, vh = qkv(1, 200, 4, 2, hd_)
         compare(f"flash_attention bf16 GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
                 fa.flash_attention(qh, kh, vh, window=80),
                 fa.flash_attention_ref(qh, kh, vh, window=80), TOL["bfloat16"])
+        f32_case(f"GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
+                 *qkv(1, 200, 4, 2, hd_, dtype=torch.float32), window=80)
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
     rows.append(dict(
@@ -956,18 +988,21 @@ def kernel_phase(dev):
                                                          enable_gqa=True), iters=5),
     ))
     del qg, kg, vg
-    # the dense swiglu configs' and olmoe's prefill: batch 4, prompt 512,
-    # causal, bf16 (deepseek-7b MHA at hd 128, granite-3-2b g 4 at hd 64,
-    # qwen2.5-3b g 8 at hd 128, olmoe-1b-7b MHA 16 heads at hd 128)
+    # the dense swiglu configs', olmoe's and phi-3-vision's prefill: batch
+    # 4, prompt 512 (phi-3-vision: 768 with its image tokens), causal, bf16
+    # (deepseek-7b MHA at hd 128, granite-3-2b g 4 at hd 64, qwen2.5-3b g 8
+    # at hd 128, olmoe-1b-7b MHA 16 heads at hd 128, phi-3-vision MHA at hd 96)
     t0_s = time.perf_counter()
     for arch in ROW_ARCHS:
         c = get_arch(arch)
-        Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
-        qa, ka, va = qkv(B, S, Hc, Kc, hdc)
-        label = f"q ({B},{Hc},{S},{hdc}), k/v ({B},{Kc},{S},{hdc}) bf16, causal ({arch})"
+        Hc, Kc, hdc, Sa = c.n_heads, c.n_kv_heads, c.resolved_head_dim, row_seq(c)
+        qa, ka, va = qkv(B, Sa, Hc, Kc, hdc)
+        label = f"q ({B},{Hc},{Sa},{hdc}), k/v ({B},{Kc},{Sa},{hdc}) bf16, causal ({arch})"
         err = compare(f"flash_attention {label}", fa.flash_attention(qa, ka, va),
                       fa.flash_attention_ref(qa, ka, va), TOL["bfloat16"])
-        bnd = bound(2 * nbytes(qa) + nbytes(ka, va), 4 * hdc * S * (S + 1) // 2 * B * Hc,
+        if not torch.equal(fa.flash_attention(qa, ka, va), fa.flash_attention(qa, ka, va)):
+            fail(f"flash_attention {label}: two calls on the same inputs differ")
+        bnd = bound(2 * nbytes(qa) + nbytes(ka, va), 4 * hdc * Sa * (Sa + 1) // 2 * B * Hc,
                     "bfloat16")
         rows.append(dict(
             name="flash_attention", route="cuda",
@@ -980,17 +1015,21 @@ def kernel_phase(dev):
                                                              enable_gqa=True)),
         ))
         del qa, ka, va
-    print(f"  the dense configs' and olmoe's flash_attention rows: "
+    print(f"  the dense configs', olmoe's and phi-3-vision's flash_attention rows: "
           f"{time.perf_counter() - t0_s:.1f} s")
-    # the train_llm surface at gemma-2b's width (heads = KV heads) and
-    # gemma-2b's serve shape, in float32
-    for label, (B_, S_, H_, K_) in (
-            ("q, k/v (8,8,2048,256) f32, causal (train_llm surface)", (8, 2048, H, H)),
-            (f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", (B, S, H, K))):
-        q32, k32, v32 = qkv(B_, S_, H_, K_, hd, dtype=torch.float32)
+    # the train_llm surface at gemma-2b's width (heads = KV heads),
+    # gemma-2b's serve shape and phi-3-vision's, in float32
+    vc = get_arch(VISION_ARCH)
+    Sv, Hv, hdv = row_seq(vc), vc.n_heads, vc.resolved_head_dim
+    for label, (B_, S_, H_, K_, hd_) in (
+            ("q, k/v (8,8,2048,256) f32, causal (train_llm surface)", (8, 2048, H, H, hd)),
+            (f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", (B, S, H, K, hd)),
+            (f"q, k/v (4,{Hv},{Sv},{hdv}) f32, causal ({VISION_ARCH})",
+             (B, Sv, Hv, vc.n_kv_heads, hdv))):
+        q32, k32, v32 = qkv(B_, S_, H_, K_, hd_, dtype=torch.float32)
         err = f32_case(label, q32, k32, v32)
         pairs = S_ * (S_ + 1) // 2
-        bnd = bound(2 * nbytes(q32) + nbytes(k32, v32), 4 * hd * pairs * B_ * H_,
+        bnd = bound(2 * nbytes(q32) + nbytes(k32, v32), 4 * hd_ * pairs * B_ * H_,
                     "float32 3xTF32")
         rows.append(dict(
             name="flash_attention", route="cuda", f32_route=True,
@@ -1201,11 +1240,17 @@ def backward_rows(dev, randn, qkv):
     case(f"q (4,{rg.n_heads},{rg.window},256), k/v (4,1,{rg.window},256) bf16, causal, window "
          f"{rg.window}", BATCH, rg.window, rg.n_heads, rg.n_kv_heads, rg.resolved_head_dim,
          window=rg.window, row=True, iters=3)
-    for arch in ROW_ARCHS:  # MHA at hd 128, g 4 at hd 64, g 8 at hd 128, MHA 16 x 128
+    # MHA at hd 128, g 4 at hd 64, g 8 at hd 128, MHA 16 x 128, MHA 32 x 96
+    # over 768 positions (phi-3-vision's image tokens and its 512 text tokens)
+    for arch in ROW_ARCHS:
         c = get_arch(arch)
-        Hc, Kc, hdc = c.n_heads, c.n_kv_heads, c.resolved_head_dim
-        case(f"q (4,{Hc},512,{hdc}), k/v (4,{Kc},512,{hdc}) bf16, causal ({arch})", BATCH,
-             PROMPT, Hc, Kc, hdc, row=True)
+        Hc, Kc, hdc, Sa = c.n_heads, c.n_kv_heads, c.resolved_head_dim, row_seq(c)
+        case(f"q (4,{Hc},{Sa},{hdc}), k/v (4,{Kc},{Sa},{hdc}) bf16, causal ({arch})", BATCH,
+             Sa, Hc, Kc, hdc, row=True)
+    vc = get_arch(VISION_ARCH)
+    Sv, Hv, hdv = row_seq(vc), vc.n_heads, vc.resolved_head_dim
+    case(f"q, k/v (4,{Hv},{Sv},{hdv}) f32, causal ({VISION_ARCH})", BATCH, Sv, Hv,
+         vc.n_kv_heads, hdv, dtype=torch.float32, row=True, iters=10)
     case("q (2,4,512,64), k/v (2,2,512,64) f32, causal", 2, 512, 4, 2, 64,
          dtype=torch.float32, row=True)
     case(f"q (4,{H},512,{hd}), k/v (4,{K},512,{hd}) f32, causal", BATCH, PROMPT, H, K, hd,
@@ -1329,7 +1374,8 @@ def decode_rows(dev, randn):
     head, a full 2048-slot ring, window 2048), the dense swiglu configs
     and olmoe over their 544-slot caches (deepseek-7b 32 heads on 32 KV
     heads of 128, granite-3-2b 32 on 8 of 64, qwen2.5-3b 16 on 2 of 128,
-    olmoe-1b-7b 16 on 16 of 128)."""
+    olmoe-1b-7b 16 on 16 of 128), phi-3-vision over its 800 (32 on 32 of
+    96)."""
     import torch
     import torch.nn.functional as F
 
@@ -1338,7 +1384,8 @@ def decode_rows(dev, randn):
 
     rows = []
     cases = [(ARCH, PROMPT + NEW, PROMPT + 3, 0), ("recurrentgemma-9b", 2048, 2048 + 3, 2048)]
-    cases += [(arch, PROMPT + NEW, PROMPT + 3, 0) for arch in ROW_ARCHS]
+    cases += [(arch, row_seq(get_arch(arch)) + NEW, row_seq(get_arch(arch)) + 3, 0)
+              for arch in ROW_ARCHS]
     for arch, W, pos, window in cases:
         cfg = get_arch(arch)
         H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -1353,9 +1400,10 @@ def decode_rows(dev, randn):
         shape = f"q ({BATCH},{H},{hd}) bf16, cache {W} slots, {n_valid // BATCH} valid" + (
             f", window {window}" if window else "") + f" ({arch})"
         want = da.flash_decode_ref(qd, kc, vc, kpos, pos, window=window)
-        err = compare(f"flash_decode {shape}",
-                      da.flash_decode(qd, kc, vc, kpos, pos, window=window), want,
-                      DECODE_TOL_BF16)
+        out = da.flash_decode(qd, kc, vc, kpos, pos, window=window)
+        err = compare(f"flash_decode {shape}", out, want, DECODE_TOL_BF16)
+        if not torch.equal(da.flash_decode(qd, kc, vc, kpos, pos, window=window), out):
+            fail(f"flash_decode {shape}: two calls on the same inputs differ")
         # what the limit would see: the plain version with one chunk of valid
         # slots dropped (the rule's chunk at this shape, the first one)
         chunk, _ = da.decode_plan(W, BATCH * K, torch.cuda.get_device_properties(dev)
@@ -1442,7 +1490,7 @@ def whisper_rows(dev, randn):
     print(f"kernel flash_attention with its own key length, flash_decode over the memory "
           f"({WHISPER})")
 
-    def tensors(B_, S_, Sk, H_, K_, dtype):
+    def tensors(B_, S_, Sk, H_, K_, dtype, hd=hd):
         """q (B, H, S, hd), k / v (B, K, Sk, hd): views of (B, S, heads, hd)."""
         q = randn(B_, S_, H_, hd, dtype=dtype).transpose(1, 2)
         k, v = (randn(B_, Sk, K_, hd, dtype=dtype).transpose(1, 2) for _ in range(2))
@@ -1470,6 +1518,9 @@ def whisper_rows(dev, randn):
         for S_ in (1, 64):  # a single query, exactly a q-tile of keys and queries
             check(f"{name} ({2},{H},{S_},{hd}) over 64 keys", *tensors(2, S_, 64, H, H, dtype),
                   dtype)
+        # phi-3-vision's head dim: a k-tile and one key, g 2
+        check(f"{name} (2,4,100,96) over 65 keys, 2 KV heads",
+              *tensors(2, 100, 65, 4, 2, dtype, hd=96), dtype)
     for causal, window in ((True, 0), (False, 8)):
         q, k, v = tensors(1, 16, 24, 2, 2, torch.bfloat16)
         try:
@@ -1946,19 +1997,21 @@ def rglru_bwd_rows(randn, dev):
     return rows
 
 
-def plain_replay(model, params, prompt, tokens, n_steps: int, frames=None):
+def plain_replay(model, params, prompt, tokens, n_steps: int, frames=None, image_embeds=None):
     """The same weights through the plain versions on the card, fed the
-    kernel run's greedy tokens: logits of the prefill and n_steps decodes."""
+    kernel run's greedy tokens: logits of the prefill and n_steps decodes
+    (at positions after the prefilled ones, as ``serve.generate`` decodes)."""
     import torch
 
     from repro_torch.kernels import ops
 
-    S = prompt.shape[1]
+    P = prompt.shape[1] + model.image_tokens(image_embeds)
     with torch.inference_mode(), ops.plain_versions():
-        ref, caches = model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
+        ref, caches = model.prefill(params, prompt, cache_len=P + NEW, frames=frames,
+                                    image_embeds=image_embeds)
         steps = [ref]
         for i in range(n_steps):
-            ref, caches = model.decode(params, tokens[:, i:i + 1], S + i, caches)
+            ref, caches = model.decode(params, tokens[:, i:i + 1], P + i, caches)
             steps.append(ref)
     return steps
 
@@ -1994,12 +2047,13 @@ def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
     model, params, prompt = serve.setup(arch, full=True, batch=BATCH, prompt_len=prompt_len,
                                         device="cuda", seed=0, changes=changes)
     frames = serve.make_frames(model, BATCH, prompt.device)
+    image_embeds = serve.make_image_embeds(model, BATCH, prompt.device)
     cfg = model.cfg
     label = arch + (f" {cfg.kv_cache_dtype} cache" if cfg.kv_cache_dtype else "")
-    serve.generate(model, params, prompt, 3, frames)  # warm-up (cuBLAS, allocator)
+    serve.generate(model, params, prompt, 3, frames, image_embeds)  # warm-up (cuBLAS, allocator)
 
     ops.reset_launch_counts()
-    gen = serve.generate(model, params, prompt, NEW, frames)
+    gen = serve.generate(model, params, prompt, NEW, frames, image_embeds)
     counts = ops.launch_counts()
     want = want_launches(model)
     print(f"serve {label} launches {counts} (want {want})")
@@ -2010,7 +2064,7 @@ def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
         fail(f"{label} serve logits: shape {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
 
-    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames)
+    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames, image_embeds)
     gaps, diffs = [], []
     for i, ref in enumerate(steps):
         got_tok = gen.tokens[:, i]
@@ -2037,12 +2091,13 @@ def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
 
     res = serve.summary(arch, gen)
     extra = f", {cfg.encoder_seq} frames" if cfg.encoder_layers else ""
+    extra += f", {cfg.num_img_tokens} image tokens" if cfg.num_img_tokens else ""
     print(f"serve {label} full width, batch {BATCH}, prompt {prompt_len}{extra}, {NEW} new "
           f"tokens on {card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
           f"decode_p99_s {res['decode_p99_s']} tokens_per_s {res['tokens_per_s']}")
     print(json.dumps({"serve": res, "prompt": prompt_len, "kv_cache_dtype": cfg.kv_cache_dtype,
                       "launches": counts, "card": card}))
-    profile_serve(model, params, prompt, res, frames)
+    profile_serve(model, params, prompt, res, frames, image_embeds)
     host_logits = logits.float().cpu()
     del model, params, gen, logits, steps
     torch.cuda.empty_cache()
@@ -2063,7 +2118,7 @@ def int8_against_bf16_cache(int8_logits, bf16_logits) -> None:
           f"up to the first other token {[round(d, 4) for d in diffs]}")
 
 
-def profile_serve(model, params, prompt, res, frames=None) -> None:
+def profile_serve(model, params, prompt, res, frames=None, image_embeds=None) -> None:
     """Where a prefill and a decode step spend their time: device time per
     step (torch.profiler), its share of the unprofiled wall time of the
     serve run (prefill_s, decode_p50_s), and the kernels with the most
@@ -2071,17 +2126,19 @@ def profile_serve(model, params, prompt, res, frames=None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    B, S = prompt.shape
+    P = prompt.shape[1] + model.image_tokens(image_embeds)
     with torch.inference_mode():
-        _, caches = model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
+        _, caches = model.prefill(params, prompt, cache_len=P + NEW, frames=frames,
+                                  image_embeds=image_embeds)
         tok = prompt[:, -1:]
 
         def prefill():
-            model.prefill(params, prompt, cache_len=S + NEW, frames=frames)
+            model.prefill(params, prompt, cache_len=P + NEW, frames=frames,
+                          image_embeds=image_embeds)
 
         def decode_steps(n=8):
             for i in range(n):
-                model.decode(params, tok, S + i, caches)
+                model.decode(params, tok, P + i, caches)
 
         for name, fn, n_steps, unprofiled_s in (("prefill", prefill, 1, res["prefill_s"]),
                                                 ("decode", decode_steps, 8, res["decode_p50_s"])):
@@ -2142,10 +2199,11 @@ def full_width_f32_phase(dev, arch: str, prompt_len: int):
     prompt = torch.randint(0, cfg.vocab, (BATCH, prompt_len), generator=g, device=dev,
                            dtype=torch.int64)
     frames = serve.make_frames(model, BATCH, dev, seed=3)
+    image_embeds = serve.make_image_embeds(model, BATCH, dev, seed=3)
     ops.reset_launch_counts()
-    gen = serve.generate(model, params, prompt, 5, frames)
+    gen = serve.generate(model, params, prompt, 5, frames, image_embeds)
     counts = f32_launches(f"full-width f32 {arch}")
-    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames)
+    steps = plain_replay(model, params, prompt, gen.tokens, 4, frames, image_embeds)
     worst = 0.0
     for i, ref in enumerate(steps):
         worst = max(worst, float((gen.logits[i] - ref).abs().max()))
@@ -2525,7 +2583,8 @@ def reduced_reference_phase(dev):
     stack) and a prompt of three windows, qwen2.5 (its qkv bias made
     nonzero), olmoe (its mixture of experts on the card against the CPU),
     whisper (16 frames, 40 tokens: a cross call of 16 keys at hd 16, its
-    biases nonzero) and gemma with the int8 cache. Returns the float32
+    biases nonzero), gemma with the int8 cache and phi-3-vision (4 image
+    tokens before 40 text tokens). Returns the float32
     attention routes' launches of the card's runs."""
     import dataclasses
 
@@ -2547,7 +2606,7 @@ def reduced_reference_phase(dev):
     for arch, n_layers, prompt_len, changes in (
             ("gemma-2b", 2, 40, {}), ("rwkv6-1.6b", 2, 40, {}), ("recurrentgemma-9b", 5, 48, {}),
             ("qwen2.5-3b", 2, 40, {}), ("olmoe-1b-7b", 2, 40, {}), (WHISPER, 2, 40, {}),
-            ("gemma-2b", 2, 40, INT8)):
+            ("gemma-2b", 2, 40, INT8), (VISION_ARCH, 2, 40, {})):
         cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers, **changes)
         model = build_model(cfg)
         g = torch.Generator(device=dev)
@@ -2557,9 +2616,11 @@ def reduced_reference_phase(dev):
         prompt = torch.randint(0, cfg.vocab, (2, prompt_len), generator=g, device=dev,
                                dtype=torch.int64)
         frames = serve.make_frames(model, 2, dev, seed=5)
-        got = serve.generate(model, params, prompt, 6, frames)
+        image_embeds = serve.make_image_embeds(model, 2, dev, seed=5)
+        got = serve.generate(model, params, prompt, 6, frames, image_embeds)
         want = serve.generate(model, to_cpu(params), prompt.cpu(), 6,
-                              None if frames is None else frames.cpu())
+                              None if frames is None else frames.cpu(),
+                              None if image_embeds is None else image_embeds.cpu())
         for i, (a, b) in enumerate(zip(got.logits, want.logits)):
             err = float((a.cpu() - b).abs().max())
             if not err <= LOGITS_TOL_F32:
@@ -3079,13 +3140,15 @@ def train_grad_check(dev, cfg) -> None:
     within GRAD_TOL_BF16, or for GRAD_F32_ARCHS in float32 activations
     within GRAD_TOL_F32, with the bf16 step's readings beside it (the plain
     bf16 step against the plain float32 step, and the bf16 kernel path
-    against the bf16 plain path)."""
+    against the bf16 plain path). A vision config's batch also holds
+    TRAIN_BATCH x num_img_tokens seeded image embeddings."""
     import dataclasses
 
     import torch
 
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.train.optim import _paths
     from repro_torch.utils.tree import flatten, unflatten
@@ -3096,6 +3159,8 @@ def train_grad_check(dev, cfg) -> None:
         g.manual_seed(0)
         params = model.init(g, dev, param_dtype=torch.float32)
         batch = token_batches(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)(0)
+        if cfg.num_img_tokens:  # a vision config: the loss's image offset, both ways
+            batch["image_embeds"] = serve.make_image_embeds(model, TRAIN_BATCH, dev, seed=7)
         leaves, treedef = flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         with ops.plain_versions() if plain else contextlib.nullcontext():

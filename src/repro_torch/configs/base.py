@@ -48,7 +48,7 @@ class ArchConfig:
     # --- enc-dec (whisper), multimodal stubs, the KV cache's storage ---
     encoder_layers: int = 0
     encoder_seq: int = 0  # whisper: 1500 precomputed frame embeddings
-    num_img_tokens: int = 0  # phi-3-vision; the port's build_model refuses it
+    num_img_tokens: int = 0  # phi-3-vision: precomputed patch embeddings prepended
     kv_cache_dtype: str = ""  # "" (= activation dtype) | "int8" (serving)
     # --- numerics and training ---
     dtype: str = "bfloat16"  # activation dtype
@@ -73,7 +73,7 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """A tiny same-family variant for CPU tests; the same changes as
         ``repro.configs.base.ArchConfig.reduced`` for the families the port
-        runs (dense, moe, rwkv, block pattern, encoder-decoder)."""
+        runs (dense, moe, rwkv, block pattern, encoder-decoder, image tokens)."""
         changes = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -100,6 +100,8 @@ class ArchConfig:
         if self.encoder_layers:
             changes["encoder_layers"] = 1
             changes["encoder_seq"] = 16
+        if self.num_img_tokens:
+            changes["num_img_tokens"] = 4
         if self.attn_free:
             changes["n_heads"] = 4
             changes["head_dim"] = 16
@@ -167,6 +169,7 @@ def _ensure_loaded():
         gemma_2b,
         granite_3_2b,
         olmoe_1b_7b,
+        phi3_vision,
         qwen25_3b,
         recurrentgemma_9b,
         rwkv6_1b6,

@@ -31,7 +31,9 @@
 //   wait on a block-wide barrier. Each TMA box lands as a 64-column block
 //   of 128-byte rows in the 128-byte swizzle that the wgmma descriptors
 //   name. At hd 256 that is 64 + 2·(32 + 32) = 192 KB of dynamic shared
-//   memory. Rows past S and, for hd < 64, columns past hd arrive as zeros.
+//   memory. Rows past S and columns past hd arrive as zeros: hd < 64 and
+//   hd 96 (phi-3-vision, padded to two blocks: Q·Kᵀ over the zero columns
+//   is exact, P·V's columns past hd are never stored; 4/3 of the products).
 // - setmaxnreg moves registers from the producer (24 a thread) to the
 //   consumers (240): the O accumulator alone is 64 × hd float32 per
 //   warpgroup, 128 registers a thread at hd 256.
@@ -118,13 +120,14 @@ constexpr int F_THREADS = 256;
 
 template <int HD>
 struct F32Shape {
-  // Row strides in floats. Q and K: ≡ 16 (mod 32), so that the 8 lanes of
-  // a 16-byte load phase (rows gr, gr + 1; 16 bytes each at 4·tq) cover all
-  // 32 banks; V: ≡ 4 (mod 16), the same for rows 2·tq and columns NU·gr.
+  // Row strides in floats (hd 96: 112 and 100). Q and K: ≡ 16 (mod 32),
+  // so that the 8 lanes of a 16-byte load phase (rows gr, gr + 1; 16 bytes
+  // each at 4·tq) cover all 32 banks; V: ≡ 4 (mod 16), the same for rows
+  // 2·tq and columns NU·gr.
   static constexpr int LDQ = HD % 32 == 0 ? HD + 16 : HD;
   static constexpr int LDV = HD + 4;
   // P·V: NU 8-column n-tiles take their B fragments from one load of NU
-  // consecutive floats; NG such groups span the head dim
+  // consecutive floats; NG such groups span the head dim (3 at hd 96)
   static constexpr int NU = HD >= 32 ? 4 : 2;
   static constexpr int NG = HD / (8 * NU);
   static constexpr int K_OFF = F_BQ * LDQ;
@@ -433,8 +436,9 @@ constexpr int TC_CONSUMER_REGS = 240;
 
 template <int HD>
 struct TcShape {
-  static constexpr int HDP = HD < 64 ? 64 : HD;  // row padded to whole 64-column blocks
-  static constexpr int NDB = HDP / 64;           // 64-column blocks
+  // row padded to whole 64-column blocks (hd 96: two, columns 96-127 zeros)
+  static constexpr int HDP = (HD + 63) / 64 * 64;
+  static constexpr int NDB = HDP / 64;  // 64-column blocks
   static constexpr int Q_BYTES = TC_BQ * HDP * 2;
   static constexpr int KV_BYTES = TC_BK * HDP * 2;  // one K or one V tile
   static constexpr int BAR_OFF = Q_BYTES + 4 * KV_BYTES;
@@ -699,6 +703,7 @@ LaunchFn pick(int dtype, int hd) {
     case 16: return bf ? launch_tc<16> : launch_f32<16>;
     case 32: return bf ? launch_tc<32> : launch_f32<32>;
     case 64: return bf ? launch_tc<64> : launch_f32<64>;
+    case 96: return bf ? launch_tc<96> : launch_f32<96>;
     case 128: return bf ? launch_tc<128> : launch_f32<128>;
     case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;

@@ -202,7 +202,7 @@ constexpr int F_BK = 32;        // dQ: keys a K/V tile, a half of 16 for each wa
 template <int HD>
 struct BwdF32Shape {
   // tile rows in floats: whole 128-byte lines, so that the swizzle (tf32::swz)
-  // stays inside each row
+  // stays inside each row (hd 96: three lines)
   static constexpr int LD = HD < 32 ? 32 : HD;
   // the accumulating products: NU 8-column n-tiles take their B fragments
   // from one load of NU consecutive floats; NG such groups span the head dim
@@ -708,8 +708,10 @@ constexpr int BAR_X_EMPTY = 2;  // named barrier: warpgroup 1 has read it
 
 template <int HD>
 struct BwdShape {
-  static constexpr int HDP = HD < 64 ? 64 : HD;  // row padded to whole 64-column blocks
-  static constexpr int NDB = HDP / 64;           // 64-column blocks
+  // row padded to whole 64-column blocks (hd 96: two, columns 96-127 zeros,
+  // never stored)
+  static constexpr int HDP = (HD + 63) / 64 * 64;
+  static constexpr int NDB = HDP / 64;  // 64-column blocks
   static constexpr int TILE = TB_ROWS * HDP * 2;  // one 64-row bf16 tile
   static constexpr int X_OFF = 6 * TILE;  // 2 resident tiles, 2 stages of 2 streamed tiles
   static constexpr int BAR_OFF = X_OFF + TB_ROWS * TB_ROWS * 4;  // + the float32 hand-over
@@ -1053,6 +1055,7 @@ LaunchFn pick(int dtype, int hd) {
     case 16: return bf ? launch_tc<16> : launch_f32<16>;
     case 32: return bf ? launch_tc<32> : launch_f32<32>;
     case 64: return bf ? launch_tc<64> : launch_f32<64>;
+    case 96: return bf ? launch_tc<96> : launch_f32<96>;
     case 128: return bf ? launch_tc<128> : launch_f32<128>;
     case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;

@@ -46,7 +46,7 @@ bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
 
 def _check(q, k, v, causal: bool = True, window: int = 0):

@@ -148,7 +148,15 @@ def _step(model, rules, shape, grad_compression: bool, device):
     returns (the input leaves, the output leaves)."""
     B, S = shape.global_batch, shape.seq_len
     values, _ = model.input_specs(shape)
-    tok_shape = _placed(rules, values["tokens"], batch_shardings(model, rules, shape)["tokens"])
+    # this rank's shard of each input: the tokens int32, an encoder-decoder's
+    # frames and a vision config's image embeddings too
+    inputs = {name: (_placed(rules, t, sh), t.dtype) for (name, t), sh in zip(
+        values.items(), batch_shardings(model, rules, shape).values())}
+
+    def fresh_batch():
+        return {name: torch.empty(shp, dtype=dt, device=device)
+                for name, (shp, dt) in inputs.items()}
+
     if shape.kind == "train":
         abstract = abstract_state(model, grad_compression)
         train_step, _ = make_train_step(model, rules, grad_compression=grad_compression)
@@ -156,8 +164,8 @@ def _step(model, rules, shape, grad_compression: bool, device):
 
         def run():
             state = _fresh(local_state, device)
-            batch = {"tokens": torch.empty(tok_shape, dtype=torch.int32, device=device)}
-            ins = flatten(state)[0] + [batch["tokens"]]
+            batch = fresh_batch()
+            ins = flatten(state)[0] + list(batch.values())
             new, metrics = train_step(state, batch)
             return ins, flatten((new, metrics))[0]
 
@@ -167,14 +175,10 @@ def _step(model, rules, shape, grad_compression: bool, device):
     local_params = map_specs(lambda spec, t: rules.local_shard(t, spec), specs, params_meta)
     if shape.kind == "prefill":
         prefill_step = make_prefill_step(model, rules)
-        inputs = {name: (_placed(rules, t, sh), t.dtype) for (name, t), sh in zip(
-            values.items(), batch_shardings(model, rules, shape).values())}
 
         def run():
             params = _fresh(local_params, device)
-            # the tokens int32, an encoder-decoder's frames too
-            batch = {name: torch.empty(shp, dtype=dt, device=device)
-                     for name, (shp, dt) in inputs.items()}
+            batch = fresh_batch()
             with torch.no_grad():
                 out = prefill_step(params, batch)
             return flatten(params)[0] + list(batch.values()), flatten(out)[0]
@@ -188,7 +192,7 @@ def _step(model, rules, shape, grad_compression: bool, device):
     def run():
         params = _fresh(local_params, device)
         cache = _fresh(local_cache, device)
-        tokens = torch.empty(tok_shape, dtype=torch.int64, device=device)
+        tokens = torch.empty(inputs["tokens"][0], dtype=torch.int64, device=device)
         ins = flatten(params)[0] + flatten(cache)[0] + [tokens]
         with torch.no_grad():
             out = decode_step(params, tokens, S - 1, cache)

@@ -8,7 +8,15 @@ contract (``repro_torch.orchestrator.contract``); ``--json`` makes the final
 line one JSON status object. Weights and the prompt are random, from a
 seeded ``torch.Generator``, and so are an encoder-decoder's frames (B,
 encoder_seq, d; ``make_frames``), the stub of precomputed frame embeddings
-the reference draws too. The int8 KV cache is a config field (``kv_cache_dtype``), as in
+the reference draws too, and a vision config's image embeddings (B,
+num_img_tokens, d; ``make_image_embeds``), its stub of precomputed patch
+embeddings. With image tokens the prefill lays down P = S + num_img_tokens
+positions, and ``generate`` sizes the cache P + new_tokens and decodes at
+positions P, P + 1, ...: they continue after the last prefilled one. The
+reference's launcher sizes its cache S + new_tokens and decodes at S + i,
+so with image tokens its steps overwrite prompt positions (ROADMAP Queue 3,
+item 15); that is a fault of its launcher, not of its model, which the port
+follows. The int8 KV cache is a config field (``kv_cache_dtype``), as in
 the reference, which has no flag for it: ``setup(..., changes={
 "kv_cache_dtype": "int8"})``. It runs on ``cuda`` (the hand-written kernels)
 unless ``--device cpu`` is given (the plain torch versions); without a CUDA
@@ -66,6 +74,21 @@ def make_frames(model, batch: int, device, seed: int = 0) -> Optional[torch.Tens
                        dtype=torch.float32)
 
 
+def make_image_embeds(model, batch: int, device, seed: int = 0) -> Optional[torch.Tensor]:
+    """A vision config's random image embeddings (B, num_img_tokens, d),
+    float32 from a generator of their own seeded ``seed``, as the reference
+    draws them from a key of their own; None for a config without image
+    tokens."""
+    cfg = model.cfg
+    if not cfg.num_img_tokens:
+        return None
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((batch, cfg.num_img_tokens, cfg.d_model), generator=gen, device=dev,
+                       dtype=torch.float32)
+
+
 def ring_warning(model, prompt_len: int) -> Optional[str]:
     """The warning for a prompt the windowed cache does not wrap exactly.
     An ``attn_local`` layer keeps the reference's ring of min(S, window)
@@ -89,11 +112,15 @@ class Generation:
 
 
 def generate(model, params, prompt: torch.Tensor, new_tokens: int,
-             frames: Optional[torch.Tensor] = None) -> Generation:
-    """Prefill (of ``prompt`` and, for an encoder-decoder, ``frames``) with
-    ``cache_len = S + new_tokens``, then ``new_tokens - 1`` greedy decode
-    steps; each phase is timed to the device's completion."""
+             frames: Optional[torch.Tensor] = None,
+             image_embeds: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill (of ``prompt`` and, for an encoder-decoder, ``frames``, for
+    a vision config ``image_embeds``) of P = S (+ num_img_tokens) positions
+    with ``cache_len = P + new_tokens``, then ``new_tokens - 1`` greedy
+    decode steps at positions P, P + 1, ...; each phase is timed to the
+    device's completion."""
     B, S = prompt.shape
+    P = S + model.image_tokens(image_embeds)
     on_card = prompt.device.type == "cuda"
 
     def sync():
@@ -103,14 +130,15 @@ def generate(model, params, prompt: torch.Tensor, new_tokens: int,
     with torch.inference_mode():
         sync()
         t0_s = time.perf_counter()
-        logits, caches = model.prefill(params, prompt, cache_len=S + new_tokens, frames=frames)
+        logits, caches = model.prefill(params, prompt, cache_len=P + new_tokens, frames=frames,
+                                       image_embeds=image_embeds)
         sync()
         prefill_s = time.perf_counter() - t0_s
         tok = torch.argmax(logits, dim=-1)[:, None]
         all_logits, toks, decode_s = [logits], [tok], []
         for i in range(new_tokens - 1):
             t0_s = time.perf_counter()
-            logits, caches = model.decode(params, tok, S + i, caches)
+            logits, caches = model.decode(params, tok, P + i, caches)
             tok = torch.argmax(logits, dim=-1)[:, None]
             sync()
             decode_s.append(time.perf_counter() - t0_s)
@@ -152,10 +180,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     model, params, prompt = setup(args.arch, full=args.full, batch=args.batch,
                                   prompt_len=args.prompt_len, device=args.device)
     frames = make_frames(model, args.batch, prompt.device)
+    image_embeds = make_image_embeds(model, args.batch, prompt.device)
     warning = ring_warning(model, args.prompt_len)
     if warning:
         print(warning, file=sys.stderr)
-    gen = generate(model, params, prompt, args.new_tokens, frames)
+    gen = generate(model, params, prompt, args.new_tokens, frames, image_embeds)
     res = summary(args.arch, gen)
     if args.as_json:
         print(json.dumps(res))

@@ -40,6 +40,16 @@ entry, ``{"memory": (B, encoder_seq, d)}``: the reference's
 ``caches["memory"]``. Each decode step projects the memory's k / v again,
 as the reference does.
 
+A vision config (``cfg.num_img_tokens``; phi-3-vision) takes
+``image_embeds`` (B, num_img_tokens, d), the stub of precomputed patch
+embeddings, in ``prefill`` and in ``loss``'s batch: they are prepended to
+the token embeddings, the positions (and RoPE) run over S_tot = S +
+num_img_tokens, the prefill's cache holds S_tot positions, and the loss's
+cross-entropy is taken over the text positions only. Decode needs no
+change: the caller passes positions that continue after S_tot - 1.
+Without ``image_embeds`` such a config runs as a text-only one, as the
+reference does.
+
 Over a mesh (``rules``, :mod:`repro_torch.sharding.rules`) each rank runs
 ``prefill``, ``decode`` and ``loss`` on its data shard of the batch and
 holds every leaf as ``run_specs`` says: the rules' spec, the reference's
@@ -86,6 +96,8 @@ CE_CHUNK = 512
 POS_ROWS = 32768
 #: the logical axes of the frames and of the encoder's memory
 MEMORY_AXES = ("batch", "frames", None)
+#: the logical axes of a vision config's precomputed patch embeddings
+IMAGE_AXES = ("batch", "img", None)
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
@@ -93,8 +105,6 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
         return f"the {'/'.join(cfg.block_pattern)} block pattern (only {_PATTERN_KINDS})"
     if cfg.moe and (cfg.block_pattern or cfg.attn_free or cfg.encoder_layers):
         return "the mixture-of-experts FFN in a recurrent or encoder-decoder block"
-    if cfg.num_img_tokens:
-        return "image-token inputs"
     if cfg.kv_cache_dtype not in ("", "int8"):
         return f"the {cfg.kv_cache_dtype} KV cache"
     if cfg.norm not in ("rms", "layer"):
@@ -262,7 +272,13 @@ class ModelDef:
         if shape.kind == "decode":
             return {"tokens": meta((B, 1)), "pos": meta(())}, {"tokens": ("batch", None),
                                                              "pos": ()}
-        values, axes = {"tokens": meta((B, S))}, {"tokens": ("batch", "seq")}
+        # a vision config's image tokens count in the step's seq_len
+        values = {"tokens": meta((B, S - cfg.num_img_tokens))}
+        axes = {"tokens": ("batch", "seq")}
+        if cfg.num_img_tokens:
+            values["image_embeds"] = torch.empty((B, cfg.num_img_tokens, cfg.d_model),
+                                                 dtype=activation_dtype(cfg), device="meta")
+            axes["image_embeds"] = IMAGE_AXES
         if cfg.encoder_layers:
             values["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
                                            dtype=activation_dtype(cfg), device="meta")
@@ -405,24 +421,38 @@ class ModelDef:
             x, _ = self._block_prefill("enc", lp, x, positions, S, rules)
         return self._ln(params["enc_ln"], x)
 
-    def _inputs(self, params, tokens, pos0: int, rules=None) -> torch.Tensor:
+    def _inputs(self, params, tokens, pos0: int, rules=None, image_embeds=None) -> torch.Tensor:
         """The token embeddings, plus (whisper) the learned positions of
-        positions pos0 .. pos0 + S - 1, every row's the same."""
+        positions pos0 .. pos0 + S - 1, every row's the same, after (a vision
+        config) the image embeddings cast to the activation dtype."""
         x = self._embed(params, tokens, rules)
         if self.learned_pos:
             x = x + params["pos_embed"][pos0:pos0 + tokens.shape[1]].to(x.dtype)
+        if self.image_tokens(image_embeds):
+            img = torch.as_tensor(image_embeds).to(device=x.device, dtype=x.dtype)
+            x = torch.cat([img, x], dim=1)
         return x
 
+    def image_tokens(self, image_embeds) -> int:
+        """The positions that ``image_embeds`` (B, P, d) add before the
+        tokens in a prefill or a loss: P, or 0 without them or for a config
+        without image tokens, which ignores them as the reference does."""
+        return image_embeds.shape[1] if self.cfg.num_img_tokens and image_embeds is not None else 0
+
     def prefill(self, params, tokens: torch.Tensor, rules: Optional[MeshRules] = None,
-                cache_len: Optional[int] = None, frames: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Dict]]:
+                cache_len: Optional[int] = None, frames: Optional[torch.Tensor] = None,
+                image_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B, S) int (with rules, this rank's data shard); an
-        encoder-decoder also takes ``frames`` (B, encoder_seq, d). Returns
-        the last position's logits (B, vocab) and the per-layer caches (see
-        ``_kv_cache`` for the attention layers; the recurrent layers keep
-        their final states), then, for an encoder-decoder, {"memory"}."""
+        encoder-decoder also takes ``frames`` (B, encoder_seq, d), a vision
+        config ``image_embeds`` (B, num_img_tokens, d), which make the
+        sequence S_tot = S + num_img_tokens positions. Returns the last
+        position's logits (B, vocab) and the per-layer caches (see
+        ``_kv_cache`` for the attention layers, of max(cache_len, S_tot)
+        slots; the recurrent layers keep their final states), then, for an
+        encoder-decoder, {"memory"}."""
         _check_rules(rules)
         B, S = tokens.shape
+        S += self.image_tokens(image_embeds)
         memory = None
         if self.cfg.encoder_layers:
             if frames is None:
@@ -430,7 +460,8 @@ class ModelDef:
                                  f"frames (B, {self.cfg.encoder_seq}, {self.cfg.d_model})")
             memory = self._encode(params, frames, rules)
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        x = constrain(self._inputs(params, tokens, 0, rules), rules, ("batch", "seq", None))
+        x = constrain(self._inputs(params, tokens, 0, rules, image_embeds), rules,
+                      ("batch", "seq", None))
         caches = []
         for kind, lp in zip(self.kinds, params["layers"]):
             x, cache = self._block_prefill(kind, lp, x, positions, cache_len or S, rules, memory)
@@ -481,8 +512,11 @@ class ModelDef:
         and with ``cfg.remat`` every block is recomputed in the backward too.
         An MoE model adds 0.01 x its aux term summed over the layers in
         order, as the reference does (its sum starts at 0.0, so this is the
-        same float32 sum). Attention, wkv6, the RG-LRU scan and the norms
-        run the CUDA kernels, forward and backward, on the card.
+        same float32 sum). A vision config's ``batch["image_embeds"]`` (B,
+        num_img_tokens, d) are prepended, as in ``prefill``, and position
+        num_img_tokens + t predicts token t + 1. Attention, wkv6, the RG-LRU
+        scan and the norms run the CUDA kernels, forward and backward, on
+        the card.
 
         With rules ``batch`` is this rank's data shard, and the returned loss
         is the global batch's on every rank: the cross-entropy's sum and its
@@ -494,9 +528,13 @@ class ModelDef:
             raise NotImplementedError(f"{self.cfg.name}: {_ENC_DEC_TRAIN}")
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
+        image_embeds = batch.get("image_embeds")
+        P_img = self.image_tokens(image_embeds)
         B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32, device=embed.device).expand(B, S)
-        x = constrain(self._embed(params, tokens, rules), rules, ("batch", "seq", None))
+        positions = torch.arange(S + P_img, dtype=torch.int32,
+                                 device=embed.device).expand(B, S + P_img)
+        x = constrain(self._inputs(params, tokens, 0, rules, image_embeds), rules,
+                      ("batch", "seq", None))
         aux = None
         for kind, lp in zip(self.kinds, params["layers"]):
             if self.cfg.remat:
@@ -506,7 +544,7 @@ class ModelDef:
                 x, a = self._block_train(kind, lp, x, positions, rules)
             if a is not None:
                 aux = a if aux is None else aux + a
-        x = self._ln(params["final_ln"], x)
+        x = self._ln(params["final_ln"], x[:, P_img:])
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0

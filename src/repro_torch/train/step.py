@@ -192,7 +192,7 @@ def make_prefill_step(model: ModelDef, rules: Optional[MeshRules] = None):
         tokens = torch.as_tensor(batch["tokens"]).to(device=params["embed"].device,
                                                      dtype=torch.int64)
         return model.prefill(params, tokens, rules, cache_len=cache_len,
-                             frames=batch.get("frames"))
+                             frames=batch.get("frames"), image_embeds=batch.get("image_embeds"))
 
     return prefill_step
 

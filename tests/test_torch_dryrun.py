@@ -40,9 +40,10 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 # (arch, shape, mesh, variant): the three cells the checks read, the
-# serving cells of whisper-tiny and of the int8 KV cache, a skipped cell,
-# and cells the port cannot run (unported archs and variants, whisper's
-# training)
+# serving cells of whisper-tiny and of the int8 KV cache, phi-3-vision's
+# cells (its image embeddings in the train and prefill batches), a skipped
+# cell, and cells the port cannot run (unported archs and variants,
+# whisper's training)
 CELLS = {
     "train": ("gemma-2b", "train_4k", "single", "baseline"),
     "decode": ("olmoe-1b-7b", "decode_32k", "multi", "baseline"),
@@ -55,6 +56,8 @@ CELLS = {
     "kimi": ("kimi-k2-1t-a32b", "train_4k", "single", "baseline"),
     "whisper_train": ("whisper-tiny", "train_4k", "single", "baseline"),
     "phi": ("phi-3-vision-4.2b", "prefill_32k", "multi", "baseline"),
+    "phi_train": ("phi-3-vision-4.2b", "train_4k", "single", "baseline"),
+    "phi_decode": ("phi-3-vision-4.2b", "decode_32k", "single", "baseline"),
     "sp_model": ("gemma-2b", "train_4k", "single", "sp_model"),
     "fsdp": ("deepseek-7b", "train_4k", "single", "fsdp"),
     "seq_shard": ("gemma-2b", "prefill_32k", "multi", "seq_shard"),
@@ -62,6 +65,11 @@ CELLS = {
 }
 MAIN = ("train", "decode", "prefill")
 SERVE_CELLS = ("whisper_prefill", "whisper_decode", "kv_int8", "serve_bf16_kv8")
+PHI_CELLS = ("phi_train", "phi", "phi_decode")
+# each cell's batch: an encoder-decoder's prefill takes its frames, a vision
+# config's train and prefill steps its image embeddings
+BATCH_NAMES = {"whisper_prefill": {"tokens", "frames"}, "phi": {"tokens", "image_embeds"},
+               "phi_train": {"tokens", "image_embeds"}}
 # the config changes of the variants above (the reference's ``launch/dryrun.py``
 # VARIANTS entries)
 VARIANT_CONFIG = {"baseline": {}, "kv_int8": {"kv_cache_dtype": "int8"},
@@ -129,7 +137,7 @@ def _reference_trees(name: str):
     if shape.kind == "decode":
         trees.append(split_params(model.abstract_cache(shape.global_batch, shape.seq_len)))
     batch, baxes = split_params(model.input_specs(shape))
-    names = ("tokens", "frames") if shape.kind == "prefill" else ("tokens",)
+    names = ("tokens", "frames", "image_embeds") if shape.kind != "decode" else ("tokens",)
     trees.append(({k: batch[k] for k in names if k in batch},
                   {k: baxes[k] for k in names if k in baxes}))
     return trees
@@ -150,7 +158,7 @@ def _local_bytes(values, axes, rules) -> int:
     return total
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS)
 def test_state_bytes_global_equal_the_references(cells, name):
     """``state_bytes_global`` is the reference's ``tree_bytes`` of the same
     abstract state (its ``jax.eval_shape``s, no compile)."""
@@ -158,11 +166,12 @@ def test_state_bytes_global_equal_the_references(cells, name):
     assert cells[name]["state_bytes_global"] == sum(tree_bytes(v) for v, _ in trees)
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS)
 def test_rank0_arguments_are_the_reference_spec_slices(cells, name):
     """Rank 0's argument bytes are the sum of the reference's spec slices of
     its state (or parameters and cache) and batch under the same mesh (an
-    encoder-decoder's prefill batch holds its frames). The port's decode
+    encoder-decoder's prefill batch holds its frames, a vision config's
+    train and prefill batches its image embeddings). The port's decode
     tokens are int64 (the reference's int32), its train and prefill tokens
     int32."""
     arch, shape_name, mesh, _ = CELLS[name]
@@ -171,8 +180,7 @@ def test_rank0_arguments_are_the_reference_spec_slices(cells, name):
     want = sum(_local_bytes(v, a, rules) for v, a in trees)
     if SHAPES[shape_name].kind == "decode":
         want += _local_bytes(*trees[-1], rules)  # int64 tokens: twice the int32 bytes
-    assert set(trees[-1][0]) == ({"tokens", "frames"} if name == "whisper_prefill"
-                                 else {"tokens"})
+    assert set(trees[-1][0]) == BATCH_NAMES.get(name, {"tokens"})
     assert cells[name]["memory"]["argument_bytes"] == want
 
 
@@ -189,8 +197,7 @@ def test_skipped_cells_equal_the_references_applicable(cells):
     assert "memory" not in cells["skipped"]
 
 
-@pytest.mark.parametrize("name", ("kimi", "whisper_train", "phi", "sp_model", "fsdp",
-                                  "seq_shard"))
+@pytest.mark.parametrize("name", ("kimi", "whisper_train", "sp_model", "fsdp", "seq_shard"))
 def test_unported_archs_and_variants_give_an_error(cells, name):
     """An arch or variant the port cannot run (whisper's training among
     them) writes its NotImplementedError text under "error", with the
@@ -202,7 +209,7 @@ def test_unported_archs_and_variants_give_an_error(cells, name):
     assert "memory" not in r and "roofline" not in r
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS)
+@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS)
 def test_record_keys_and_roofline(cells, name):
     """The reference's keys (``trace_s`` for ``lower_s`` / ``compile_s``),
     the roofline on the H100's peaks, the memory identity."""
@@ -291,6 +298,26 @@ def test_whisper_decode_reads_the_memory_in_every_layer(cells):
     B_local, H, hd = 128 // 16, cfg.n_heads, cfg.resolved_head_dim
     assert k["calls"] == 2 * cfg.n_layers
     assert k["flops"] == 4 * hd * H * B_local * cfg.n_layers * (32768 + cfg.encoder_seq)
+
+
+@pytest.mark.parametrize("name", ("phi_train", "phi"))
+def test_phi_attention_counts_the_image_positions(cells, name):
+    """phi-3-vision's train and prefill cells: per layer one flash_attention
+    over the step's seq_len positions, its 256 image tokens and seq_len -
+    256 text tokens, causal: 4·hd FLOPs a pair per (b, h) on rank 0's rows
+    of the batch and its heads (32 over the "model" axis)."""
+    arch, shape_name, mesh, _ = CELLS[name]
+    cfg, shape = get_arch(arch), SHAPES[shape_name]
+    sizes = make_production_mesh(multi_pod=mesh == "multi").shape
+    n_model = sizes["model"]
+    B_local = shape.global_batch * n_model // _chips(mesh)
+    S = shape.seq_len
+    k = cells[name]["kernels"]["flash_attention"]
+    per_call = 4 * cfg.resolved_head_dim * (S * (S + 1) // 2) * B_local * (cfg.n_heads // n_model)
+    calls = cfg.n_layers * (2 if shape.kind == "train" else 1)  # remat: again in the backward
+    assert k["calls"] == calls and k["flops"] == calls * per_call
+    if shape.kind == "train":
+        assert cells[name]["kernels"]["flash_attention_bwd"]["calls"] == cfg.n_layers
 
 
 def test_flash_variant_reports_its_base_variants_numbers(cells):
@@ -495,7 +522,7 @@ def test_report_tables_equal_the_references(cells, tmp_path):
     for mesh in ("single", "multi"):
         assert report.roofline_table(mine, mesh, "baseline") == jax_report.roofline_table(
             ref, mesh, "baseline").replace("fits 16GB", "fits 80GB")
-    for arch in ("gemma-2b", "olmoe-1b-7b", "kimi-k2-1t-a32b"):
+    for arch in ("gemma-2b", "olmoe-1b-7b", "phi-3-vision-4.2b", "kimi-k2-1t-a32b"):
         assert report.perf_rows(mine, arch) == jax_report.perf_rows(ref, arch)
     n_ok, n_skip, n_err, _ = report.dryrun_summary(mine)
-    assert (n_ok, n_skip, n_err) == (8, 1, 6)
+    assert (n_ok, n_skip, n_err) == (11, 1, 5)

@@ -105,6 +105,7 @@ CASES = {  # B, H, K, S, hd, causal, window
     "ragged_s300_g8_hd64": (1, 8, 1, 300, 64, True, 0),
     "not_causal_g1_hd64": (1, 2, 2, 160, 64, False, 0),
     "window_gqa_g2_hd64": (1, 4, 2, 200, 64, True, 80),
+    "ragged_s200_mha_hd96": (1, 4, 4, 200, 96, True, 0),
 }
 
 

@@ -223,6 +223,8 @@ CASES = {  # B, H, K, S, hd, causal, window
     "causal_mqa_g4_hd256": (1, 4, 1, 96, 256, True, 0),
     "ragged_s70_hd16": (1, 2, 2, 70, 16, True, 0),
     "not_causal_window40_hd256": (1, 2, 2, 90, 256, False, 40),
+    "ragged_s100_mha_hd96": (1, 2, 2, 100, 96, True, 0),
+    "window40_gqa_g2_hd96": (1, 4, 2, 90, 96, True, 40),
 }
 
 
@@ -284,7 +286,7 @@ def test_one_tf32_rounding_breaks_the_float32_tolerance():
     assert one_worst > 10 * atol
 
 
-SHAPES = [(S, hd, causal, window) for S in (1, 16, 77, 130) for hd in (64, 256)
+SHAPES = [(S, hd, causal, window) for S in (1, 16, 77, 130) for hd in (64, 96, 256)
           for causal, window in ((True, 0), (False, 0), (True, 40), (False, 24))]
 
 

@@ -119,6 +119,8 @@ CASES = {  # B, H, K, S, hd, causal, window
     "ragged_s77_hd256": (2, 2, 2, 77, 256, True, 0),
     "not_causal_hd64": (1, 2, 2, 100, 64, False, 0),
     "not_causal_window48_hd256": (1, 4, 2, 130, 256, False, 48),
+    "ragged_s200_mha_hd96": (1, 4, 4, 200, 96, True, 0),
+    "window48_gqa_g2_hd96": (1, 4, 2, 130, 96, True, 48),
 }
 
 

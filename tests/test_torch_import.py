@@ -120,6 +120,7 @@ CONFIG_MODULES = (
     "repro_torch.configs.granite_3_2b", "repro_torch.configs.olmoe_1b_7b",
     "repro_torch.configs.qwen25_3b", "repro_torch.configs.recurrentgemma_9b",
     "repro_torch.configs.rwkv6_1b6", "repro_torch.configs.whisper_tiny",
+    "repro_torch.configs.phi3_vision",
 )
 
 
@@ -289,7 +290,6 @@ def test_unported_configs_raise():
     with pytest.raises(KeyError, match="not ported"):
         get_arch("kimi-k2-1t-a32b")
     cfg = get_arch("gemma-2b")
-    for change in (dict(kv_cache_dtype="fp8"), dict(num_img_tokens=4),
-                   dict(block_pattern=("rec", "full"))):
+    for change in (dict(kv_cache_dtype="fp8"), dict(block_pattern=("rec", "full"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **change))

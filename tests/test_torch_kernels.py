@@ -78,6 +78,7 @@ def test_rmsnorm_plain_matches_pallas(shape, dtype):
     (2, 4, 2, 64, 16, 16),    # sliding window
     (1, 8, 1, 128, 256, 0),   # gemma-2b's heads: MQA at hd 256
     (1, 16, 1, 128, 256, 64),  # recurrentgemma-9b's: 16 heads on one KV head, window
+    (1, 4, 4, 128, 96, 0),    # phi-3-vision's heads: MHA at hd 96
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_plain_matches_pallas(B, H, K, S, hd, window, dtype):

@@ -59,6 +59,9 @@ CASES = {
     "qwen": ("qwen2.5-3b", {}),
     # the auto path, its 4 experts over "model"
     "olmoe": ("olmoe-1b-7b", {}),
+    # 4 image tokens before the text (replicated, the "img" rule), in the
+    # prefill, the loss and the train step; decode after S + 4 positions
+    "phi": ("phi-3-vision-4.2b", {}),
 }
 # serving only: whisper (no loss yet: ROADMAP.md item 9.7b-train), its 4
 # heads on 2 kv heads split alike on 2 ranks, kv whole on 4, its
@@ -95,6 +98,24 @@ def _frames(name: str):
         return None
     return np.random.default_rng(5).standard_normal(
         (B, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _images(name: str):
+    """A vision config's image embeddings (B, num_img_tokens, d), else None."""
+    jcfg = _jcfg(name)
+    if not jcfg.num_img_tokens:
+        return None
+    return np.random.default_rng(6).standard_normal(
+        (B, jcfg.num_img_tokens, jcfg.d_model)).astype(np.float32)
+
+
+def _batch(name: str):
+    """The reference's batch: the tokens, a vision config's image embeddings."""
+    batch = {"tokens": jnp.asarray(_tokens())}
+    if _images(name) is not None:
+        batch["image_embeds"] = jnp.asarray(_images(name))
+    return batch
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,18 +163,18 @@ def _reference(name: str):
         for key in BIAS_KEYS:
             attn[key] = 0.5 * rng.standard_normal(attn[key].shape).astype(np.float32)
     params = jax.tree.map(jnp.asarray, state["params"])
-    tokens = jnp.asarray(_tokens())
-    lg, cache = jax.jit(lambda p, t: model.prefill(p, {"tokens": t}, cache_len=S + STEPS))(
-        params, tokens)
+    batch = _batch(name)
+    P = S + jcfg.num_img_tokens  # the prefilled positions
+    lg, cache = jax.jit(lambda p, b: model.prefill(p, b, cache_len=P + STEPS))(params, batch)
     decode = jax.jit(model.decode)
     logits, feed = [np.asarray(lg)], []
     for i in range(STEPS):
         tok = np.asarray(jnp.argmax(lg, -1)).astype(np.int32)
         feed.append(tok)
-        lg, cache = decode(params, jnp.asarray(tok[:, None]), jnp.int32(S + i), cache)
+        lg, cache = decode(params, jnp.asarray(tok[:, None]), jnp.int32(P + i), cache)
         logits.append(np.asarray(lg))
-    loss = float(jax.jit(model.loss)(params, {"tokens": tokens}))
-    new, m = jax.jit(ts)(jax.tree.map(jnp.asarray, state), {"tokens": tokens})
+    loss = float(jax.jit(model.loss)(params, batch))
+    new, m = jax.jit(ts)(jax.tree.map(jnp.asarray, state), batch)
     stepped = {"/".join(p): np.asarray(v) for p, v in _paths(new["params"])}
     return state, logits, np.stack(feed), loss, float(m["loss"]), stepped
 
@@ -188,7 +209,8 @@ def ranks(tmp_path_factory):
     cases = []
     for name, (arch, change) in CASES.items():
         state, _, feed, *_ = _reference(name)
-        cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed))
+        cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed,
+                          images=_images(name)))
     for name, (arch, change) in SERVE_CASES.items():
         state, _, feed = _serve_reference(name)
         cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed,

@@ -215,12 +215,14 @@ def train_cases(rank: int, state, tokens, lr: float):
 def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
     """Each case {name, arch, change, state (the reference's initial train
     state, numpy), feed (the reference's greedy tokens of the decode steps,
-    (steps, B)), frames (an encoder-decoder's (B, F, d), else None), train
+    (steps, B)), frames (an encoder-decoder's (B, F, d), else None), images
+    (a vision config's image embeddings (B, P, d), else None), train
     (False: serving only, ``state`` holds its params)} on each (n_data,
     n_model) mesh of ``meshes``: this rank's shards as ``run_specs`` lays
     them out (``shard_state``), its data shard of ``tokens`` (B, S) (and of
-    the frames) through ``prefill`` (cache S + steps), ``steps`` decode
-    steps fed ``feed``, then, when training, ``loss`` and one AdamW step.
+    the frames and images) through ``prefill`` (cache S + P + steps),
+    ``steps`` decode steps fed ``feed`` at positions S + P + i, then, when
+    training, ``loss`` and one AdamW step (the images in their batch).
     Returns {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each
     step), "loss", "step_loss", "params" (this rank's, by reference path,
     after the step; before it when serving only), "coord"}}."""
@@ -249,16 +251,17 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
                       "step": torch.zeros((), dtype=torch.int32)})
             st = shard_state(model, rules, state)
             toks = torch.from_numpy(np.asarray(tokens[rows])).long()
-            frames = c.get("frames")
-            frames = None if frames is None else torch.from_numpy(np.asarray(frames[rows]))
-            S = toks.shape[1]
+            frames, images = (None if c.get(key) is None else
+                              torch.from_numpy(np.asarray(c[key][rows]))
+                              for key in ("frames", "images"))
+            P = toks.shape[1] + (0 if images is None else images.shape[1])
             with torch.no_grad():
-                lg, cache = model.prefill(st["params"], toks, rules, cache_len=S + steps,
-                                          frames=frames)
+                lg, cache = model.prefill(st["params"], toks, rules, cache_len=P + steps,
+                                          frames=frames, image_embeds=images)
                 logits = [lg]
                 for i in range(steps):
                     feed = torch.from_numpy(np.asarray(c["feed"][i][rows])).long()[:, None]
-                    lg, cache = model.decode(st["params"], feed, S + i, cache, rules)
+                    lg, cache = model.decode(st["params"], feed, P + i, cache, rules)
                     logits.append(lg)
             if not train:
                 params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
@@ -266,10 +269,11 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
                 out[(shape, c["name"])] = {"logits": logits, "params": params,
                                            "coord": rules.coordinate()}
                 continue
+            batch = {"tokens": toks} if images is None else {"tokens": toks, "image_embeds": images}
             with torch.no_grad():
-                loss = float(model.loss(st["params"], {"tokens": toks}, rules))
+                loss = float(model.loss(st["params"], batch, rules))
             ts, _ = make_train_step(model, rules=rules, lr=lr)
-            new, m = ts(st, {"tokens": toks})
+            new, m = ts(st, batch)
             params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
                       for path, ts_, stacked in leaf_groups(new["params"], _stacks_for(cfg))}
             out[(shape, c["name"])] = {"logits": logits, "loss": loss,
