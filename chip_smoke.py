@@ -67,7 +67,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    head dim 96), and flash_decode
    over the 1500-frame memory with every slot valid, each with its lse
    (flash_attention) and the same bits twice; a causal or windowed call
-   with its own key length must raise; the int8 cache's dequantize of k
+   with its own key length must raise; the backward with a key length of
+   its own (``cross_backward_rows``): flash_attention_bwd at whisper-tiny's
+   cross shape and its encoder's, bf16 and float32 (the float32 kernel and
+   plain version each also against the formulas in float64), timed beside
+   SDPA's autograd backward with the same key length, and the ragged key
+   lengths beside 40 and 100 queries, g 1 and 2, head dims 64 and 96, both
+   routes, dk / dv of Sk rows; the int8 cache's dequantize of k
    and v at gemma-2b's decode shape, timed beside its flash_decode row;
    each timed per call with CUDA events and on the device alone with
    torch.profiler, beside its plain version, its bound and, where one
@@ -131,13 +137,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width and 9 layers, deepseek-7b at full width and 16 layers and
    olmoe-1b-7b at full width and a cut depth (TRAIN_ARCHS) through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
-   AdamW, batch 4 x 512, 5 steps on one repeated batch): the exact launch
-   counts of the run, including the backward kernels (every block
-   recomputed once in the backward), a falling loss, step s, tokens/s and
-   peak memory; one step's gradients against the plain path's, leaf by
-   leaf (rwkv6's in float32 activations, its bf16 readings printed:
-   GRAD_F32_ARCHS; phi-3-vision's batch with 256 seeded image embeddings
-   a row, so that the loss's image offset runs forward and backward); a
+   AdamW, batch 4 x 512, 5 steps on one repeated batch), and whisper-tiny
+   at full width and depth through ``train.step.make_train_step`` (batch 4
+   x 448 tokens with 1500 seeded frames a row: the encoder, the decoder's
+   self- and cross-attention forward and backward): the exact launch
+   counts of the run, including the backward kernels (every decoder block
+   recomputed once in the backward, the encoder not), a falling loss, step
+   s, tokens/s and peak memory; one step's gradients against the plain
+   path's, leaf by leaf (rwkv6's in float32 activations, its bf16 readings
+   printed: GRAD_F32_ARCHS; phi-3-vision's batch with 256 seeded image
+   embeddings a row, so that the loss's image offset runs forward and
+   backward; whisper-tiny's with its frames, its k biases, zero in exact
+   arithmetic, held against their wk's gradient); a
    profile of a step; the FTTrainer's lossless invariant at reduced size
    under hybrid, agent, core and checkpoint (gemma) and
    hybrid (rwkv6, recurrentgemma, olmoe), and ``launch.fig15``'s two tables; one
@@ -435,6 +446,12 @@ TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9
                ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16),
                ("olmoe-1b-7b", 10), ("phi-3-vision-4.2b", None))
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
+# the encoder-decoder trained at full width and depth (4 encoder layers over
+# its 1500 frames, 4 decoder layers) through ``make_train_step``:
+# ``launch.train`` feeds no frames, as the reference's launcher does not.
+# Its rows hold its decoder context of 448 tokens (WHISPER_PROMPT + NEW),
+# TRAIN_BATCH of them, with seeded frames
+WHISPER_TRAIN_SEQ = WHISPER_PROMPT + NEW
 # the FT invariant at reduced size (tests/test_trainer_integration.py's
 # schedule: 16 steps, a checkpoint every 4, a predicted failure at t = 5 and
 # an unpredicted one at t = 11) and at full width (hybrid, FT_FULL_STEPS
@@ -1049,6 +1066,7 @@ def kernel_phase(dev):
     rows += decode_rows(dev, randn)
     int8_dequantize_timing(dev, randn, rows)
     rows += whisper_rows(dev, randn)
+    rows += cross_backward_rows(dev, randn)
     rows.append(wkv6_row(randn, dev))
     rows.append(wkv6_bwd_row(randn, dev))
     rows += rglru_row(randn, dev)
@@ -1068,15 +1086,15 @@ def attention_bwd_f64(q, k, v, o, dout, lse, *, causal: bool = True, window: int
     """The plain backward's formulas (``flash_attention_bwd_ref``) in
     float64 on the card, one batch row at a time: the yardstick that tells
     the kernel's rounding from the float32 plain version's. (dq, dk, dv)
-    in float64."""
+    in float64; k / v may hold their own number of keys Sk (not causal)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     B, H, S, hd = q.shape
-    g = H // k.shape[1]
+    g, Sk = H // k.shape[1], k.shape[2]
     f64 = torch.float64
-    mask = fa._mask(S, causal, window, q.device)
+    mask = fa._mask(S, causal, window, q.device, Sk)
     out = ([], [], [])
     for b in range(B):
         qf, of, gf, lf = (t[b].to(f64) for t in (q, o, dout, lse))
@@ -1092,8 +1110,8 @@ def attention_bwd_f64(q, k, v, o, dout, lse, *, causal: bool = True, window: int
         del p, dp
         dq = torch.einsum("hqk,hkd->hqd", ds, kk) / math.sqrt(hd)
         dk = torch.einsum("hqk,hqd->hkd", ds, qf) / math.sqrt(hd)
-        for acc, t in zip(out, (dq, dk.reshape(-1, g, S, hd).sum(dim=1),
-                                dv.reshape(-1, g, S, hd).sum(dim=1))):
+        for acc, t in zip(out, (dq, dk.reshape(-1, g, Sk, hd).sum(dim=1),
+                                dv.reshape(-1, g, Sk, hd).sum(dim=1))):
             acc.append(t)
     return tuple(torch.stack(t) for t in out)
 
@@ -1571,6 +1589,123 @@ def whisper_rows(dev, randn):
                   lambda: da.flash_decode_ref(qd, kc, vc, kpos, Fr - 1),
                   lambda: F.scaled_dot_product_attention(q4, kc, vc)),
     ))
+    return rows
+
+
+def cross_backward_rows(dev, randn):
+    """flash_attention_bwd with k / v of their own length (a cross-attention,
+    not causal) and the encoder's not-causal backward, at whisper-tiny's
+    training shapes: BATCH x (WHISPER_PROMPT, its 1500 frames) queries, 6
+    heads of 64, over its 1500 frames; bf16 and float32 (3xTF32), each
+    against its plain version under BWD_TOL, the same bits on two calls,
+    dk / dv of Sk rows; the float32 cases also against the formulas in
+    float64 (``attention_bwd_f64``: the kernel's and the plain version's
+    errors beside each other), timed beside SDPA's autograd backward with
+    the same key length, the device ms split by kernel. First the ragged
+    key lengths CROSS_KEY_LENGTHS beside CROSS_QUERY_LENGTHS queries, g 1
+    and 2, head dims 64 and 96, both routes (untimed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_arch(WHISPER)
+    H, hd, Fr = cfg.n_heads, cfg.resolved_head_dim, cfg.encoder_seq
+    B, S = BATCH, WHISPER_PROMPT
+    print(f"kernel flash_attention_bwd with its own key length ({WHISPER})")
+
+    def case(label, B_, S_, Sk, H_, K_, hd_, dtype, f64=False):
+        """q, dout (B, H, S, hd) and k / v (B, K, Sk, hd), views of (B, S,
+        heads, hd) buffers as the model's projections give them; the forward
+        (its lse too) and the backward against their plain versions, two
+        calls the same bits. Returns (the backward's inputs, its outputs,
+        max |kernel - plain| over dq, dk, dv)."""
+        q = randn(B_, S_, H_, hd_, dtype=dtype).transpose(1, 2)
+        k, v = (randn(B_, Sk, K_, hd_, dtype=dtype).transpose(1, 2) for _ in range(2))
+        dout = randn(B_, S_, H_, hd_, dtype=dtype).transpose(1, 2)
+        out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+        _, lse_ref = fa.flash_attention_ref(q, k, v, causal=False, return_lse=True)
+        compare(f"flash_attention lse {label}", lse, lse_ref, LSE_TOL)
+        args = (q, k, v, out, dout, lse)
+        got = fa.flash_attention_bwd(*args, causal=False)
+        want = fa.flash_attention_bwd_ref(*args, causal=False)
+        if got[1].shape != k.shape or got[2].shape != v.shape:
+            fail(f"flash_attention_bwd {label}: dk {tuple(got[1].shape)}, dv "
+                 f"{tuple(got[2].shape)} for k / v {tuple(k.shape)}")
+        tol = BWD_TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+        errs = [compare(f"flash_attention_bwd {n} {label}", a, b, tol)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        again = fa.flash_attention_bwd(*args, causal=False)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            fail(f"flash_attention_bwd {label}: two calls on the same inputs differ")
+        if f64:  # whose rounding, the kernel's or the plain version's; held to BWD_TOL too
+            exact = attention_bwd_f64(*args, causal=False)
+            for n, a, b, e in zip(("dq", "dk", "dv"), got, want, exact):
+                print(f"  flash_attention_bwd {n} {label}: max |kernel - float64| "
+                      f"{float((a.double() - e).abs().max()):.3g}, max |plain - float64| "
+                      f"{float((b.double() - e).abs().max()):.3g}, max |float64| "
+                      f"{float(e.abs().max()):.3g}")
+                if exceeds(a.double(), e, tol):
+                    fail(f"flash_attention_bwd {n} {label}: the kernel is beyond {tol} of the "
+                         f"formulas in float64")
+            del exact
+        del want, again
+        return args, got, max(errs)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for hd_ in (hd, 96):
+            for Sk in CROSS_KEY_LENGTHS:
+                for Sq in CROSS_QUERY_LENGTHS:
+                    for K_ in (H, H // 2):
+                        case(f"{name} (2,{H},{Sq},{hd_}) over {Sk} keys, {K_} KV heads", 2, Sq,
+                             Sk, H, K_, hd_, dtype)
+    for causal, window in ((True, 0), (False, 8)):
+        q = torch.zeros((1, 2, 16, 64), device=dev, dtype=torch.bfloat16)
+        k = torch.zeros((1, 2, 24, 64), device=dev, dtype=torch.bfloat16)
+        lse = torch.zeros((1, 2, 16), device=dev)
+        try:
+            fa.flash_attention_bwd(q, k, k, q, q, lse, causal=causal, window=window)
+        except ValueError:
+            continue
+        fail(f"flash_attention_bwd: 24 keys for 16 queries with causal={causal}, "
+             f"window={window} did not raise")
+
+    rows = []
+    for dtype, rate in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32 3xTF32")):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for what, S_ in (("cross-attention", S), ("encoder self-attention", Fr)):
+            label = (f"q ({B},{H},{S_},{hd}), k/v ({B},{H},{Fr},{hd}) {name}, not causal "
+                     f"({WHISPER} {what})")
+            args, got, err = case(label, B, S_, Fr, H, H, hd, dtype,
+                                  f64=dtype == torch.float32)
+            # the function's own traffic: each input read once, each output written once
+            bnd = bound(nbytes(*args, *got), 10 * hd * S_ * Fr * B * H, rate)
+            split = [(n.replace("void (anonymous namespace)::", "")[:36], round(ms, 5))
+                     for n, ms in device_top(lambda: fa.flash_attention_bwd(*args, causal=False))]
+            print(f"  flash_attention_bwd {label}: device ms by kernel {split}")
+            scratch = 2 * 2 * B * H * Fr * hd * 4  # float32 dK/dV partials, written and read
+            print(f"  flash_attention_bwd {label}: per-head partials {scratch / 1e6:.1f} MB "
+                  f"round trip, {scratch / HBM_BYTES_PER_S * 1e3:.5f} ms at the memory rate "
+                  f"(not in the bound)")
+            q, k, v, _, dout, _ = args
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            og = F.scaled_dot_product_attention(qg, kg, vg)
+            rows.append(dict(
+                name="flash_attention_bwd", route="cuda", f32_route=dtype == torch.float32,
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:75 (its gradient: jax.grad of "
+                         "the jnp attention)",
+                shape=label, max_abs_err=err, **bnd,
+                **timings(lambda a=args: fa.flash_attention_bwd(*a, causal=False),
+                          lambda a=args: fa.flash_attention_bwd_ref(*a, causal=False),
+                          lambda og=og, ins=(qg, kg, vg), d=dout: torch.autograd.grad(
+                              og, ins, d, retain_graph=True),
+                          iters=10),
+            ))
+            del args, got, qg, kg, vg, og
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -3051,17 +3186,46 @@ def figures_phase(card: str) -> None:
                                   "launches": counts}}))
 
 
-def train_launches(kinds, steps: int) -> dict:
-    """The exact launches of ``steps`` train steps with remat of a model
-    whose layers are of the block ``kinds``: every block's forward runs
-    twice (once more in the backward), the final norm once, each backward
-    kernel once per norm, attention, rwkv or rec layer."""
+def train_launches(model, steps: int) -> dict:
+    """The exact launches of ``steps`` train steps with remat of ``model``:
+    every block's forward runs twice (once more in the backward), the final
+    norm once, each backward kernel once per norm, attention, rwkv or rec
+    layer. An ``xattn`` block (an encoder-decoder's decoder) runs two
+    attentions, its causal self-attention and its cross-attention to the
+    memory; the encoder's ``enc`` blocks run once each, not recomputed.
+    A layer-norm config launches no rmsnorm."""
+    kinds, n_enc = model.kinds, model.cfg.encoder_layers
     n, n_attn = len(kinds), sum(k in ("attn", "attn_local") for k in kinds)
+    n_attn += 2 * kinds.count("xattn")
     n_rwkv, n_rec = kinds.count("rwkv"), kinds.count("rec")
-    return {"rmsnorm": steps * (4 * n + 1), "flash_attention": steps * 2 * n_attn,
+    rms = model.cfg.norm == "rms"
+    return {"rmsnorm": steps * (4 * n + 1) * rms, "flash_attention": steps * (2 * n_attn + n_enc),
             "flash_decode": 0, "wkv6": steps * 2 * n_rwkv, "rglru": steps * 2 * n_rec,
-            "rmsnorm_bwd": steps * (2 * n + 1), "flash_attention_bwd": steps * n_attn,
+            "rmsnorm_bwd": steps * (2 * n + 1) * rms,
+            "flash_attention_bwd": steps * (n_attn + n_enc),
             "wkv6_bwd": steps * n_rwkv, "rglru_bwd": steps * n_rec}
+
+
+def train_seq(cfg) -> int:
+    """The tokens of a training row: an encoder-decoder's decoder context
+    (WHISPER_TRAIN_SEQ), else TRAIN_SEQ."""
+    return WHISPER_TRAIN_SEQ if cfg.encoder_layers else TRAIN_SEQ
+
+
+def train_batch(model, dev) -> dict:
+    """The seeded batch of the grad check, the profile and an encoder-
+    decoder's steps: TRAIN_BATCH x ``train_seq`` tokens, and a vision
+    config's image embeddings or an encoder-decoder's frames (seed 7)."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import serve
+
+    cfg = model.cfg
+    batch = token_batches(0, TRAIN_BATCH, train_seq(cfg), cfg.vocab)(0)
+    if cfg.num_img_tokens:  # a vision config: the loss's image offset
+        batch["image_embeds"] = serve.make_image_embeds(model, TRAIN_BATCH, dev, seed=7)
+    if cfg.encoder_layers:  # an encoder-decoder: its memory
+        batch["frames"] = serve.make_frames(model, TRAIN_BATCH, dev, seed=7)
+    return batch
 
 
 def train_config(arch: str, layers):
@@ -3115,7 +3279,7 @@ def full_width_train(card: str, cfg) -> dict:
                             torch.cuda.max_memory_allocated())
         del tr, losses
     counts = ops.launch_counts()
-    want = train_launches(build_model(cfg).kinds, TRAIN_STEPS)
+    want = train_launches(build_model(cfg), TRAIN_STEPS)
     print(f"train {arch} launches {counts} (want {want})")
     if counts != want:
         fail(f"train {arch}: kernel launch counts {counts} != {want}")
@@ -3134,21 +3298,101 @@ def full_width_train(card: str, cfg) -> dict:
     return counts
 
 
+def encdec_train(dev, card: str, cfg) -> dict:
+    """An encoder-decoder at full width through ``make_train_step`` (bf16
+    activations, float32 masters and AdamW): TRAIN_STEPS steps on one
+    repeated ``train_batch`` with its seeded frames. The loss must fall
+    and every kernel of the path must launch exactly as ``train_launches``
+    says (counts set to 0 just before the steps and read just after)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_train_step
+
+    arch = train_label(cfg)
+    check_free_memory(f"train {arch}")
+    model = build_model(cfg)
+    ts, init_state = make_train_step(model)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = init_state(g)
+    batch = train_batch(model, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = ts(state, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    want = train_launches(model, TRAIN_STEPS)
+    print(f"train {arch} launches {counts} (want {want})")
+    if counts != want:
+        fail(f"train {arch}: kernel launch counts {counts} != {want}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"train {arch}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {arch}: the loss on a repeated batch did not fall: {losses}")
+    seq = train_seq(cfg)
+    median = statistics.median(step_s[1:])  # the first step builds the allocator's pools
+    res = {"arch": arch, "batch": TRAIN_BATCH, "seq": seq, "frames": cfg.encoder_seq,
+           "losses": losses, "step_s": step_s, "step_s_median": median,
+           "tokens_per_s": TRAIN_BATCH * seq / median,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    print(f"train {arch} full width, batch {TRAIN_BATCH} x {seq} tokens + {cfg.encoder_seq} "
+          f"frames, bf16 activations, float32 masters + AdamW, {TRAIN_STEPS} steps through "
+          f"make_train_step on {card}: step_s median {median:.4f} (of steps 2-{TRAIN_STEPS}), "
+          f"tokens/s {res['tokens_per_s']:.1f}, peak max_memory_allocated "
+          f"{res['peak_device_bytes'] / 2**30:.2f} GiB, max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, losses {losses}")
+    print(json.dumps({"train": res, "card": card, "launches": counts}))
+    del state, batch
+    free_device_memory()
+    return counts
+
+
+def zero_grad_leaves(model) -> dict:
+    """{leaf: its sibling} of the leaves whose gradient is zero in exact
+    arithmetic: the k bias of an attention without RoPE (an encoder's, a
+    learned-position decoder's self-attention, every cross-attention).
+    Softmax ignores a shift that every key of a row shares: each row of dS
+    sums to 0, so dbk = scale · Σ_q (Σ_k dS_qk) q vanishes, and what either
+    path computes for it is rounding noise, which a relative comparison of
+    the two would read as ~1. Such a leaf is held to its sibling's (the
+    same keys' wk) gradient instead."""
+    cfg = model.cfg
+    if not cfg.qkv_bias:
+        return {}
+    no_rope = model.learned_pos or cfg.rope_theta <= 0
+    mixers = [f"encoder/{i}/attn" for i in range(cfg.encoder_layers)]
+    for i, kind in enumerate(model.kinds):
+        if kind == "xattn":
+            mixers.append(f"layers/{i}/xattn")
+        if no_rope and kind in ("attn", "attn_local", "xattn"):
+            mixers.append(f"layers/{i}/attn")
+    return {f"{m}/bk": f"{m}/wk" for m in mixers}
+
+
 def train_grad_check(dev, cfg) -> None:
     """One step's gradients at full width on the kernel path against the same
     step under ``ops.plain_versions()``, leaf by leaf: in bf16 activations
     within GRAD_TOL_BF16, or for GRAD_F32_ARCHS in float32 activations
     within GRAD_TOL_F32, with the bf16 step's readings beside it (the plain
     bf16 step against the plain float32 step, and the bf16 kernel path
-    against the bf16 plain path). A vision config's batch also holds
-    TRAIN_BATCH x num_img_tokens seeded image embeddings."""
+    against the bf16 plain path). The batch is ``train_batch``'s: a vision
+    config's holds TRAIN_BATCH x num_img_tokens seeded image embeddings, an
+    encoder-decoder's its seeded frames. A leaf whose gradient is zero in
+    exact arithmetic (``zero_grad_leaves``) is held near zero instead."""
     import dataclasses
 
     import torch
 
-    from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.train.optim import _paths
     from repro_torch.utils.tree import flatten, unflatten
@@ -3158,9 +3402,7 @@ def train_grad_check(dev, cfg) -> None:
         g = torch.Generator(device=dev)
         g.manual_seed(0)
         params = model.init(g, dev, param_dtype=torch.float32)
-        batch = token_batches(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)(0)
-        if cfg.num_img_tokens:  # a vision config: the loss's image offset, both ways
-            batch["image_embeds"] = serve.make_image_embeds(model, TRAIN_BATCH, dev, seed=7)
+        batch = train_batch(model, dev)
         leaves, treedef = flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
         with ops.plain_versions() if plain else contextlib.nullcontext():
@@ -3169,11 +3411,34 @@ def train_grad_check(dev, cfg) -> None:
         names = ["/".join(p) for p, _ in _paths(params)]
         return float(loss.detach()), grads, names
 
+    zero = zero_grad_leaves(build_model(cfg))
+
     def worst(got, want):
-        """(largest max|got - want| / max|want| over the leaves, its leaf, median)"""
+        """(largest max|got - want| / max|want| over the leaves, its leaf,
+        median), the leaves of ``zero`` left out"""
         rels = sorted((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), n)
-                      for n, a, b in zip(got[2], got[1], want[1]))
+                      for n, a, b in zip(got[2], got[1], want[1]) if n not in zero)
         return rels[-1][0], rels[-1][1], rels[len(rels) // 2][0]
+
+    def near_zero(tag: str, kernel, plain, held: bool) -> None:
+        """Each ``zero`` leaf on both paths against its sibling's gradient
+        (``zero[leaf]``) on the plain path: max |g| / max |g_sibling|."""
+        if not zero:
+            return
+        by_name = dict(zip(plain[2], plain[1]))
+        reads = []
+        for path in (kernel, plain):
+            for name, a in zip(path[2], path[1]):
+                if name in zero:
+                    ref = max(float(by_name[zero[name]].abs().max()), 1e-30)
+                    reads.append((float(a.abs().max()) / ref, name))
+        rel, leaf = max(reads)
+        print(f"train grads {arch} {tag}: {len(zero)} leaves zero in exact arithmetic, largest "
+              f"max|g| / max|g of its wk| {rel:.4g} at {leaf}, kernel and plain paths"
+              + (f" (tol {tol})" if held else ""))
+        if held and rel > tol:
+            fail(f"train grads {arch}: {leaf} reads {rel:.4g} of its sibling's gradient "
+                 f"(> {tol}) where it is zero in exact arithmetic")
 
     arch = train_label(cfg)
     check_free_memory(f"train grads {arch}")
@@ -3185,7 +3450,9 @@ def train_grad_check(dev, cfg) -> None:
             if not torch.isfinite(a).all():
                 fail(f"train grads {arch} {tag}: non-finite kernel-path gradient at {name}")
         rel, leaf, med = worst(kernel, plain)
-        print(f"train grads {arch} {tag} kernel vs plain, {len(kernel[2])} leaves: loss "
+        near_zero(tag, kernel, plain, held)
+        print(f"train grads {arch} {tag} kernel vs plain, {len(kernel[2]) - len(zero)} leaves: "
+              f"loss "
               f"{kernel[0]:.6f} vs {plain[0]:.6f}; largest max|dg| / max|g_plain| {rel:.4g} at "
               f"{leaf}, median {med:.4g}" + (f" (tol {tol})" if held else ""))
         if abs(kernel[0] - plain[0]) > LOSS_TOL_TRAIN * abs(plain[0]):
@@ -3222,17 +3489,17 @@ def profile_train(dev, card: str, cfg) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data.synthetic import token_batches
     from repro_torch.models import build_model
     from repro_torch.train.step import make_train_step
 
     arch = train_label(cfg)
     check_free_memory(f"profile train {arch}")
-    ts, init_state = make_train_step(build_model(cfg))
+    model = build_model(cfg)
+    ts, init_state = make_train_step(model)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     state = init_state(g)
-    batch = token_batches(0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)(0)
+    batch = train_batch(model, dev)
     state, _ = ts(state, batch)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3252,15 +3519,16 @@ def profile_train(dev, card: str, cfg) -> None:
               f"unprofiled {wall_s * 1e3:.3f} ms")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
-    del state
+    del state, batch
     free_device_memory()
 
 
 def train_phase(dev, card: str) -> dict:
     """The training path: for each of TRAIN_ARCHS full-width steps through
-    ``launch.train`` (their launch counts are returned, summed, with the
-    float32 attention routes' launches of the reduced FT runs and Fig 15),
-    gradients against the plain path and a profile of a step; the FT
+    ``launch.train``, and for whisper-tiny through ``make_train_step`` with
+    its frames (``encdec_train``; their launch counts are returned, summed,
+    with the float32 attention routes' launches of the reduced FT runs and
+    Fig 15), gradients against the plain path and a profile of a step; the FT
     invariant at reduced size (rwkv6 and recurrentgemma under hybrid) and
     Fig 15's tables; then the FT invariant at full width (gemma-2b)."""
     counts, spent = {}, []
@@ -3273,6 +3541,15 @@ def train_phase(dev, card: str) -> dict:
         profile_train(dev, card, cfg)
         spent.append(f"{time.perf_counter() - t0:.1f} s {train_label(cfg)} full-width steps, "
                      f"grads and profile")
+    # the encoder-decoder, through make_train_step with its frames
+    t0 = time.perf_counter()
+    cfg = train_config(WHISPER, None)
+    for name, n in encdec_train(dev, card, cfg).items():
+        counts[name] = counts.get(name, 0) + n
+    train_grad_check(dev, cfg)
+    profile_train(dev, card, cfg)
+    spent.append(f"{time.perf_counter() - t0:.1f} s {WHISPER} full-width steps, grads and "
+                 f"profile")
     t1 = time.perf_counter()
     f32 = reduced_ft(card)
     for arch in REDUCED_FT_KERNELS:

@@ -1,6 +1,9 @@
 // Backward of the blocked causal / sliding-window GQA attention of
 // flash_attention.cu: dQ, dK and dV from q, k, v, the output o, its
-// gradient dO and the forward's per-row log-sum-exp lse.
+// gradient dO and the forward's per-row log-sum-exp lse. S queries over Sk
+// keys, as in the forward: Sk != S (a cross-attention over an encoder's
+// memory) only when neither causal nor windowed. dQ has S rows, dK and dV
+// Sk; every key-side guard runs to Sk and every query-side guard to S.
 //
 // Replaces: nothing written for the TPU. The Pallas kernel
 // src/repro/kernels/flash_attention.py::flash_attention (pallas_call at
@@ -37,8 +40,8 @@
 //   16 KB float32 hand-over buffer (two named barriers), forms
 //   dSᵀ = Pᵀ ∘ (dPᵀ − D) and accumulates dK += dSᵀ·Q. So each warpgroup
 //   holds one 64 × hd float32 accumulator (128 registers a thread at hd
-//   256). Each block writes its head's float32 partials to a (2, B, H, S,
-//   hd) scratch: B·H·S/64 blocks (256 at gemma's MQA shape) instead of one
+//   256). Each block writes its head's float32 partials to a (2, B, H, Sk,
+//   hd) scratch: B·H·Sk/64 blocks (256 at gemma's MQA shape) instead of one
 //   per KV head.
 // - flash_bwd_tc_kernel<HD, true>, dQ: one block per (64 query rows, head,
 //   batch), Q and dO resident, K and V tiles streamed; warpgroup 0 computes
@@ -143,7 +146,7 @@ __global__ void __launch_bounds__(BW_THREADS)
 }
 
 // The group sum: dK and dV from each KV head's g per-head partials
-// (part[1] and part[0], (B, H, S, hd) float32) summed in head order, head 0
+// (part[1] and part[0], (B, H, Sk, hd) float32) summed in head order, head 0
 // first, then stored once in T (bf16: rounded once). One thread per 4
 // columns of one row of dK or dV.
 __device__ __forceinline__ void store4(float* out, float4 x) {
@@ -161,7 +164,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, float4 x) {
 template <typename T>
 __global__ void __launch_bounds__(256)
     flash_bwd_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
-                         int B, int H, int K, int S, int hd, BwdStrides st, long long n4) {
+                         int B, int H, int K, int Sk, int hd, BwdStrides st, long long n4) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 2 * n4) return;
   const int which = idx >= n4;  // 0: dV, 1: dK
@@ -169,14 +172,14 @@ __global__ void __launch_bounds__(256)
   const int hd4 = hd >> 2;
   const int c = (int)(e % hd4) * 4;
   e /= hd4;
-  const int s = (int)(e % S);
-  e /= S;
+  const int s = (int)(e % Sk);
+  e /= Sk;
   const int kvh = (int)(e % K);
   const int b = (int)(e / K);
   const int g = H / K;
-  const long long head_stride = (long long)S * hd;
+  const long long head_stride = (long long)Sk * hd;
   const float* src =
-      part + ((((long long)which * B + b) * H + (long long)kvh * g) * S + s) * hd + c;
+      part + ((((long long)which * B + b) * H + (long long)kvh * g) * Sk + s) * hd + c;
   float4 acc = *reinterpret_cast<const float4*>(src);
   for (int hh = 1; hh < g; ++hh) {
     const float4 x = *reinterpret_cast<const float4*>(src + hh * head_stride);
@@ -314,7 +317,8 @@ __device__ __forceinline__ void acc_tf32(float (&acc)[NG][NU][4], const float (&
   }
 }
 
-// An accumulator's rows, positions p and p + 8 (those below S), times mul
+// An accumulator's rows, positions p and p + 8 (those below S, the rows'
+// own length: queries for dQ, keys for dK / dV), times mul
 // into out (row stride rs): the thread holds columns 8·NU·G + 2·NU·tq + u
 // and + NU, 2·NU consecutive floats of each row
 template <int NU, int NG>
@@ -350,7 +354,7 @@ __device__ __forceinline__ void store_rows(float* out, long long rs, const float
 // resident; Q and dO tiles of BQ rows stream through two cp.async stages,
 // the next tile's copy in flight during this tile's products, one
 // block-wide barrier a tile. Writes h's float32 partials: part[0] = dV,
-// part[1] = dK·scale, each (B, H, S, HD).
+// part[1] = dK·scale, each (B, H, Sk, HD).
 template <int HD>
 __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
                                            const float* __restrict__ k,
@@ -359,7 +363,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ D,
                                            float* __restrict__ part, int B, int H, int K, int S,
-                                           BwdStrides st,
+                                           int Sk, BwdStrides st,
                                            int causal, int window, float scale,
                                            float scale_log2, int blk) {
   using Sh = BwdF32Shape<HD>;
@@ -374,7 +378,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
   const int p0 = blk / (B * H) * F_KEYS;  // first key
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / K);
-  const int p_last = min(p0 + F_KEYS, S) - 1;
+  const int p_last = min(p0 + F_KEYS, Sk) - 1;
   // the query tiles that can see a key of the block
   const int n_qt = (S + BQ - 1) / BQ;
   const int t_lo = causal ? p0 / BQ : 0;
@@ -382,8 +386,8 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
   const float* qh = q + b * st.qb + h * st.qh;
   const float* gh = g + b * st.gb + h * st.gh;
 
-  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sK, k + b * st.kb + kvh * st.kh, st.ks, p0, S);
-  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sV, v + b * st.vb + kvh * st.vh, st.vs, p0, S);
+  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sK, k + b * st.kb + kvh * st.kh, st.ks, p0, Sk);
+  load_rows<HD, F_KEYS, LD, F_THREADS, true>(sV, v + b * st.vb + kvh * st.vh, st.vs, p0, Sk);
   load_rows<HD, BQ, LD, F_THREADS, true>(ring, qh, st.qs, t_lo * BQ, S);
   load_rows<HD, BQ, LD, F_THREADS, true>(ring + BQ * LD, gh, st.gs, t_lo * BQ, S);
   rt::cp_async_commit();
@@ -392,11 +396,11 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
   const int gr = lane >> 2, tq = lane & 3;
   const int wg = warp >> 2, wk = warp & 3;
   const int kw0 = p0 + 16 * wk;          // this warp's first key
-  const int kw1 = min(kw0 + 15, S - 1);  // and last valid key
-  // its query tiles [a_lo, a_hi): none past S
+  const int kw1 = min(kw0 + 15, Sk - 1);  // and last valid key
+  // its query tiles [a_lo, a_hi): none when its keys start past Sk
   const int a_lo = max(t_lo, causal ? kw0 / BQ : 0);
   const int a_hi =
-      kw0 < S ? min(t_hi, window > 0 ? (kw1 + window - 1) / BQ + 1 : n_qt) : a_lo;
+      kw0 < Sk ? min(t_hi, window > 0 ? (kw1 + window - 1) / BQ + 1 : n_qt) : a_lo;
   const int sa = swz(gr);
   const int o0 = (4 * tq) ^ sa, o1 = (16 + 4 * tq) ^ sa;
   const int b0 = 2 * tq * LD + ((NU * gr) ^ swz(2 * tq));
@@ -443,7 +447,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
     float sc[NQ][4];
     score_tf32<HD, LD, NQ>(sc, a_rows, (wg == 0 ? sQ : sG) + gr * LD, o0, o1);
     if (wg == 0) {
-      const bool masked = (c0 + BQ > S) || (kw0 + 16 > S) || (causal && kw0 + 15 > c0) ||
+      const bool masked = (c0 + BQ > S) || (kw0 + 16 > Sk) || (causal && kw0 + 15 > c0) ||
                           (window > 0 && kw0 <= c0 + BQ - 1 - window);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) {
@@ -452,7 +456,7 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
           float p = exp2f(sc[j][e] * scale_log2 - cv[j][e & 1]);
           if (masked) {
             const int kp = kw0 + gr + 8 * (e >> 1), qp = c0 + 8 * j + 2 * tq + (e & 1);
-            bool ok = qp < S && kp < S;
+            bool ok = qp < S && kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             p = ok ? p : 0.f;
@@ -473,8 +477,8 @@ __device__ __forceinline__ void dkdv_block(const float* __restrict__ q,
     acc_tf32<LD, NU, NG, NQ>(acc, sc, wg == 0 ? sG : sQ, b0, b1);
   }
 
-  if (kw0 >= S) return;
-  store_rows<NU, NG>(part + (((long long)wg * B + b) * H + h) * S * HD, HD, acc, kw0 + gr, S,
+  if (kw0 >= Sk) return;
+  store_rows<NU, NG>(part + (((long long)wg * B + b) * H + h) * Sk * HD, HD, acc, kw0 + gr, Sk,
                      tq, wg == 0 ? 1.f : scale);
 }
 
@@ -494,8 +498,9 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
                                          const float* __restrict__ g,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ D, float* __restrict__ dq,
-                                         int B, int H, int K, int S, BwdStrides st, int causal,
-                                         int window, float scale, float scale_log2, int blk) {
+                                         int B, int H, int K, int S, int Sk, BwdStrides st,
+                                         int causal, int window, float scale, float scale_log2,
+                                         int blk) {
   using Sh = BwdF32Shape<HD>;
   constexpr int LD = Sh::LD, NU = Sh::NU, NG = Sh::NG;
   extern __shared__ __align__(16) float smem[];
@@ -510,7 +515,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / K);
   // the key tiles that a row of the block can see
-  const int n_kt = (S + F_BK - 1) / F_BK;
+  const int n_kt = (Sk + F_BK - 1) / F_BK;
   const int q_last = min(q0 + F_ROWS, S) - 1;
   const int kt_hi = causal ? min(n_kt, q_last / F_BK + 1) : n_kt;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / F_BK : 0;
@@ -519,9 +524,9 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
 
   load_rows<HD, F_ROWS, LD, F_THREADS, true>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
   load_rows<HD, F_ROWS, LD, F_THREADS, true>(sG, g + b * st.gb + h * st.gh, st.gs, q0, S);
-  load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, kt_lo * F_BK, S);
+  load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, kt_lo * F_BK, Sk);
   rt::cp_async_commit();
-  load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, kt_lo * F_BK, S);
+  load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, kt_lo * F_BK, Sk);
   rt::cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -552,7 +557,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const bool more = kt + 1 < kt_hi;
     const int kw0 = kt * F_BK + 16 * half;  // this warp's first key
-    const bool active = live && kw0 < S && (!causal || kw0 <= qw1) &&
+    const bool active = live && kw0 < Sk && (!causal || kw0 <= qw1) &&
                         (window <= 0 || kw0 + 15 > qw0 - window);
     rt::cp_async_wait<1>();  // Q, dO and this tile's V have landed; its K may be in flight
     __syncthreads();
@@ -561,7 +566,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
     if (active) score_tf32<HD, LD, 2>(dp, aG, vh + gr * LD, o0, o1);
     __syncthreads();  // every warp is done with this tile's V
     if (more) {
-      load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LD, F_THREADS, true>(sV, vbase, st.vs, (kt + 1) * F_BK, Sk);
       rt::cp_async_commit();
       rt::cp_async_wait<1>();  // this tile's K has landed; the next V may not
     } else {
@@ -577,7 +582,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
       const float l1 = qpos1 < S ? lse[row0 + qpos1] * LOG2E : 0.f;
       const float d0 = qpos0 < S ? D[row0 + qpos0] : 0.f;
       const float d1 = qpos1 < S ? D[row0 + qpos1] : 0.f;
-      const bool masked = (kw0 + 16 > S) || (qw0 + 16 > S) || (causal && kw0 + 15 > qw0) ||
+      const bool masked = (kw0 + 16 > Sk) || (qw0 + 16 > S) || (causal && kw0 + 15 > qw0) ||
                           (window > 0 && kw0 <= qw1 - window);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -587,7 +592,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
           float p = exp2f(sc[j][e] * scale_log2 - (r1 ? l1 : l0));
           if (masked) {
             const int kp = kw0 + 8 * j + 2 * tq + (e & 1), qp = r1 ? qpos1 : qpos0;
-            bool ok = qp < S && kp < S;
+            bool ok = qp < S && kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             p = ok ? p : 0.f;
@@ -599,7 +604,7 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
     }
     __syncthreads();  // every warp is done with this tile's K
     if (more) {
-      load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, (kt + 1) * F_BK, S);
+      load_rows<HD, F_BK, LD, F_THREADS, true>(sK, kbase, st.ks, (kt + 1) * F_BK, Sk);
       rt::cp_async_commit();
     }
   }
@@ -626,30 +631,38 @@ __device__ __forceinline__ void dq_block(const float* __restrict__ q,
   store_rows<NU, NG>(dq + b * st.dqb + h * st.dqh, st.dqs, acc, qpos0, S, tq, scale);
 }
 
-// dQ, dK and dV in one launch of 2·ceil(S/64)·B·H blocks: even blocks are
-// dK/dV blocks, odd blocks dQ blocks, each list heaviest first, so that
-// the two kinds share the card (at small shapes neither fills it alone).
+// dQ, dK and dV in one launch of n_kv + n_q blocks, n_kv = ceil(Sk/64)·B·H
+// dK/dV blocks and n_q = ceil(S/64)·B·H dQ blocks: while both kinds last,
+// even blocks are dK/dV blocks and odd blocks dQ blocks, then the rest of
+// the longer list; each list heaviest first, so that the two kinds share
+// the card (at small shapes neither fills it alone).
 template <int HD>
 __global__ void __launch_bounds__(F_THREADS, 1)
     flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ D,
                          float* __restrict__ part, float* __restrict__ dq, int B, int H, int K,
-                         int S, BwdStrides st,
+                         int S, int Sk, BwdStrides st,
                          int causal, int window, float scale, float scale_log2) {
-  const int blk = (int)(blockIdx.x >> 1);
-  if (blockIdx.x & 1)
-    dq_block<HD>(q, k, v, g, lse, D, dq, B, H, K, S, st, causal, window, scale, scale_log2, blk);
+  const int n_kv = (Sk + F_KEYS - 1) / F_KEYS * B * H;
+  const int n_q = (S + F_ROWS - 1) / F_ROWS * B * H;
+  const int both = min(n_kv, n_q);
+  const int x = (int)blockIdx.x;
+  const bool is_dq = x < 2 * both ? (x & 1) : n_q > n_kv;
+  const int blk = x < 2 * both ? x >> 1 : x - both;
+  if (is_dq)
+    dq_block<HD>(q, k, v, g, lse, D, dq, B, H, K, S, Sk, st, causal, window, scale, scale_log2,
+                 blk);
   else
-    dkdv_block<HD>(q, k, v, g, lse, D, part, B, H, K, S, st, causal, window, scale, scale_log2,
-                   blk);
+    dkdv_block<HD>(q, k, v, g, lse, D, part, B, H, K, S, Sk, st, causal, window, scale,
+                   scale_log2, blk);
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* g,
                const float* lse, float* D, float* part, void* dq, void* dk, void* dv, int B,
-               int H, int K, int S, const BwdStrides& st, int causal, int window, float scale,
-               cudaStream_t stream) {
+               int H, int K, int S, int Sk, const BwdStrides& st, int causal, int window,
+               float scale, cudaStream_t stream) {
   // the 16-byte copies of q, k, v, dO and stores of dq, dk, dv: 16-byte
   // aligned bases, every batch, head and seq stride a multiple of 4 floats
   // (the wrapper copies an input that breaks the rule)
@@ -668,9 +681,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)B * H * S;
   const long long dot_blocks = (rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32);
-  static_assert(F_KEYS == F_ROWS, "as many dK/dV blocks as dQ blocks");
-  const long long blocks = 2LL * ((S + F_KEYS - 1) / F_KEYS) * B * H;
-  const long long n4 = (long long)B * K * S * (HD / 4);
+  const long long blocks =
+      ((long long)((Sk + F_KEYS - 1) / F_KEYS) + (S + F_ROWS - 1) / F_ROWS) * B * H;
+  const long long n4 = (long long)B * K * Sk * (HD / 4);
   const long long sum_blocks = (2 * n4 + 255) / 256;
   if (dot_blocks > 2147483647LL || blocks > 2147483647LL || sum_blocks > 2147483647LL)
     return (int)cudaErrorInvalidValue;
@@ -683,12 +696,12 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_f32_kernel<HD><<<(unsigned)blocks, F_THREADS, Sh::SMEM, stream>>>(
-      qt, kt, vt, gt, lse, D, part, static_cast<float*>(dq), B, H, K, S, st, causal, window,
+      qt, kt, vt, gt, lse, D, part, static_cast<float*>(dq), B, H, K, S, Sk, st, causal, window,
       scale, scale * LOG2E);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_sum_kernel<float><<<(unsigned)sum_blocks, 256, 0, stream>>>(
-      part, static_cast<float*>(dk), static_cast<float*>(dv), B, H, K, S, HD, st, n4);
+      part, static_cast<float*>(dk), static_cast<float*>(dv), B, H, K, Sk, HD, st, n4);
   return (int)cudaGetLastError();
 }
 
@@ -761,7 +774,7 @@ __device__ __forceinline__ void rs_products(float (&acc)[NDB][32], const uint32_
 // DQ false, dK/dV: one block per (64 keys, query head h, batch); resident
 // tiles r0 = K, r1 = V of h's KV head; streamed tiles s0 = Q, s1 = dO of h.
 // Writes h's float32 partials: part[0] = dV, part[1] = dK·scale, each
-// (B, H, S, HD).
+// (B, H, Sk, HD).
 // DQ true, dQ: one block per (64 query rows, head, batch); resident
 // r0 = Q, r1 = dO; streamed s0 = K, s1 = V. Writes dQ·scale in bf16.
 // Warpgroup w multiplies resident tile w by streamed tile w (Sᵀ or S for
@@ -775,8 +788,8 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
                         const __grid_constant__ CUtensorMap tm_s1, const float* __restrict__ lse,
                         const float* __restrict__ D, float* __restrict__ part,
                         __nv_bfloat16* __restrict__ dq, long long dqb, long long dqh,
-                        long long dqs, int B, int H, int K, int S, int causal, int window,
-                        float scale, float scale_log2) {
+                        long long dqs, int B, int H, int K, int S, int Sk, int causal,
+                        int window, float scale, float scale_log2) {
   using Sh = BwdShape<HD>;
   constexpr int NDB = Sh::NDB;
   extern __shared__ uint8_t smem_raw[];
@@ -789,21 +802,24 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
   const uint32_t bar_full = bar_res + 8;        // [2]: stage s arrived
   const uint32_t bar_empty = bar_res + 24;      // [2]: stage s read by both warpgroups
 
-  // dQ: heaviest causal query tiles (the last) first; dK/dV: the first key tiles
-  const int n_t = (S + TB_ROWS - 1) / TB_ROWS;
+  // dQ: heaviest causal query tiles (the last) first; dK/dV: the first key
+  // tiles. The resident rows are queries (dQ, S of them) or keys (dK/dV,
+  // Sk), the streamed rows the other kind.
+  const int S_res = DQ ? S : Sk, S_str = DQ ? Sk : S;
+  const int n_res = (S_res + TB_ROWS - 1) / TB_ROWS, n_str = (S_str + TB_ROWS - 1) / TB_ROWS;
   const int bh = blockIdx.x % (B * H);
-  const int own = DQ ? n_t - 1 - (int)(blockIdx.x / (B * H)) : (int)(blockIdx.x / (B * H));
+  const int own = DQ ? n_res - 1 - (int)(blockIdx.x / (B * H)) : (int)(blockIdx.x / (B * H));
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / K);
   const int p0 = own * TB_ROWS;  // first resident position
-  const int p_last = min(p0 + TB_ROWS, S) - 1;
+  const int p_last = min(p0 + TB_ROWS, S_res) - 1;
   int t_lo, t_hi;  // the streamed tiles that hold a visible pair
   if (DQ) {
-    t_hi = causal ? min(n_t, p_last / TB_ROWS + 1) : n_t;
+    t_hi = causal ? min(n_str, p_last / TB_ROWS + 1) : n_str;
     t_lo = window > 0 ? max(0, p0 - window + 1) / TB_ROWS : 0;
   } else {
     t_lo = causal ? own : 0;
-    t_hi = window > 0 ? min(n_t, (p_last + window - 1) / TB_ROWS + 1) : n_t;
+    t_hi = window > 0 ? min(n_str, (p_last + window - 1) / TB_ROWS + 1) : n_str;
   }
   const int n = t_hi - t_lo;
   const int res_head = DQ ? h : kvh, st_head = DQ ? kvh : h;
@@ -908,7 +924,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
 
     // sc[4j + e]: resident row r0 + 8·(e >> 1), streamed column 8j + cq + (e & 1)
     const int qa = DQ ? p0 : c0, ka = DQ ? c0 : p0;  // first query and key of the pair
-    const bool masked = (qa + TB_ROWS > S) || (ka + TB_ROWS > S) ||
+    const bool masked = (qa + TB_ROWS > S) || (ka + TB_ROWS > Sk) ||
                         (causal && ka + TB_ROWS - 1 > qa) ||
                         (window > 0 && ka <= qa + TB_ROWS - 1 - window);
     uint32_t hi[4][4], lo[4][4];
@@ -923,7 +939,7 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
           if (masked) {
             const int rp = e < 2 ? rp0 : rp1, cp = c0 + 8 * j + cq + (e & 1);
             const int qp = DQ ? rp : cp, kp = DQ ? cp : rp;
-            bool ok = qp < S && kp < S;
+            bool ok = qp < S && kp < Sk;
             if (causal) ok = ok && kp <= qp;
             if (window > 0) ok = ok && kp > qp - window;
             p = ok ? p : 0.f;
@@ -977,17 +993,17 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
     }
   } else {
     const float mul = wg == 0 ? 1.f : scale;
-    float* out = part + (((long long)wg * B + b) * H + h) * S * HD;
+    float* out = part + (((long long)wg * B + b) * H + h) * Sk * HD;
 #pragma unroll
     for (int nb = 0; nb < NDB; ++nb) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = nb * 64 + 8 * j + cq;
         if (col >= HD) continue;
-        if (rp0 < S)
+        if (rp0 < Sk)
           *reinterpret_cast<float2*>(out + (long long)rp0 * HD + col) =
               make_float2(acc[nb][4 * j] * mul, acc[nb][4 * j + 1] * mul);
-        if (rp1 < S)
+        if (rp1 < Sk)
           *reinterpret_cast<float2*>(out + (long long)rp1 * HD + col) =
               make_float2(acc[nb][4 * j + 2] * mul, acc[nb][4 * j + 3] * mul);
       }
@@ -998,8 +1014,8 @@ __global__ void __launch_bounds__(TB_THREADS, 1)
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* g,
               const float* lse, float* D, float* part, void* dq, void* dk, void* dv, int B,
-              int H, int K, int S, const BwdStrides& st, int causal, int window, float scale,
-              cudaStream_t stream) {
+              int H, int K, int S, int Sk, const BwdStrides& st, int causal, int window,
+              float scale, cudaStream_t stream) {
   constexpr int smem = BwdShape<HD>::SMEM;
   static int dkdv_set[rt::kMaxDevices], dq_set[rt::kMaxDevices];
   cudaError_t e = rt::max_dynamic_smem(
@@ -1011,15 +1027,18 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
   if (part == nullptr) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * H * S;
   const long long dot_blocks = (rows + BW_THREADS / 32 - 1) / (BW_THREADS / 32);
-  const long long blocks = (long long)((S + TB_ROWS - 1) / TB_ROWS) * B * H;
-  const long long n4 = (long long)B * K * S * (HD / 4);
+  // dK/dV: a block per 64 keys; dQ: a block per 64 query rows
+  const long long kv_blocks = (long long)((Sk + TB_ROWS - 1) / TB_ROWS) * B * H;
+  const long long q_blocks = (long long)((S + TB_ROWS - 1) / TB_ROWS) * B * H;
+  const long long n4 = (long long)B * K * Sk * (HD / 4);
   const long long sum_blocks = (2 * n4 + 255) / 256;
-  if (dot_blocks > 2147483647LL || blocks > 2147483647LL || sum_blocks > 2147483647LL)
+  if (dot_blocks > 2147483647LL || kv_blocks > 2147483647LL || q_blocks > 2147483647LL ||
+      sum_blocks > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tg;
   if (!encode_map(&tq, q, HD, S, H, B, st.qb, st.qh, st.qs, TB_ROWS) ||
-      !encode_map(&tk, k, HD, S, K, B, st.kb, st.kh, st.ks, TB_ROWS) ||
-      !encode_map(&tv, v, HD, S, K, B, st.vb, st.vh, st.vs, TB_ROWS) ||
+      !encode_map(&tk, k, HD, Sk, K, B, st.kb, st.kh, st.ks, TB_ROWS) ||
+      !encode_map(&tv, v, HD, Sk, K, B, st.vb, st.vh, st.vs, TB_ROWS) ||
       !encode_map(&tg, g, HD, S, H, B, st.gb, st.gh, st.gs, TB_ROWS))
     return (int)cudaErrorInvalidValue;
   flash_bwd_dot_kernel<__nv_bfloat16><<<(unsigned)dot_blocks, BW_THREADS, 0, stream>>>(
@@ -1028,25 +1047,25 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o, const 
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = scale * LOG2E;
-  flash_bwd_tc_kernel<HD, false><<<(unsigned)blocks, TB_THREADS, smem, stream>>>(
-      tk, tv, tq, tg, lse, D, part, nullptr, 0, 0, 0, B, H, K, S, causal, window, scale,
+  flash_bwd_tc_kernel<HD, false><<<(unsigned)kv_blocks, TB_THREADS, smem, stream>>>(
+      tk, tv, tq, tg, lse, D, part, nullptr, 0, 0, 0, B, H, K, S, Sk, causal, window, scale,
       scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_tc_kernel<HD, true><<<(unsigned)blocks, TB_THREADS, smem, stream>>>(
+  flash_bwd_tc_kernel<HD, true><<<(unsigned)q_blocks, TB_THREADS, smem, stream>>>(
       tq, tg, tk, tv, lse, D, nullptr, static_cast<__nv_bfloat16*>(dq), st.dqb, st.dqh, st.dqs,
-      B, H, K, S, causal, window, scale, scale_log2);
+      B, H, K, S, Sk, causal, window, scale, scale_log2);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_sum_kernel<__nv_bfloat16><<<(unsigned)sum_blocks, 256, 0, stream>>>(
-      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, H, K, S, HD, st,
-      n4);
+      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, H, K, Sk, HD,
+      st, n4);
   return (int)cudaGetLastError();
 }
 
 using LaunchFn = int (*)(const void*, const void*, const void*, const void*, const void*,
                          const float*, float*, float*, void*, void*, void*, int, int, int, int,
-                         const BwdStrides&, int, int, float, cudaStream_t);
+                         int, const BwdStrides&, int, int, float, cudaStream_t);
 
 LaunchFn pick(int dtype, int hd) {
   const bool bf = dtype == rt::kBF16;
@@ -1067,15 +1086,20 @@ LaunchFn pick(int dtype, int hd) {
 // strides: 24 element strides, (batch, head, seq) for q, k, v, o, dO, dq,
 // dk and dv in that order; the head_dim axis of every tensor has stride 1.
 // lse: (B, H, S) float32 from the forward; D: (B, H, S) float32 scratch;
-// part: (2, B, H, S, hd) float32 scratch for the per-head dV and dK
+// part: (2, B, H, Sk, hd) float32 scratch for the per-head dV and dK
 // partials.
+//
+// Sk: the keys' length (k, v, dk and dv are (B, K, Sk, hd)); Sk != S only
+// with causal = 0 and window = 0, as in the forward.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout, const void* lse, void* D,
                                       void* part, void* dq, void* dk, void* dv, int B, int H,
-                                      int K, int S, int hd, const long long* strides, int causal,
-                                      int window, float scale, int dtype, void* stream) {
-  if (B <= 0 || K <= 0 || H % K != 0 || S <= 0 || B > 65535 || H > 65535)
+                                      int K, int S, int Sk, int hd, const long long* strides,
+                                      int causal, int window, float scale, int dtype,
+                                      void* stream) {
+  if (B <= 0 || K <= 0 || H % K != 0 || S <= 0 || Sk <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  if (Sk != S && (causal || window)) return (int)cudaErrorInvalidValue;
   const LaunchFn fn = pick(dtype, hd);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const long long* t = strides;
@@ -1083,6 +1107,6 @@ extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* 
                 t[8],  t[9],  t[10], t[11], t[12], t[13], t[14], t[15],
                 t[16], t[17], t[18], t[19], t[20], t[21], t[22], t[23]};
   return fn(q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(D),
-            static_cast<float*>(part), dq, dk, dv, B, H, K, S, st, causal, window, scale,
+            static_cast<float*>(part), dq, dk, dv, B, H, K, S, Sk, st, causal, window, scale,
             static_cast<cudaStream_t>(stream));
 }

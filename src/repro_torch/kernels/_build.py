@@ -42,7 +42,7 @@ SIGNATURES = {
     "rt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES, _I, _I, _F,
                            _I, _P],
     "rt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _STRIDES, _I, _I, _F, _I, _P],
+                               _I, _I, _STRIDES, _I, _I, _F, _I, _P],
     "rt_flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _STRIDES,
                         _I, _I, _F, _I, _P],
     "rt_wkv6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _I, _P],

@@ -61,11 +61,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
 
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
     B, H, S, hd = q.shape
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    counter.kernel("flash_attention_bwd", 10 * hd * visible_pairs(S, causal, window) * B * H,
+    dk = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    counter.kernel("flash_attention_bwd", 10 * hd * visible_pairs(S, causal, window, Sk) * B * H,
                    _bytes(q, k, v, o, dout, lse, dq, dk, dv))
     return dq, dk, dv
 

@@ -5,7 +5,7 @@ versions.
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas kernel); the plain version is ``repro/kernels/ref.py::attention_ref``
 in torch. Causal / sliding-window GQA attention over positions 0..S-1,
-forward only, with a float32 running max, sum and accumulator; not causal
+with a float32 running max, sum and accumulator; not causal
 (an encoder's self-attention), k and v may hold their own number of keys
 Sk (a cross-attention over an encoder's memory; the Pallas kernel takes
 one S, so that shape is held against the reference's ``_sdpa``). Both types
@@ -19,12 +19,13 @@ forward also writes each row's log-sum-exp (``lse``, float32
 ``(B, H, S)``), the backward's input.
 
 The backward (``flash_attention_bwd``) has no Pallas counterpart: the
-reference trains by ``jax.grad`` of its jnp attention. It gives dQ, dK and
-dV, bit-identical from run to run (no atomics; every sum in a fixed
-order). Both types run on the tensor cores, a dK/dV kernel per (64 keys,
-query head, batch) and a dQ kernel per (64 query rows, head, batch), with
-float32 per-head dK/dV partials in a scratch buffer that a second pass sums
-over each group in head order. bfloat16 runs on wgmma, P and dS entering
+reference trains by ``jax.grad`` of its jnp attention. It gives dQ (S
+rows), dK and dV (Sk rows: a cross-attention's too), bit-identical from
+run to run (no atomics; every sum in a fixed order). Both types run on the
+tensor cores, a dK/dV kernel per (64 keys, query head, batch) and a dQ
+kernel per (64 query rows, head, batch), with float32 per-head dK/dV
+partials in a scratch buffer that a second pass sums over each group in
+head order. bfloat16 runs on wgmma, P and dS entering
 the products as a bf16 high and low part; float32 on mma.sync as 3×TF32,
 like the forward. ``ops.flash_attention`` binds it to the forward in an
 autograd Function.
@@ -66,17 +67,6 @@ def _check(q, k, v, causal: bool = True, window: int = 0):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k and v must share a dtype")
     return B, H, K, S, Sk, hd
-
-
-def _check_bwd(q, k, v, causal: bool, window: int):
-    """``_check``, and Sk == S: the backward of a cross-attention is not
-    ported yet."""
-    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
-    if Sk != S:
-        raise NotImplementedError(f"flash_attention_bwd: {Sk} keys for {S} queries: the "
-                                  f"backward of a cross-attention is not ported yet "
-                                  f"(ROADMAP.md Queue 1, item 9.7b-train)")
-    return B, H, K, S, hd
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -133,10 +123,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
 
 
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
-    """CUDA kernel. q, o, dout: (B, H, S, hd); k/v: (B, K, S, hd), one dtype;
-    lse: (B, H, S) float32 from the forward. Returns (dq, dk, dv) in the
-    inputs' dtype, each a view of a (B, S, heads, hd) buffer (the layout of
-    the model's projections). The kernels read q, k, v and dout with 16-byte
+    """CUDA kernel. q, o, dout: (B, H, S, hd); k/v: (B, K, Sk, hd), one
+    dtype, Sk = S unless not causal and not windowed (``_check``); lse: (B,
+    H, S) float32 from the forward. Returns (dq, dk, dv) in the inputs'
+    dtype, dq (B, H, S, hd) and dk / dv (B, K, Sk, hd), each a view of a
+    (B, rows, heads, hd) buffer (the layout of the model's projections).
+    The kernels read q, k, v and dout with 16-byte
     copies (bfloat16: TMA tensor maps; float32: cp.async): any of the four
     that they cannot read in place (:func:`tma_ready`; autograd's dout is
     often a strided view) is copied first, and the route does not change.
@@ -144,7 +136,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     global bwd_launches, f32_bwd_launches
     if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
         raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
-    B, H, K, S, hd = _check_bwd(q, k, v, causal, window)
+    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
     if o.shape != q.shape or dout.shape != q.shape or not (o.dtype == dout.dtype == q.dtype):
         raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and dout "
                          f"{dout.dtype} {tuple(dout.shape)} must be q's {q.dtype} "
@@ -154,11 +146,11 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     q, k, v, o, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, dout))
     q, k, v, dout = (tma_copy(t) for t in (q, k, v, dout))
     # the per-head float32 dV and dK partials that the second pass sums
-    part = torch.empty((2, B, H, S, hd), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, H, Sk, hd), dtype=torch.float32, device=q.device)
     lse = lse.contiguous()
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((B, S, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Sk, K, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = _build.strides_arg(*(s for t in (q, k, v, o, dout, dq, dk, dv)
                                    for s in t.stride()[:3]))
@@ -166,7 +158,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), D.data_ptr(), part.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, K, S, hd, strides, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
+        B, H, K, S, Sk, hd, strides, int(bool(causal)), int(window), 1.0 / math.sqrt(hd),
         _build.dtype_code(q), _build.stream_arg(q.device),
     )
     _build.check(err, "flash_attention_bwd")
@@ -210,9 +202,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, window: int = 0):
     """Plain version of the backward: the kernel's formulas on full score
     matrices in float32 (P = exp(s - lse) on the visible pairs, D =
-    rowsum(dO * O), dS = P * (dO·Vᵀ - D)), dK and dV summed over each
-    group's query heads."""
-    B, H, K, S, hd = _check_bwd(q, k, v, causal, window)
+    rowsum(dO * O), dS = P * (dO·Vᵀ - D)), dK and dV (Sk rows) summed
+    over each group's query heads."""
+    B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
     g = H // K
     scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
@@ -220,7 +212,7 @@ def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, windo
     kk = torch.repeat_interleave(k, g, dim=1).to(f32)
     vv = torch.repeat_interleave(v, g, dim=1).to(f32)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
-    mask = _mask(S, causal, window, q.device)
+    mask = _mask(S, causal, window, q.device, Sk)
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros((), dtype=f32,
                                                                    device=q.device))
     dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
@@ -228,6 +220,6 @@ def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True, windo
     ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    dk = dk.reshape(B, K, g, S, hd).sum(dim=2)
-    dv = dv.reshape(B, K, g, S, hd).sum(dim=2)
+    dk = dk.reshape(B, K, g, Sk, hd).sum(dim=2)
+    dv = dv.reshape(B, K, g, Sk, hd).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -163,17 +163,12 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return _FWD["rmsnorm"][impl](x, scale, eps)
 
 
-NO_CROSS_BACKWARD = ("the backward of a cross-attention (keys of another length than the "
-                     "queries) is not ported yet (ROADMAP.md Queue 1, item 9.7b-train)")
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, H, S, hd); k / v: (B, K, Sk, hd), Sk != S only when not
-    causal and not windowed (a cross-attention, forward only)."""
+    causal and not windowed (a cross-attention; its backward gives dK and
+    dV of Sk rows)."""
     impl = _impl(q)
     if _needs_grad(q, k, v):
-        if k.shape[-2] != q.shape[-2]:
-            raise NotImplementedError(f"flash_attention: {NO_CROSS_BACKWARD}")
         return _FlashAttention.apply(q, k, v, causal, window, impl)
     return _FWD["flash_attention"][impl](q, k, v, causal=causal, window=window)
 

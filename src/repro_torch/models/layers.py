@@ -205,7 +205,9 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
                       window: int = 0, rules=None, causal: bool = True, rope: bool = True):
     """Causal self-attention over a prompt whose positions are 0..S-1, each
     query seeing the last ``window`` positions when ``window`` > 0; with
-    ``causal=False`` every query sees every position (an encoder's).
+    ``causal=False`` every query sees every position (an encoder's). The
+    training loss takes y alone: under autograd the attention runs the
+    flash kernels' forward and backward (``ops.flash_attention``).
 
     Returns (y, k, v); k (roped unless ``rope=False``) and v are (B, S, n,
     hd), the numbers the reference's ``_kv_from_prefill`` recomputes for
@@ -243,20 +245,6 @@ def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor, cfg, rules
     else:
         out = ops.flash_attention(q.transpose(1, 2), k, v, causal=False).transpose(1, 2)
     return _out_proj(p, out, s)
-
-
-def attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tensor,
-                    window: int = 0, rules=None) -> torch.Tensor:
-    """``attention_prefill`` for the training loss: the output only, no
-    cache. Under autograd the attention runs the flash kernels' forward and
-    backward (``ops.flash_attention``)."""
-    s, sel, x, p = _split(p, x, cfg, rules)
-    q, k, v = _qkv(p, x, cfg, positions)
-    out = ops.flash_attention(
-        q.transpose(1, 2), _select(k, sel, 2).transpose(1, 2),
-        _select(v, sel, 2).transpose(1, 2), causal=True, window=window
-    )
-    return _out_proj(p, out.transpose(1, 2), s)
 
 
 def attention_decode(p: Params, x: torch.Tensor, cfg, cache: Params, pos: int,

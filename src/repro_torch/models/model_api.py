@@ -27,8 +27,6 @@ v and float16 "k_scale" / "v_scale" (B, W, n), the reference's layout.
 
 With ``cfg.moe`` an attention block's FFN is the mixture of experts of
 :mod:`repro_torch.models.moe`, whose load-balance term ``loss`` adds.
-``loss`` trains every kind but the encoder-decoder's (ROADMAP.md Queue 1,
-item 9.7b-train).
 
 An encoder-decoder config (``cfg.encoder_layers``; whisper) adds
 ``"pos_embed"`` (32768 learned positions, added to the tokens; no RoPE
@@ -38,7 +36,10 @@ prefill takes ``frames`` (B, encoder_seq, d), the stub of precomputed
 frame embeddings, encodes them and keeps the memory as the cache's last
 entry, ``{"memory": (B, encoder_seq, d)}``: the reference's
 ``caches["memory"]``. Each decode step projects the memory's k / v again,
-as the reference does.
+as the reference does. ``loss`` takes the frames in its batch and encodes
+them the same way (the encoder blocks are not recomputed in the backward,
+as the reference's ``_encode`` is not); its cross-attention's backward
+gives the memory's gradient, through which the encoder trains.
 
 A vision config (``cfg.num_img_tokens``; phi-3-vision) takes
 ``image_embeds`` (B, num_img_tokens, d), the stub of precomputed patch
@@ -86,9 +87,6 @@ from repro_torch.sharding import tp
 from repro_torch.sharding.rules import MeshRules, constrain, entry_axes, map_specs
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
-_ENC_DEC_TRAIN = ("the encoder-decoder's training (its loss, and flash_attention_bwd with the "
-                  "cross-attention's own key length) is not ported yet (ROADMAP.md Queue 1, "
-                  "item 9.7b-train)")
 _PATTERN_KINDS = ("rec", "attn")
 #: the cross-entropy's chunk of positions (the reference's ``_chunked_ce``)
 CE_CHUNK = 512
@@ -409,11 +407,16 @@ class ModelDef:
                                       decode=True)
         return self._ffn_half(lp, x, rules)[0]
 
-    def _encode(self, params, frames: torch.Tensor, rules=None) -> torch.Tensor:
+    def _encode(self, params, frames, rules=None) -> torch.Tensor:
         """The encoder's memory (B, encoder_seq, d): the frames plus
-        ``enc_pos``, the ``enc`` blocks, then ``enc_ln``."""
-        dt = activation_dtype(self.cfg)
-        frames = frames.to(dt)
+        ``enc_pos``, the ``enc`` blocks, then ``enc_ln``. Missing frames
+        raise ValueError."""
+        cfg = self.cfg
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the prefill and the loss of an encoder-decoder take "
+                             f"frames (B, {cfg.encoder_seq}, {cfg.d_model})")
+        dt = activation_dtype(cfg)
+        frames = torch.as_tensor(frames).to(device=params["enc_pos"].device, dtype=dt)
         B, S, _ = frames.shape
         x = frames + params["enc_pos"][None, :S].to(dt)
         positions = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
@@ -453,12 +456,7 @@ class ModelDef:
         _check_rules(rules)
         B, S = tokens.shape
         S += self.image_tokens(image_embeds)
-        memory = None
-        if self.cfg.encoder_layers:
-            if frames is None:
-                raise ValueError(f"{self.cfg.name}: the prefill of an encoder-decoder takes "
-                                 f"frames (B, {self.cfg.encoder_seq}, {self.cfg.d_model})")
-            memory = self._encode(params, frames, rules)
+        memory = self._encode(params, frames, rules) if self.cfg.encoder_layers else None
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         x = constrain(self._inputs(params, tokens, 0, rules, image_embeds), rules,
                       ("batch", "seq", None))
@@ -487,8 +485,9 @@ class ModelDef:
         return self._logits(params, x[:, 0], rules), caches
 
     # -- training -------------------------------------------------------------
-    def _block_train(self, kind: str, lp, x, positions, rules=None):
-        """(the block's output, its MoE aux term or None)."""
+    def _block_train(self, kind: str, lp, x, positions, rules=None, memory=None):
+        """(the block's output, its MoE aux term or None); an ``xattn``
+        block also attends to the encoder's ``memory``."""
         x = constrain(x, rules, ("batch", "seq", None))
         h = self._ln(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
@@ -500,8 +499,11 @@ class ModelDef:
         if kind == "rec":
             return self._ffn_half(lp, x + G.rglru_block_apply(lp["rec"], h, cfg, rules=rules)[0],
                                   rules)
-        a = L.attention_train(lp["attn"], h, cfg, positions, _window(cfg, kind), rules)
-        return self._ffn_half(lp, x + a, rules)
+        x = x + L.attention_prefill(lp["attn"], h, cfg, positions, _window(cfg, kind), rules,
+                                    rope=not self.learned_pos)[0]
+        if kind == "xattn":
+            x = x + L.cross_attention(lp["xattn"], self._ln(lp["lnx"], x), memory, cfg, rules)
+        return self._ffn_half(lp, x, rules)
 
     def loss(self, params, batch, rules: Optional[MeshRules] = None) -> torch.Tensor:
         """Mean next-token cross-entropy over ``batch["tokens"]`` (B, S) (an
@@ -514,9 +516,13 @@ class ModelDef:
         order, as the reference does (its sum starts at 0.0, so this is the
         same float32 sum). A vision config's ``batch["image_embeds"]`` (B,
         num_img_tokens, d) are prepended, as in ``prefill``, and position
-        num_img_tokens + t predicts token t + 1. Attention, wkv6, the RG-LRU
-        scan and the norms run the CUDA kernels, forward and backward, on
-        the card.
+        num_img_tokens + t predicts token t + 1. An encoder-decoder's
+        ``batch["frames"]`` (B, encoder_seq, d) are encoded as in
+        ``prefill`` (a batch without them raises ValueError), its tokens
+        get the learned positions 0..S-1, and each decoder block runs its
+        causal self-attention, the cross-attention to the memory and the
+        FFN. Attention, wkv6, the RG-LRU scan and the norms run the CUDA
+        kernels, forward and backward, on the card.
 
         With rules ``batch`` is this rank's data shard, and the returned loss
         is the global batch's on every rank: the cross-entropy's sum and its
@@ -524,8 +530,8 @@ class ModelDef:
         identity, so each rank's backward gives its shard's part of every
         gradient; ``train.step`` sums the parts)."""
         _check_rules(rules)
-        if self.cfg.encoder_layers:
-            raise NotImplementedError(f"{self.cfg.name}: {_ENC_DEC_TRAIN}")
+        memory = self._encode(params, batch.get("frames"), rules) if self.cfg.encoder_layers \
+            else None
         embed = params["embed"]
         tokens = torch.as_tensor(batch["tokens"]).to(device=embed.device, dtype=torch.int64)
         image_embeds = batch.get("image_embeds")
@@ -538,10 +544,10 @@ class ModelDef:
         aux = None
         for kind, lp in zip(self.kinds, params["layers"]):
             if self.cfg.remat:
-                x, a = checkpoint(self._block_train, kind, lp, x, positions, rules,
+                x, a = checkpoint(self._block_train, kind, lp, x, positions, rules, memory,
                                   use_reentrant=False)
             else:
-                x, a = self._block_train(kind, lp, x, positions, rules)
+                x, a = self._block_train(kind, lp, x, positions, rules, memory)
             if a is not None:
                 aux = a if aux is None else aux + a
         x = self._ln(params["final_ln"], x[:, P_img:])

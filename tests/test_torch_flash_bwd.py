@@ -11,6 +11,9 @@ enter the products as a bf16 high part plus the bf16 rounding of the rest
 float32 accumulation tile by tile; per-head float32 dK/dV partials summed
 over the group in head order; outputs rounded to bf16. On the card
 ``chip_smoke.py`` holds the kernel itself against ``flash_attention_bwd_ref``.
+A cross-attention's shapes (Sk keys for S queries, not causal) are held
+against ``jax.vjp`` of the reference's ``_sdpa``, which its cross-attention
+runs.
 """
 import math
 
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro.models import layers as JL
 from repro_torch.kernels import flash_attention as fa
 
 # Two intra-op threads: these tests share the host with the other pytest-xdist
@@ -51,16 +55,18 @@ def _tiled(a, b, axis_len):
 
 def _tensor_core_bwd_emulation(q, k, v, o, dout, lse, causal, window):
     """Returns (dq, dk, dv) in bf16 and the per-head float32 dK/dV partials.
-    q, o, dout: (B, H, S, hd) bf16; k/v: (B, K, S, hd) bf16; lse (B, H, S)."""
+    q, o, dout: (B, H, S, hd) bf16; k/v: (B, K, Sk, hd) bf16; lse (B, H, S).
+    dQ runs over the Sk keys in key tiles, dK/dV over the S queries in
+    query tiles."""
     B, H, S, hd = q.shape
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     g = H // K
     scale = 1.0 / math.sqrt(hd)
     qf, gf, of = q.float(), dout.float(), o.float()
     kf = torch.repeat_interleave(k, g, dim=1).float()
     vf = torch.repeat_interleave(v, g, dim=1).float()
     D = (gf * of).sum(dim=-1)
-    mask = fa._mask(S, causal, window, q.device)
+    mask = fa._mask(S, causal, window, q.device, Sk)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     x = s * torch.tensor(scale * LOG2E) - (lse * torch.tensor(LOG2E))[..., None]
     p = torch.where(mask, torch.exp2(x), torch.zeros(()))
@@ -69,7 +75,7 @@ def _tensor_core_bwd_emulation(q, k, v, o, dout, lse, causal, window):
     p_hi, p_lo = _split_bf16(p)
     ds_hi, ds_lo = _split_bf16(ds)
     # dQ block: key tiles in order, the high part's product then the low's
-    dq = _tiled(ds_hi, kf, S) + _tiled(ds_lo, kf, S)
+    dq = _tiled(ds_hi, kf, Sk) + _tiled(ds_lo, kf, Sk)
     # dK/dV block of one head: query tiles in order
     pt_hi, pt_lo, dst_hi, dst_lo = (t.transpose(-1, -2) for t in (p_hi, p_lo, ds_hi, ds_lo))
     dv_part = _tiled(pt_hi, gf, S) + _tiled(pt_lo, gf, S)
@@ -89,10 +95,12 @@ def _group_sum(part, K):
     return acc
 
 
-def _bf16_inputs(rng, B, H, K, S, hd):
-    """q, k, v, dout as float32 numpy holding bf16 values."""
+def _bf16_inputs(rng, B, H, K, S, hd, Sk=None):
+    """q, k, v, dout as float32 numpy holding bf16 values (k and v of Sk
+    keys, S unless given)."""
+    Sk = Sk or S
     out = []
-    for shape in ((B, H, S, hd), (B, K, S, hd), (B, K, S, hd), (B, H, S, hd)):
+    for shape in ((B, H, S, hd), (B, K, Sk, hd), (B, K, Sk, hd), (B, H, S, hd)):
         a = rng.standard_normal(shape).astype(np.float32)
         out.append(torch.from_numpy(a).to(torch.bfloat16).float().numpy())
     return out
@@ -147,6 +155,65 @@ def test_tensor_core_bwd_within_bf16_tolerance_of_plain_version(case):
     o, lse = fa.flash_attention_ref(qt, kt, vt, causal=causal, window=window, return_lse=True)
     got = _tensor_core_bwd_emulation(qt, kt, vt, o, gt, lse, causal, window)[:3]
     want = fa.flash_attention_bwd_ref(qt, kt, vt, o, gt, lse, causal=causal, window=window)
+    _within(got, [w.float().numpy() for w in want], case)
+
+
+def jax_cross_vjp(q, k, v, dout):
+    """The reference's cross-attention (``_sdpa``: every key valid, not
+    causal) on numpy q (B, H, S, hd) and k / v (B, K, Sk, hd), and its vjp
+    at ``dout``: (out, [dq, dk, dv]) in the same layout, numpy."""
+    B, H, S, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    qpos = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32), (B, S))
+    kpos = jnp.broadcast_to(jnp.arange(Sk, dtype=jnp.int32), (B, Sk))
+
+    def attend(a, b, c):
+        a = a.transpose(0, 2, 1, 3).reshape(B, S, K, H // K, hd)
+        out = JL._sdpa(a, b.transpose(0, 2, 1, 3), c.transpose(0, 2, 1, 3), qpos, kpos,
+                       jnp.ones((B, Sk), bool), 0, False)
+        return out.reshape(B, S, H, hd).transpose(0, 2, 1, 3)
+
+    out, vjp = jax.vjp(attend, *(jnp.asarray(t) for t in (q, k, v)))
+    return np.asarray(out), [np.asarray(t) for t in vjp(jnp.asarray(dout))]
+
+
+CROSS_CASES = {  # B, H, K, S, Sk, hd: Sk keys for S queries, not causal
+    "sk1500_s100_mha_hd64": (1, 2, 2, 100, 1500, 64),
+    "sk65_s40_g2_hd64": (2, 4, 2, 40, 65, 64),
+    "sk1_s40_g2_hd64": (1, 4, 2, 40, 1, 64),
+    "sk63_s100_g1_hd96": (1, 2, 2, 100, 63, 96),
+    "sk130_s64_g2_hd256": (1, 4, 2, 64, 130, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_tensor_core_bwd_key_length_within_bf16_tolerance_of_jax_vjp(case):
+    """A cross-attention's backward (dQ over Sk keys, dK / dV of Sk rows
+    over S queries) against ``jax.vjp`` of the reference's ``_sdpa``, D
+    from the forward's float32 output as above."""
+    B, H, K, S, Sk, hd = CROSS_CASES[case]
+    rng = np.random.default_rng(S + 7 * Sk + hd)
+    q, k, v, dout = _bf16_inputs(rng, B, H, K, S, hd, Sk)
+    qt, kt, vt, gt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, dout))
+    o32, lse = fa.flash_attention_ref(qt.float(), kt.float(), vt.float(), causal=False,
+                                      return_lse=True)
+    got = _tensor_core_bwd_emulation(qt, kt, vt, o32, gt, lse, False, 0)[:3]
+    _within(got, jax_cross_vjp(q, k, v, dout)[1], case)
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_tensor_core_bwd_key_length_within_bf16_tolerance_of_plain_version(case):
+    """The same shapes against the port's plain version on the same bf16
+    forward output and lse: the comparison chip_smoke.py makes with the
+    kernel on the card."""
+    B, H, K, S, Sk, hd = CROSS_CASES[case]
+    rng = np.random.default_rng(S + 7 * Sk + hd + 1)
+    qt, kt, vt, gt = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in _bf16_inputs(rng, B, H, K, S, hd, Sk))
+    o, lse = fa.flash_attention_ref(qt, kt, vt, causal=False, return_lse=True)
+    got = _tensor_core_bwd_emulation(qt, kt, vt, o, gt, lse, False, 0)[:3]
+    want = fa.flash_attention_bwd_ref(qt, kt, vt, o, gt, lse, causal=False)
+    assert tuple(want[1].shape) == (B, K, Sk, hd)
     _within(got, [w.float().numpy() for w in want], case)
 
 
@@ -270,3 +337,19 @@ def test_c_entry_points_match_their_ctypes_signatures(name):
     from repro_torch.kernels import _build
 
     assert _c_params(name) == _build.SIGNATURES[name]
+
+
+@pytest.mark.parametrize("name", ["rt_flash_attention", "rt_flash_attention_bwd"])
+def test_flash_entry_points_take_the_key_length_after_the_queries(name):
+    """The forward's and the backward's C entry points take the keys' length
+    Sk right after the queries' S and before hd (the wrappers pass ``B, H,
+    K, S, Sk, hd``), both as C ints."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = "".join(p.read_text() for p in _build._sources())
+    params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src).group(1)
+    names = [" ".join(p.split()).split(" ")[-1] for p in params.split(",")]
+    i = names.index("S")
+    assert names[i - 3:i + 3] == ["B", "H", "K", "S", "Sk", "hd"], names

@@ -20,7 +20,9 @@ The emulation follows the kernels' tiles and arithmetic:
 A matrix product inside the emulation sums in torch's order, not the
 tensor cores': the emulation checks the roundings and the tiling, and on
 the card ``chip_smoke.py`` holds the kernels themselves against
-``flash_attention_bwd_ref``.
+``flash_attention_bwd_ref``. A cross-attention (Sk keys for S queries, not
+causal: dK/dV blocks over the Sk keys, dQ blocks over the S queries) is
+held against ``jax.vjp`` of the reference's ``_sdpa``.
 """
 import math
 
@@ -33,6 +35,7 @@ import torch
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from test_torch_flash_bwd import jax_cross_vjp
 from test_torch_flash_f32 import split, tf32
 
 # Two intra-op threads: these tests share the host with the other pytest-xdist
@@ -52,35 +55,39 @@ def query_tile(hd):
     return 16 if hd == 256 else 32
 
 
-def dkdv_tiles(S, hd, causal, window):
+def dkdv_tiles(S, hd, causal, window, Sk=None):
     """The dK/dV kernel's work: (first key of a 16-key warp, first query of
-    a tile, whether the tile needs the element mask), in the kernel's order."""
+    a tile, whether the tile needs the element mask), in the kernel's order;
+    Sk keys (S unless given) for S queries."""
+    Sk = Sk or S
     bq = query_tile(hd)
     n_qt = -(-S // bq)
     out = []
-    for p0 in range(0, S, KEYS):
-        p_last = min(p0 + KEYS, S) - 1
+    for p0 in range(0, Sk, KEYS):
+        p_last = min(p0 + KEYS, Sk) - 1
         t_lo = p0 // bq if causal else 0
         t_hi = min(n_qt, (p_last + window - 1) // bq + 1) if window > 0 else n_qt
         for w in range(4):
             kw0 = p0 + 16 * w
-            if kw0 >= S:
+            if kw0 >= Sk:
                 continue
-            kw1 = min(kw0 + 15, S - 1)
+            kw1 = min(kw0 + 15, Sk - 1)
             a_lo = max(t_lo, kw0 // bq if causal else 0)
             a_hi = min(t_hi, (kw1 + window - 1) // bq + 1 if window > 0 else n_qt)
             for t in range(a_lo, a_hi):
                 c0 = t * bq
-                masked = (c0 + bq > S or kw0 + 16 > S or (causal and kw0 + 15 > c0)
+                masked = (c0 + bq > S or kw0 + 16 > Sk or (causal and kw0 + 15 > c0)
                           or (window > 0 and kw0 <= c0 + bq - 1 - window))
                 out.append((kw0, c0, masked))
     return out
 
 
-def dq_tiles(S, causal, window):
+def dq_tiles(S, causal, window, Sk=None):
     """The dQ kernel's work: (first row of a 16-row warp, first key of its
-    16-key half, the half, whether the pair of tiles needs the element mask)."""
-    n_kt = -(-S // KEY_TILE)
+    16-key half, the half, whether the pair of tiles needs the element
+    mask); Sk keys (S unless given) for S queries."""
+    Sk = Sk or S
+    n_kt = -(-Sk // KEY_TILE)
     out = []
     for q0 in range(0, S, ROWS):
         q_last = min(q0 + ROWS, S) - 1
@@ -94,17 +101,17 @@ def dq_tiles(S, causal, window):
             for kt in range(kt_lo, kt_hi):
                 for half in (0, 1):
                     kw0 = kt * KEY_TILE + 16 * half
-                    active = (kw0 < S and (not causal or kw0 <= qw1)
+                    active = (kw0 < Sk and (not causal or kw0 <= qw1)
                               and (window <= 0 or kw0 + 15 > qw0 - window))
                     if active:
-                        masked = (kw0 + 16 > S or qw0 + 16 > S or (causal and kw0 + 15 > qw0)
+                        masked = (kw0 + 16 > Sk or qw0 + 16 > S or (causal and kw0 + 15 > qw0)
                                   or (window > 0 and kw0 <= qw1 - window))
                         out.append((qw0, kw0, half, masked))
     return out
 
 
-def _visible(qpos, kpos, S, causal, window):
-    ok = (qpos < S) & (kpos < S)
+def _visible(qpos, kpos, S, causal, window, Sk=None):
+    ok = (qpos < S) & (kpos < (Sk or S))
     if causal:
         ok = ok & (kpos <= qpos)
     if window:
@@ -132,11 +139,11 @@ def _accumulate(acc, p, b, parts):
 
 def emulate(q, k, v, o, dout, lse, *, causal=True, window=0, three_passes=True):
     """The float32 route's arithmetic on float32 (B, H, S, hd) q, o, dout,
-    (B, K, S, hd) k, v and (B, H, S) lse; returns (dq, dk, dv). With
+    (B, K, Sk, hd) k, v and (B, H, S) lse; returns (dq, dk, dv). With
     ``three_passes`` False every operand is rounded to TF32 once and every
     product is one pass."""
     B, H, S, hd = q.shape
-    K = k.shape[1]
+    K, Sk = k.shape[1], k.shape[2]
     g = H // K
     # the wrapper passes the scale as a C float; the host folds in log2(e)
     scale = np.float32(1.0 / math.sqrt(hd))
@@ -146,10 +153,11 @@ def emulate(q, k, v, o, dout, lse, *, causal=True, window=0, three_passes=True):
     def parts(x):
         return split(x) if three_passes else (tf32(x), None)
 
-    # zero rows past S, as the copies land them; lse and D read as 0 there
+    # zero rows past S (Sk), as the copies land them; lse and D read as 0 there
     pad = -(-S // KEYS) * KEYS - S
-    padded = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, k, v, dout)]
-    qp, kp, vp, gp = padded
+    kpad = -(-Sk // KEYS) * KEYS - Sk
+    qp, gp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (q, dout))
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, kpad)) for t in (k, v))
     kk, vv = (torch.repeat_interleave(t, g, dim=1) for t in (kp, vp))
     D = torch.nn.functional.pad((dout * o).sum(dim=-1), (0, pad))
     l2 = torch.nn.functional.pad(lse * np.float32(LOG2E), (0, pad))
@@ -157,15 +165,15 @@ def emulate(q, k, v, o, dout, lse, *, causal=True, window=0, three_passes=True):
     def probs(s, lse2, qpos, kpos, masked):
         p = torch.exp2(s * scale_log2 - lse2)
         if masked:
-            p = torch.where(_visible(qpos, kpos, S, causal, window), p, torch.zeros(()))
+            p = torch.where(_visible(qpos, kpos, S, causal, window, Sk), p, torch.zeros(()))
         return p
 
     # dK/dV: rows are keys, columns queries
     bq = query_tile(hd)
-    dv_part = torch.zeros((B, H, S + pad, hd))
-    dk_part = torch.zeros((B, H, S + pad, hd))
+    dv_part = torch.zeros((B, H, Sk + kpad, hd))
+    dk_part = torch.zeros((B, H, Sk + kpad, hd))
     acc = {}
-    for kw0, c0, masked in dkdv_tiles(S, hd, causal, window):
+    for kw0, c0, masked in dkdv_tiles(S, hd, causal, window, Sk):
         keys, qs = slice(kw0, kw0 + 16), slice(c0, c0 + bq)
         kpos = torch.arange(kw0, kw0 + 16)[:, None]
         qpos = torch.arange(c0, c0 + bq)[None, :]
@@ -178,11 +186,11 @@ def emulate(q, k, v, o, dout, lse, *, causal=True, window=0, three_passes=True):
     for kw0, (av, ak) in acc.items():
         dv_part[:, :, kw0:kw0 + 16] = av
         dk_part[:, :, kw0:kw0 + 16] = ak * scale
-    dk, dv = (group_sum(t[:, :, :S], K) for t in (dk_part, dv_part))
+    dk, dv = (group_sum(t[:, :, :Sk], K) for t in (dk_part, dv_part))
 
     # dQ: rows are queries, columns keys; two halves of the keys apart
     halves = {}
-    for qw0, kw0, half, masked in dq_tiles(S, causal, window):
+    for qw0, kw0, half, masked in dq_tiles(S, causal, window, Sk):
         rows, keys = slice(qw0, qw0 + 16), slice(kw0, kw0 + 16)
         qpos = torch.arange(qw0, qw0 + 16)[:, None]
         kpos = torch.arange(kw0, kw0 + 16)[None, :]
@@ -210,9 +218,10 @@ def group_sum(part, K):
     return acc
 
 
-def _inputs(rng, B, H, K, S, hd):
+def _inputs(rng, B, H, K, S, hd, Sk=None):
+    Sk = Sk or S
     return [rng.standard_normal(shape).astype(np.float32)
-            for shape in ((B, H, S, hd), (B, K, S, hd), (B, K, S, hd), (B, H, S, hd))]
+            for shape in ((B, H, S, hd), (B, K, Sk, hd), (B, K, Sk, hd), (B, H, S, hd))]
 
 
 CASES = {  # B, H, K, S, hd, causal, window
@@ -265,6 +274,39 @@ def test_emulation_within_float32_tolerance_of_plain_version(case):
     _within(got, [w.numpy() for w in want], case)
 
 
+CROSS_CASES = {  # B, H, K, S, Sk, hd: Sk keys for S queries, not causal
+    "sk1500_s40_mha_hd64": (1, 2, 2, 40, 1500, 64),
+    "sk65_s100_g2_hd64": (1, 4, 2, 100, 65, 64),
+    "sk1_s40_g2_hd32": (2, 4, 2, 40, 1, 32),
+    "sk63_s100_mha_hd96": (1, 2, 2, 100, 63, 96),
+    "sk130_s70_g2_hd256": (1, 4, 2, 70, 130, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_emulation_key_length_within_float32_tolerance_of_jax_vjp(case):
+    """A cross-attention's backward against ``jax.vjp`` of the reference's
+    ``_sdpa``, which its cross-attention runs."""
+    B, H, K, S, Sk, hd = CROSS_CASES[case]
+    q, k, v, dout = _inputs(np.random.default_rng(S + 7 * Sk + hd), B, H, K, S, hd, Sk)
+    qt, kt, vt, gt = (torch.from_numpy(a) for a in (q, k, v, dout))
+    o, lse = _forward(qt, kt, vt, False, 0)
+    got = emulate(qt, kt, vt, o, gt, lse, causal=False)
+    _within(got, jax_cross_vjp(q, k, v, dout)[1], case)
+
+
+@pytest.mark.parametrize("case", list(CROSS_CASES))
+def test_emulation_key_length_within_float32_tolerance_of_plain_version(case):
+    """The comparison chip_smoke.py makes with the kernels on the card."""
+    B, H, K, S, Sk, hd = CROSS_CASES[case]
+    qt, kt, vt, gt = (torch.from_numpy(a) for a in _inputs(
+        np.random.default_rng(S + 7 * Sk + hd + 1), B, H, K, S, hd, Sk))
+    o, lse = _forward(qt, kt, vt, False, 0)
+    got = emulate(qt, kt, vt, o, gt, lse, causal=False)
+    want = fa.flash_attention_bwd_ref(qt, kt, vt, o, gt, lse, causal=False)
+    _within(got, [w.numpy() for w in want], case)
+
+
 def test_one_tf32_rounding_breaks_the_float32_tolerance():
     """Why every operand is split: with one TF32 rounding and one pass per
     product, gemma-2b's head dim (256, MQA g 4, S cut to 96) leaves the
@@ -296,20 +338,39 @@ def test_tiles_cover_every_visible_pair_and_mask_where_needed(S, hd, causal, win
     a tile it loads, and a tile it takes as unmasked holds only visible
     pairs: tiles above the causal diagonal and before the window are
     skipped, and only diagonal, window-edge and ragged tiles are masked."""
+    _check_tiles(S, S, hd, causal, window)
+
+
+# a cross-attention's (S queries, Sk keys), not causal: fewer and more keys
+# than queries, ragged on either side
+CROSS_SHAPES = [(S, Sk, hd) for S, Sk in ((40, 1), (40, 65), (100, 63), (16, 1500), (77, 130))
+                for hd in (64, 256)]
+
+
+@pytest.mark.parametrize("S,Sk,hd", CROSS_SHAPES)
+def test_tiles_cover_every_visible_pair_of_a_cross_attention(S, Sk, hd):
+    """The same with Sk != S: the dK/dV blocks over the Sk keys and the dQ
+    blocks over the S queries see every (query, key) pair once, and only
+    tiles ragged on either side are masked."""
+    _check_tiles(S, Sk, hd, False, 0)
+
+
+def _check_tiles(S, Sk, hd, causal, window):
     qpos = torch.arange(S)[:, None]
-    kpos = torch.arange(S)[None, :]
-    visible = _visible(qpos, kpos, S, causal, window)
+    kpos = torch.arange(Sk)[None, :]
+    visible = _visible(qpos, kpos, S, causal, window, Sk)
     bq = query_tile(hd)
     for tiles, cover in (
-            ([(c0, bq, kw0, 16, m) for kw0, c0, m in dkdv_tiles(S, hd, causal, window)], "dK/dV"),
-            ([(qw0, 16, kw0, 16, m) for qw0, kw0, _, m in dq_tiles(S, causal, window)], "dQ")):
-        seen = torch.zeros((S, S), dtype=torch.int32)
+            ([(c0, bq, kw0, 16, m) for kw0, c0, m in dkdv_tiles(S, hd, causal, window, Sk)],
+             "dK/dV"),
+            ([(qw0, 16, kw0, 16, m) for qw0, kw0, _, m in dq_tiles(S, causal, window, Sk)], "dQ")):
+        seen = torch.zeros((S, Sk), dtype=torch.int32)
         for r0, nr, c0, nc, masked in tiles:
-            block = torch.zeros((S + 64, S + 64), dtype=torch.bool)
+            block = torch.zeros((S + 64, Sk + 64), dtype=torch.bool)
             block[r0:r0 + nr, c0:c0 + nc] = True
-            block = block[:S, :S]
+            block = block[:S, :Sk]
             if not masked:
-                assert r0 + nr <= S and c0 + nc <= S, cover
+                assert r0 + nr <= S and c0 + nc <= Sk, cover
                 assert bool(visible[block].all()), f"{cover}: an unmasked tile holds a hidden pair"
             seen += (block & visible).int()
         assert torch.equal(seen, visible.int()), f"{cover}: a visible pair is missed or repeated"

@@ -6,8 +6,9 @@ Every leaf lies as the rules say (``ModelDef.run_specs``): attention heads
 RWKV heads, experts and vocabulary over "model". Each rank runs
 ``prefill``, four decode steps, ``loss`` and one AdamW step on its shards
 and its data shard of the batch (``tests/torch_mesh.py::tp_cases``);
-whisper-tiny, which serves only, runs the prefill (of its frames too) and
-the decode steps. The
+whisper-tiny's frames go into its prefill and its loss, split over the
+data axes as its tokens are. The serving-only cases (the int8 KV cache) run
+the prefill and the decode steps. The
 reference runs the same steps on the global batch on one device, as
 ``tests/test_torch_sharding.py::test_train_step_under_rules_matches_jax``
 holds it: XLA's partitioner changes no value under rules, so the
@@ -62,14 +63,16 @@ CASES = {
     # 4 image tokens before the text (replicated, the "img" rule), in the
     # prefill, the loss and the train step; decode after S + 4 positions
     "phi": ("phi-3-vision-4.2b", {}),
+    # the encoder-decoder: its 4 heads on 2 kv heads split alike on 2 ranks,
+    # kv whole on 4, its cross-attention split as its self-attention (its
+    # backward too), the encoder's gradient through the memory; every bias
+    # nonzero; frames in the prefill, the loss and the train step
+    "whisper": ("whisper-tiny", {}),
 }
-# serving only: whisper (no loss yet: ROADMAP.md item 9.7b-train), its 4
-# heads on 2 kv heads split alike on 2 ranks, kv whole on 4, its
-# cross-attention split as its self-attention, every bias nonzero; the int8
-# KV cache with its single kv head whole (gemma) and with an uneven map of
-# 12 heads on 3 kv heads (the scales gathered as the int8 k / v are)
-SERVE_CASES = {"whisper": ("whisper-tiny", {}),
-               "gemma-int8": ("gemma-2b", dict(kv_cache_dtype="int8")),
+# serving only: the int8 KV cache with its single kv head whole (gemma) and
+# with an uneven map of 12 heads on 3 kv heads (the scales gathered as the
+# int8 k / v are)
+SERVE_CASES = {"gemma-int8": ("gemma-2b", dict(kv_cache_dtype="int8")),
                "gqa-uneven-int8": ("granite-3-2b", dict(n_heads=12, n_kv_heads=3,
                                                         kv_cache_dtype="int8"))}
 ALL_CASES = {**CASES, **SERVE_CASES}
@@ -111,8 +114,11 @@ def _images(name: str):
 
 
 def _batch(name: str):
-    """The reference's batch: the tokens, a vision config's image embeddings."""
+    """The reference's batch: the tokens, an encoder-decoder's frames, a
+    vision config's image embeddings."""
     batch = {"tokens": jnp.asarray(_tokens())}
+    if _frames(name) is not None:
+        batch["frames"] = jnp.asarray(_frames(name))
     if _images(name) is not None:
         batch["image_embeds"] = jnp.asarray(_images(name))
     return batch
@@ -150,14 +156,17 @@ def _tokens():
 @functools.lru_cache(maxsize=None)
 def _reference(name: str):
     """The reference on the global batch: (its initial train state (numpy;
-    qkv biases nonzero), the prefill's and each decode step's logits, the
-    greedy tokens fed to the decode steps (STEPS, B), the loss, the loss and
-    the parameters by path after one ``make_train_step`` step)."""
+    qkv biases nonzero, an encoder-decoder's every bias), the prefill's and
+    each decode step's logits, the greedy tokens fed to the decode steps
+    (STEPS, B), the loss, the loss and the parameters by path after one
+    ``make_train_step`` step)."""
     jcfg = _jcfg(name)
     model = jax_build_model(jcfg)
     ts, init, *_ = jax_make_train_step(model, lr=LR)
     state = jax.tree.map(np.asarray, init(jax.random.key(0)))
-    if jcfg.qkv_bias:
+    if jcfg.encoder_layers:
+        _nonzero_biases(state["params"], np.random.default_rng(11))
+    elif jcfg.qkv_bias:
         rng = np.random.default_rng(11)
         attn = state["params"]["stack0"]["b0"]["attn"]
         for key in BIAS_KEYS:
@@ -210,7 +219,7 @@ def ranks(tmp_path_factory):
     for name, (arch, change) in CASES.items():
         state, _, feed, *_ = _reference(name)
         cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed,
-                          images=_images(name)))
+                          frames=_frames(name), images=_images(name)))
     for name, (arch, change) in SERVE_CASES.items():
         state, _, feed = _serve_reference(name)
         cases.append(dict(name=name, arch=arch, change=change, state=state, feed=feed,

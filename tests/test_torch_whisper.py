@@ -2,7 +2,9 @@
 same inputs: the layer norm, the encoder's not-causal self-attention, the
 cross-attention over the encoder's memory (prefill and decode), the plain
 ``flash_attention`` with a key length of its own against the reference's
-``_sdpa``, and the whole model's prefill and decode.
+``_sdpa``, and the whole model's prefill and decode. Its training (the loss,
+its gradients, the cross-attention's backward) is held in
+``tests/test_torch_whisper_train.py``.
 
 The model runs at two sizes: the reference's ``reduced()`` (1 encoder layer,
 16 frames, head dim 16) and a variant at whisper's real widths (d_model 384,
@@ -209,19 +211,6 @@ def test_flash_attention_refuses_a_causal_or_windowed_key_length(kw):
         ops.flash_attention(q, k, k, **kw)
 
 
-def test_cross_attention_backward_raises_naming_the_roadmap_item():
-    """Under autograd a call with Sk != S raises, and so does the backward
-    called directly: the backward of a cross-attention is a later slice
-    (ROADMAP item 9.7b-train)."""
-    q = torch.zeros((1, 2, 16, 32), requires_grad=True)
-    k = torch.zeros((1, 2, 24, 32))
-    with pytest.raises(NotImplementedError, match="9.7b-train"):
-        ops.flash_attention(q, k, k, causal=False)
-    lse = torch.zeros((1, 2, 16))
-    with pytest.raises(NotImplementedError, match="9.7b-train"):
-        fa.flash_attention_bwd_ref(q.detach(), k, k, q.detach(), q.detach(), lse, causal=False)
-
-
 @pytest.mark.parametrize("Sk", KEY_LENGTHS)
 def test_fake_count_of_a_cross_call_is_sq_times_sk(Sk):
     """The dry run's count of a cross call: Sq·Sk (query, key) pairs, the
@@ -328,16 +317,6 @@ def test_trees_and_axes_are_the_references():
     assert tuple(values["frames"].shape) == tuple(jin["frames"].shape)
     assert values["frames"].dtype == torch.bfloat16 and str(jin["frames"].dtype) == "bfloat16"
     assert in_axes == {k: tuple(v) for k, v in jin_axes.items()}
-
-
-def test_loss_raises_naming_the_roadmap_item():
-    """Serving only: the encoder-decoder's loss raises, naming ROADMAP.md's
-    item for whisper's training."""
-    cfg = get_arch(ARCH).reduced()
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu", param_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="9.7b-train"):
-        model.loss(params, {"tokens": np.zeros((1, 8), np.int32)})
 
 
 def test_prefill_without_frames_raises():

@@ -222,7 +222,8 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
     them out (``shard_state``), its data shard of ``tokens`` (B, S) (and of
     the frames and images) through ``prefill`` (cache S + P + steps),
     ``steps`` decode steps fed ``feed`` at positions S + P + i, then, when
-    training, ``loss`` and one AdamW step (the images in their batch).
+    training, ``loss`` and one AdamW step (the frames and images in their
+    batch).
     Returns {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each
     step), "loss", "step_loss", "params" (this rank's, by reference path,
     after the step; before it when serving only), "coord"}}."""
@@ -269,7 +270,10 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
                 out[(shape, c["name"])] = {"logits": logits, "params": params,
                                            "coord": rules.coordinate()}
                 continue
-            batch = {"tokens": toks} if images is None else {"tokens": toks, "image_embeds": images}
+            batch = {"tokens": toks}
+            for key, t in (("frames", frames), ("image_embeds", images)):
+                if t is not None:
+                    batch[key] = t
             with torch.no_grad():
                 loss = float(model.loss(st["params"], batch, rules))
             ts, _ = make_train_step(model, rules=rules, lr=lr)
