@@ -23,13 +23,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    512, cache 544; rwkv6-1.6b: wkv6 at (4, 32, 512, 64); recurrentgemma-9b:
    flash_attention at (4, 16, 2048, 256), flash_decode over a 2048-slot
    ring, rmsnorm at width 4096, rglru at (4, 2048, 4096) with float32 and
-   with bf16 inputs; deepseek-7b, granite-3-2b, qwen2.5-3b, olmoe-1b-7b and
-   phi-3-vision-4.2b: flash_attention and its backward at (4, 32, 512,
-   128) MHA, (4, 32, 512, 64) g 4, (4, 16, 512, 128) g 8, (4, 16, 512, 128)
-   MHA and (4, 32, 768, 96) MHA (phi-3-vision's 256 image and 512 text
-   positions; also in float32, forward and backward), flash_decode over
-   their 544-slot caches (phi-3-vision's 800), each twice for the same
-   bits, rmsnorm and its backward at (2048, 4096)
+   with bf16 inputs; deepseek-7b, granite-3-2b, qwen2.5-3b, olmoe-1b-7b,
+   phi-3-vision-4.2b and kimi-k2-1t-a32b: flash_attention and its backward
+   at (4, 32, 512, 128) MHA, (4, 32, 512, 64) g 4, (4, 16, 512, 128) g 8,
+   (4, 16, 512, 128) MHA, (4, 32, 768, 96) MHA (phi-3-vision's 256 image
+   and 512 text positions; also in float32, forward and backward) and (4,
+   64, 512, 112) g 8 (kimi-k2's head dim, bf16 only: its float32 calls
+   must raise ValueError and launch nothing), flash_decode over their
+   544-slot caches (phi-3-vision's 800), each twice for the same bits,
+   rmsnorm and its backward at (2048, 4096) and at kimi-k2's (2048, 7168)
    bf16) plus ragged / window / ring / empty-row /
    strong-decay / float32 / head-dim cases (flash_attention's float32
    route also at hd 256 with a window, with a base one element off, at the
@@ -117,27 +119,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    qwen2.5-3b and olmoe-1b-7b (prompt 512), whisper-tiny (1500 seeded
    frames, prompt 416: its decoder context of 448 with the new tokens),
    phi-3-vision-4.2b (256 seeded image embeddings before a prompt of 512:
-   768 prefilled positions, decode steps after them) and
+   768 prefilled positions, decode steps after them),
    gemma-2b with its KV cache in int8 (its logits' distance from the
-   bf16-cache run printed) at full width, random weights from a seed,
+   bf16-cache run printed) and kimi-k2-1t-a32b at one of its 61 layers with
+   all 384 experts (KIMI_SERVE; its MoE layer alone after the run:
+   ``moe_at_width``) at full width, random weights from a seed,
    through ``repro_torch.launch.serve``: 4 requests, 32 new tokens each.
    For each: the exact kernel launch counts of the run (counts set to 0
    just before it), finite logits, the prefill and the first decode steps
    against the plain versions on the same weights, and a profile of a
-   prefill and a few decode steps. Then each of the nine at full width in
-   float32, kernel path against plain path (5 tokens; qwen's and whisper's
-   qkv biases made nonzero), and a reduced float32 model of gemma, rwkv6,
+   prefill and a few decode steps. Then each of the nine others at full
+   width in float32, kernel path against plain path (5 tokens; qwen's and
+   whisper's qkv biases made nonzero; not kimi-k2, whose float32 attention
+   routes have no head dim 112 and whose float32 weights would not fit),
+   and a reduced float32 model of gemma, rwkv6,
    recurrentgemma (5 layers, so that its remainder stack runs), qwen2.5,
-   olmoe, whisper, gemma with the int8 cache and phi-3-vision (4 image
-   tokens) on the card against the
+   olmoe, whisper, gemma with the int8 cache, phi-3-vision (4 image
+   tokens) and kimi-k2 on the card against the
    same weights on the CPU, each printing the launches of the float32
    attention routes it made;
-   train: gemma-2b, rwkv6-1.6b, granite-3-2b, qwen2.5-3b and
-   phi-3-vision-4.2b at full width and depth, recurrentgemma-9b at full
-   width and 9 layers, deepseek-7b at full width and 16 layers and
-   olmoe-1b-7b at full width and a cut depth (TRAIN_ARCHS) through
+   train: gemma-2b and rwkv6-1.6b at full width and depth, and
+   recurrentgemma-9b, granite-3-2b, qwen2.5-3b, deepseek-7b, olmoe-1b-7b,
+   phi-3-vision-4.2b and kimi-k2-1t-a32b (its experts cut too:
+   TRAIN_EXPERTS) at full width and a cut depth (TRAIN_ARCHS) through
    ``repro_torch.launch.train`` (bf16 activations, float32 masters and
-   AdamW, batch 4 x 512, 5 steps on one repeated batch), and whisper-tiny
+   AdamW, kimi-k2's bf16 masters and Adafactor, batch 4 x 512, 5 steps on
+   one repeated batch), and whisper-tiny
    at full width and depth through ``train.step.make_train_step`` (batch 4
    x 448 tokens with 1500 seeded frames a row: the encoder, the decoder's
    self- and cross-attention forward and backward): the exact launch
@@ -145,7 +152,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    recomputed once in the backward, the encoder not), a falling loss, step
    s, tokens/s and peak memory; one step's gradients against the plain
    path's, leaf by leaf (rwkv6's in float32 activations, its bf16 readings
-   printed: GRAD_F32_ARCHS; phi-3-vision's batch with 256 seeded image
+   printed: GRAD_F32_ARCHS; kimi-k2's plain path on the kernel path's
+   expert choices: GRAD_PINNED_ROUTING; phi-3-vision's batch with 256 seeded image
    embeddings a row, so that the loss's image offset runs forward and
    backward; whisper-tiny's with its frames, its k biases, zero in exact
    arithmetic, held against their wk's gradient); a
@@ -288,22 +296,26 @@ DECODE_TOL_BF16 = (4e-3, 2.0 ** -7)
 #   olmoe-1b-7b        0.01562       0.1484
 #   whisper-tiny       0             0.01625
 #   phi-3-vision-4.2b  0             0.2539
+#   kimi-k2-1t-a32b    0             0.07031   (1 layer, all 384 experts)
 # gemma-2b's, rwkv6-1.6b's, the dense swiglu configs' and whisper-tiny's
 # near-tie is the tighter 0.0625, two bf16 steps for logits in [4, 8)
-# (qwen2.5-3b's, whisper-tiny's and phi-3-vision-4.2b's tokens all agreed,
-# so twice their reading would be 0); olmoe-1b-7b's is twice its reading,
+# (qwen2.5-3b's, whisper-tiny's, phi-3-vision-4.2b's and kimi-k2's tokens
+# all agreed, so twice their reading would be 0); olmoe-1b-7b's is twice its reading,
 # one bf16 step for logits in [4, 8). whisper-tiny's drift limit is about
 # twice its reading (4 decoder layers of d 384: the smallest drift of the
 # served configs), phi-3-vision-4.2b's too (its 256 image tokens and 512
-# text tokens, the chip runs of its slice). The float32 full-width phase
+# text tokens, the chip runs of its slice), and kimi-k2's (one layer: the
+# chip runs of its slice). The float32 full-width phase
 # shows that the kernels themselves agree (tokens equal, logits within 1e-3)
 # at the same shapes.
 TOKEN_TIE_TOL = {"gemma-2b": 0.0625, "rwkv6-1.6b": 0.0625, "recurrentgemma-9b": 0.1875,
                  "deepseek-7b": 0.0625, "granite-3-2b": 0.0625, "qwen2.5-3b": 0.0625,
-                 "olmoe-1b-7b": 0.03125, "whisper-tiny": 0.0625, "phi-3-vision-4.2b": 0.0625}
+                 "olmoe-1b-7b": 0.03125, "whisper-tiny": 0.0625, "phi-3-vision-4.2b": 0.0625,
+                 "kimi-k2-1t-a32b": 0.0625}
 BF16_LOGITS_DRIFT = {"gemma-2b": 0.25, "rwkv6-1.6b": 0.4, "recurrentgemma-9b": 0.55,
                      "deepseek-7b": 0.65, "granite-3-2b": 0.37, "qwen2.5-3b": 0.42,
-                     "olmoe-1b-7b": 0.3, "whisper-tiny": 0.035, "phi-3-vision-4.2b": 0.5}
+                     "olmoe-1b-7b": 0.3, "whisper-tiny": 0.035, "phi-3-vision-4.2b": 0.5,
+                     "kimi-k2-1t-a32b": 0.15}
 # The backward kernels against their plain versions, (atol, rtol). Both sum
 # in float32 from the same inputs in another order; in bf16 the outputs are
 # rounded once more, and a value that lies on a rounding boundary may land
@@ -333,16 +345,28 @@ WHISPER, WHISPER_PROMPT = "whisper-tiny", 416
 CROSS_KEY_LENGTHS = (1, 63, 65, 1500)
 CROSS_QUERY_LENGTHS = (40, 100)
 # the configs whose attention and decode shapes get rows of their own in the
-# kernel phase: the dense swiglu configs, olmoe (MHA, 16 heads of 128) and
+# kernel phase: the dense swiglu configs, olmoe (MHA, 16 heads of 128),
 # phi-3-vision (MHA, 32 heads of 96, PROMPT text tokens after its image
-# tokens: ``row_seq``)
-ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b", "phi-3-vision-4.2b")
+# tokens: ``row_seq``) and kimi-k2 (64 heads of 112 on 8 KV heads, g 8)
+ROW_ARCHS = ("deepseek-7b", "granite-3-2b", "qwen2.5-3b", "olmoe-1b-7b", "phi-3-vision-4.2b",
+             "kimi-k2-1t-a32b")
 # the vision config: its float32 attention rows and its training
 VISION_ARCH = "phi-3-vision-4.2b"
 # the mixture-of-experts config: its MoE layer alone at full width, bf16,
 # BATCH x PROMPT (moe_layer_phase)
 MOE_ARCH = "olmoe-1b-7b"
 MOE_TOL_F32 = 2e-5  # the dispatch path against the dense oracle, float32, drop-free
+# kimi-k2-1t-a32b: its 1 T parameters (61 layers of 384 experts) fit no
+# card, so it runs at full width (d 7168, 64 heads of 112 on 8 KV heads,
+# expert width 2048, top-8 and its shared expert, vocab 163840) with its
+# depth cut. Served at one layer with all 384 experts (KIMI_SERVE: 19.42 G
+# parameters, 38.8 GB of bf16 weights; two layers would be 73.0 GB of
+# weights alone). Trained at one layer with its experts cut to
+# TRAIN_EXPERTS (top-8 and the expert width kept): bf16 masters and bf16
+# gradients are 4 bytes a parameter and the gradient check holds a second
+# gradient set (6 bytes a parameter), 117 GB at 384 experts.
+KIMI = "kimi-k2-1t-a32b"
+KIMI_SERVE = {"n_layers": 1}
 # the mesh phase: MOE_ARCH on the manual path at full width with its depth
 # cut to MESH_LAYERS (a quarter of its 16: enough for one layer's experts to
 # feed the next layer's router, at a few seconds), MESH_STEPS decode steps;
@@ -422,29 +446,41 @@ STALL_STEPS = 3.0
 TRAIN_LOSS_RTOL = 1e-6
 WORKER_ABORT_S = 300.0
 # the train phase: TRAIN_ARCHS at full width, bf16 activations, float32
-# masters and AdamW moments, batch 4 x 512, TRAIN_STEPS steps on one
-# repeated batch through ``repro_torch.launch.train``. Each is (arch, layers):
-# None keeps the full depth. recurrentgemma-9b's 38 layers (~9.4 B
-# parameters) need ~113 GB of masters and moments, more than the card's
-# 80 GB: it runs 9, three (rec, rec, attn) groups (~3.02 B parameters,
-# ~34 GiB of state), through the launcher's make_trainer (it has no depth
-# flag). deepseek-7b's 30 layers (~6.91 B parameters) would need ~77 GiB of
-# masters and moments alone: it runs 16 (tools/train_peak.py on an NVIDIA
-# H100 80GB HBM3 at 700 W: 56.57, 62.60, 68.63 and 74.66 GiB allocated at
-# 12, 14, 16 and 18 layers of its 79.18, 3.02 GiB a layer; 18 reserved
-# 76.50 GiB, too near the card's limit for a phase that runs after ten other
-# full-width runs and holds two float32 gradient sets in train_grad_check,
-# so 16 keeps ~10 GiB of headroom). olmoe-1b-7b's 16 layers (6.92 B
-# parameters, 419.6 M a layer) would need ~111 GB of masters, moments and
-# gradients: it runs 10 (tools/train_peak.py on the same card: 56.16, 62.41
-# and 68.66 GiB allocated at 8, 9 and 10 layers, 6.25 GiB a layer; 10
-# reserves 70.74 GiB and leaves 10.52 GiB unallocated, deepseek-7b's
-# headroom at 16). phi-3-vision-4.2b trains at its full 32 layers (3.821 B
-# parameters; tools/train_peak.py on the same card: 52.09 and 58.84 GiB
-# allocated at 28 and 32 layers, 60.99 reserved at 32).
-TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", None), ("recurrentgemma-9b", 9),
-               ("granite-3-2b", None), ("qwen2.5-3b", None), ("deepseek-7b", 16),
-               ("olmoe-1b-7b", 10), ("phi-3-vision-4.2b", None))
+# masters and AdamW moments (kimi-k2: bf16 masters and Adafactor), batch 4 x
+# 512, TRAIN_STEPS steps on one repeated batch through
+# ``repro_torch.launch.train``. Each is (arch, layers): None keeps the full
+# depth. recurrentgemma-9b's 38 layers (~9.4 B parameters) need ~113 GB of
+# masters and moments, more than the card's 80 GB: it runs 9, three (rec,
+# rec, attn) groups (~3.02 B parameters, ~34 GiB of state), through the
+# launcher's make_trainer (it has no depth flag). deepseek-7b's 30 layers
+# (~6.91 B parameters) would need ~77 GiB of masters and moments alone
+# (tools/train_peak.py on an NVIDIA H100 80GB HBM3 at 700 W: 56.57, 62.60,
+# 68.63 and 74.66 GiB allocated at 12, 14, 16 and 18 layers of its 79.18,
+# 3.02 GiB a layer). olmoe-1b-7b's 16 layers (6.92 B parameters, 419.6 M a
+# layer) would need ~111 GB of masters, moments and gradients
+# (tools/train_peak.py on the same card: 56.16, 62.41 and 68.66 GiB
+# allocated at 8, 9 and 10 layers, 6.25 GiB a layer). The script's time
+# (it must stay within the 912.2 s it took before kimi-k2 trained and
+# served, NVIDIA H100 80GB HBM3 at 700 W) pays for kimi-k2's phases by
+# cutting training depths that memory allowed. Much of an arch's train
+# time is spent on the host in proportion to its state (the trainer's final
+# ``tree_hash`` copies the whole state to the host) and its layers (the
+# profile's trace). So: rwkv6-1.6b 24 -> 8 layers,
+# recurrentgemma-9b 9 -> 3 (one (rec, rec, attn) group), granite-3-2b 40
+# -> 10, qwen2.5-3b 36 -> 9, deepseek-7b 16 -> 4, olmoe-1b-7b 10 -> 2,
+# phi-3-vision-4.2b 32 -> 8; gemma-2b keeps its 18 through ``launch.train
+# --full``. kimi-k2 trains at 1 of its 61 layers (TRAIN_EXPERTS).
+TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", 8), ("recurrentgemma-9b", 3),
+               ("granite-3-2b", 10), ("qwen2.5-3b", 9), ("deepseek-7b", 4),
+               ("olmoe-1b-7b", 2), ("phi-3-vision-4.2b", 8), (KIMI, 1))
+# experts a layer where TRAIN_ARCHS cuts them too. kimi-k2: the most that
+# leave 8 GiB of the card's 79.18 GiB unreserved through its gradient
+# check, which holds bf16 masters and two bf16 gradient sets
+# (tools/train_peak.py --grad-check on an NVIDIA H100 80GB HBM3 at 700 W:
+# 45.62 / 57.43 GiB allocated and 52.85 / 63.19 GiB reserved at 128 / 176
+# experts, 0.2154 GiB reserved an expert; training alone 32.94 / 40.70 GiB
+# allocated): 208 reserves ~70.1 GiB
+TRAIN_EXPERTS = {KIMI: 208}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 512
 # the encoder-decoder trained at full width and depth (4 encoder layers over
 # its 1500 frames, 4 decoder layers) through ``make_train_step``:
@@ -491,6 +527,15 @@ LOSS_TOL_TRAIN = 1e-3
 # float32 too, under the same limit.
 GRAD_F32_ARCHS = ("rwkv6-1.6b", "olmoe-1b-7b")
 GRAD_TOL_F32 = 0.1
+# kimi-k2's bf16 expert gradients move with the routing as olmoe's do (top-8
+# of 128 experts: the kernel path against the plain path read 0.5364 at
+# layers/0/ffn/wo, median 0.05566, on an NVIDIA H100 80GB HBM3 at 700 W), and
+# it has no float32 step to hold instead: the float32 attention routes have
+# no head dim 112 (ROADMAP item 9.11). Its plain path takes the experts that
+# the kernel path's router chose, call for call (``pinned_routing``), so the
+# bf16 step is held under GRAD_TOL_BF16 with the same routing on both paths:
+# what differs is then the kernels' arithmetic, as for the dense configs.
+GRAD_PINNED_ROUTING = (KIMI,)
 # device memory that may still be allocated before a full-width training
 # run: a full-width state is 19-50 GiB, so more than this is a leak
 LEFTOVER_BYTES = 2 ** 30
@@ -704,11 +749,11 @@ def timings(kernel, plain, library=None, iters: int = 20) -> dict:
 
 
 # kernel -> (instantiations, the tensor-core instruction each one's SASS
-# must hold): the bf16 forward at 6 head dims and the bf16 backward's dK/dV
-# and dQ kernels at 6 each on wgmma (HGMMA); the float32 forward and the
-# float32 backward (its dK/dV and dQ blocks in one kernel) at 6 head dims
-# each on mma.sync (HMMA)
-TENSOR_CORE_KERNELS = {"flash_tc_kernel": (6, "HGMMA"), "flash_bwd_tc_kernel": (12, "HGMMA"),
+# must hold): the bf16 forward at 7 head dims (kimi-k2's 112 among them) and
+# the bf16 backward's dK/dV and dQ kernels at 7 each on wgmma (HGMMA); the
+# float32 forward and the float32 backward (its dK/dV and dQ blocks in one
+# kernel) at 6 head dims each on mma.sync (HMMA: not hd 112)
+TENSOR_CORE_KERNELS = {"flash_tc_kernel": (7, "HGMMA"), "flash_bwd_tc_kernel": (14, "HGMMA"),
                        "flash_f32_kernel": (6, "HMMA"), "flash_bwd_f32_kernel": (6, "HMMA")}
 
 
@@ -778,15 +823,16 @@ RMSNORM_BWD_WARP_KERNELS = 5
 def spill_check(lib_path: Path) -> None:
     """The hd-256 instantiations (``Li256E`` in the mangled name: gemma's and
     recurrentgemma's training and serve shapes) of the bf16 backward's two
-    kernels and of the float32 forward and backward, the hd-64, hd-96 and
-    hd-128 ones of the bf16 backward's two kernels (the dense swiglu
-    configs' and phi-3-vision's training shapes), every instantiation of the rmsnorm backward's warp
+    kernels and of the float32 forward and backward, the hd-64, hd-96,
+    hd-112 and hd-128 ones of the bf16 backward's two kernels (the dense
+    swiglu configs', phi-3-vision's and kimi-k2's training shapes), every
+    instantiation of the rmsnorm backward's warp
     kernel and of the rglru backward, and the N-64 ones (``Li64E``) of the
     wkv6 backward's kernels must not spill. (``main`` prints the bf16
     forward's registers at every head dim before this check.)"""
     bwd = ptxas_report(lib_path, "flash_bwd_tc_kernel")
     checks = [("flash_bwd_tc_kernel", 2, [r for r in bwd if f"Li{hd}E" in r[0]], f"hd-{hd} ")
-              for hd in (256, 64, 96, 128)]
+              for hd in (256, 64, 96, 112, 128)]
     checks += [(kernel, 1, [r for r in ptxas_report(lib_path, kernel) if "Li256E" in r[0]],
                 "hd-256 ") for kernel in ("flash_f32_kernel", "flash_bwd_f32_kernel")]
     checks.append(("rmsnorm_bwd_warp_kernel", RMSNORM_BWD_WARP_KERNELS,
@@ -913,13 +959,16 @@ def kernel_phase(dev):
         xr_, sr_ = randn(*shape), randn(4096, dtype=torch.float32)
         compare(f"rmsnorm bf16 {shape}", rn.rmsnorm(xr_, sr_), rn.rmsnorm_ref(xr_, sr_),
                 TOL["bfloat16"])
-    # timed: gemma-2b's width and deepseek-7b's (recurrentgemma-9b's too)
-    dw = get_arch("deepseek-7b").d_model
-    xw, sw = randn(B * S, dw), randn(dw, dtype=torch.float32)
-    err_w = compare(f"rmsnorm bf16 ({B * S}, {dw})", rn.rmsnorm(xw, sw), rn.rmsnorm_ref(xw, sw),
-                    TOL["bfloat16"])
-    for xn, sn, e, label in ((x, scale, err, f"x ({B * S}, {d}) bf16"),
-                             (xw, sw, err_w, f"x ({B * S}, {dw}) bf16 (deepseek-7b)")):
+    # timed: gemma-2b's width, deepseek-7b's (recurrentgemma-9b's too) and
+    # kimi-k2's 7168 (28 x 256: the block-per-row kernel, not the warp kernel)
+    timed = [(x, scale, err, f"x ({B * S}, {d}) bf16")]
+    for arch in ("deepseek-7b", KIMI):
+        dw = get_arch(arch).d_model
+        xw, sw = randn(B * S, dw), randn(dw, dtype=torch.float32)
+        err_w = compare(f"rmsnorm bf16 ({B * S}, {dw})", rn.rmsnorm(xw, sw),
+                        rn.rmsnorm_ref(xw, sw), TOL["bfloat16"])
+        timed.append((xw, sw, err_w, f"x ({B * S}, {dw}) bf16 ({arch})"))
+    for xn, sn, e, label in timed:
         bnd = bound(2 * nbytes(xn) + nbytes(sn), 4 * xn.numel(), "float32")
         w16 = sn.to(bf)
         rows.append(dict(
@@ -970,8 +1019,10 @@ def kernel_phase(dev):
         compare(f"flash_attention bf16 GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
                 fa.flash_attention(qh, kh, vh, window=80),
                 fa.flash_attention_ref(qh, kh, vh, window=80), TOL["bfloat16"])
-        f32_case(f"GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
-                 *qkv(1, 200, 4, 2, hd_, dtype=torch.float32), window=80)
+        if hd_ in fa.F32_HEAD_DIMS:
+            f32_case(f"GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
+                     *qkv(1, 200, 4, 2, hd_, dtype=torch.float32), window=80)
+    f32_refused(qkv)
     pairs = S * (S + 1) // 2  # causal (query, key) pairs per (b, h)
     bnd = bound(2 * nbytes(q) + nbytes(k, v), 4 * hd * pairs * B * H, "bfloat16")
     rows.append(dict(
@@ -1155,10 +1206,13 @@ def backward_rows(dev, randn, qkv):
             fail(f"rmsnorm_bwd {name} {label}: two calls on the same inputs differ")
         return err
 
-    # timed: gemma-2b's width in bf16 and float32, deepseek-7b's in bf16
-    dw = get_arch("deepseek-7b").d_model
+    # timed: gemma-2b's width in bf16 and float32, deepseek-7b's and
+    # kimi-k2's in bf16 (7168: 28 warps a row, more than the warp kernel's
+    # BWD_MAX_WARPS, so the block kernel)
+    dw, dk = get_arch("deepseek-7b").d_model, get_arch(KIMI).d_model
     for width, dt, arch in ((d, torch.bfloat16, ""), (d, torch.float32, ""),
-                            (dw, torch.bfloat16, " (deepseek-7b)")):
+                            (dw, torch.bfloat16, " (deepseek-7b)"),
+                            (dk, torch.bfloat16, f" ({KIMI})")):
         name = "bf16" if dt == torch.bfloat16 else "f32"
         x, dy, scale = randn(BATCH * PROMPT, width, dtype=dt), \
             randn(BATCH * PROMPT, width, dtype=dt), randn(width, dtype=torch.float32)
@@ -1295,8 +1349,38 @@ def backward_rows(dev, randn, qkv):
          window=40)
     for hd_ in fa.HEAD_DIMS[:-1]:
         case(f"bf16 hd {hd_} g 4 (1,4,200) window 80", 1, 200, 4, 1, hd_, window=80)
-        case(f"f32 hd {hd_} g 1 (2,2,77)", 2, 77, 2, 2, hd_, dtype=torch.float32)
+        if hd_ in fa.F32_HEAD_DIMS:
+            case(f"f32 hd {hd_} g 1 (2,2,77)", 2, 77, 2, 2, hd_, dtype=torch.float32)
     return rows
+
+
+def f32_refused(qkv) -> None:
+    """At a head dim the float32 routes lack (kimi-k2's 112), the float32
+    forward and backward raise ValueError on CUDA tensors and launch
+    nothing: no plain version stands in for them."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    for hd_ in sorted(set(fa.HEAD_DIMS) - set(fa.F32_HEAD_DIMS)):
+        q, k, v = qkv(1, 64, 2, 1, hd_, dtype=torch.float32)
+        lse = torch.zeros((1, 2, 64), device=q.device)
+        before = ops.launch_counts()
+        for name, call in (("flash_attention", lambda: fa.flash_attention(q, k, v)),
+                           ("flash_attention_bwd",
+                            lambda: fa.flash_attention_bwd(q, k, v, q, q, lse)),
+                           ("ops.flash_attention",
+                            lambda: ops.flash_attention(q, k, v))):
+            try:
+                call()
+            except ValueError as e:
+                print(f"  {name} float32 hd {hd_}: raises ValueError ({str(e)[:80]}...)")
+            else:
+                fail(f"{name} float32 hd {hd_}: no ValueError; the float32 route has no "
+                     f"hd {hd_}")
+        if ops.launch_counts() != before:
+            fail(f"float32 hd {hd_}: a refused call launched a kernel")
 
 
 def decode_cases(dev, randn):
@@ -2169,10 +2253,12 @@ def want_launches(model) -> dict:
             "wkv6_bwd": 0, "rglru_bwd": 0}
 
 
-def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
+def serve_phase(arch: str, prompt_len: int, card: str, changes=None, moe_route_kernels=None):
     """One serve run at full width through ``launch.serve`` (with the config
-    ``changes``: the int8 cache): exact launches, finite logits, the prefill
-    and 4 decode steps against the plain path's replay, a profile. Returns
+    ``changes``: the int8 cache, kimi-k2's depth): exact launches, finite
+    logits, the prefill and 4 decode steps against the plain path's replay,
+    a profile; with ``moe_route_kernels`` (the router and plan's kernels at
+    MOE_ARCH's width) also ``moe_at_width`` on the served layer. Returns
     (the launch counts, the logits of every step on the host)."""
     import torch
 
@@ -2227,16 +2313,59 @@ def serve_phase(arch: str, prompt_len: int, card: str, changes=None):
     res = serve.summary(arch, gen)
     extra = f", {cfg.encoder_seq} frames" if cfg.encoder_layers else ""
     extra += f", {cfg.num_img_tokens} image tokens" if cfg.num_img_tokens else ""
+    extra += "".join(f", {cut}" for cut in cuts(cfg))
+    extra += f", all {cfg.n_experts} experts top-{cfg.top_k}" if cfg.moe else ""
     print(f"serve {label} full width, batch {BATCH}, prompt {prompt_len}{extra}, {NEW} new "
           f"tokens on {card}: prefill_s {res['prefill_s']} decode_p50_s {res['decode_p50_s']} "
           f"decode_p99_s {res['decode_p99_s']} tokens_per_s {res['tokens_per_s']}")
     print(json.dumps({"serve": res, "prompt": prompt_len, "kv_cache_dtype": cfg.kv_cache_dtype,
                       "launches": counts, "card": card}))
     profile_serve(model, params, prompt, res, frames, image_embeds)
+    if cfg.moe and moe_route_kernels:
+        moe_at_width(model, params, card, moe_route_kernels)
     host_logits = logits.float().cpu()
     del model, params, gen, logits, steps
     torch.cuda.empty_cache()
     return counts, host_logits
+
+
+def moe_at_width(model, params, card: str, ref_route_kernels: int) -> None:
+    """The served model's first MoE layer alone (kimi-k2: 384 experts, top-8,
+    capacity factor 1.25, its shared expert) on seeded bf16 inputs of
+    BATCH x PROMPT tokens: two forward calls give the same bits, the
+    dropped slots, and the router and plan's kernel launches beside
+    MOE_ARCH's (``ref_route_kernels``): the plan has no loop over the
+    experts, so the count does not grow with E."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    cfg, p = model.cfg, params["layers"][0]["ffn"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    x = torch.randn((BATCH, PROMPT, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        first, second = M.moe_apply(p, x, cfg), M.moe_apply(p, x, cfg)
+        plan, _ = M.route(p, x, cfg)
+        route_kernels = kernel_trace(lambda: M.route(p, x, cfg), 1)[0]
+        route_ms = device_ms(lambda: M.route(p, x, cfg), iters=10)
+        layer_ms = device_ms(lambda: M.moe_apply(p, x, cfg), iters=5)
+    for name, a, b in zip(("y", "aux"), first, second):
+        if not torch.isfinite(a.float()).all():
+            fail(f"moe {cfg.name}: non-finite {name}")
+        if not torch.equal(a, b):
+            fail(f"moe {cfg.name}: {name} differs between two calls on the same inputs")
+    slots = BATCH * PROMPT * cfg.top_k
+    dropped = int(plan.dropped)
+    print(f"moe {cfg.name} full width bf16 ({BATCH} x {PROMPT} tokens, {cfg.n_experts} experts, "
+          f"top-{cfg.top_k}, {cfg.n_shared_experts} shared, capacity_factor "
+          f"{cfg.capacity_factor}: C = {plan.capacity}): two calls give the same bits; dropped "
+          f"slots {dropped} of {slots} ({100 * dropped / slots:.2f}%); the router and plan "
+          f"launch {route_kernels} kernels ({MOE_ARCH}'s {ref_route_kernels} at 64 experts), "
+          f"{route_ms:.5f} device ms; the layer {layer_ms:.5f} device ms on {card}")
+    if route_kernels > ref_route_kernels:
+        fail(f"moe {cfg.name}: the router and plan launch {route_kernels} kernels at "
+             f"{cfg.n_experts} experts, more than {ref_route_kernels} at 64")
 
 
 def int8_against_bf16_cache(int8_logits, bf16_logits) -> None:
@@ -2417,13 +2546,16 @@ def moe_layer_phase(dev, card: str) -> dict:
                  "combine": lambda: M.combine(out_buf, plan)}
         ms = {name: device_ms(fn, iters=10) for name, fn in parts.items()}
     ms["forward and backward"] = device_ms(fwd_bwd, iters=5)
+    with torch.no_grad():
+        route_kernels = kernel_trace(lambda: M.route(p, x, cfg), 1)[0]
     flops = 2 * 3 * E * buf.shape[1] * cfg.d_model * cfg.d_ff
     print(f"moe layer {MOE_ARCH} device ms on {card}: "
           + ", ".join(f"{name} {v:.5f}" for name, v in ms.items())
           + f" (the expert products' {flops / 1e12:.3f} TFLOP over {E} x {buf.shape[1]} buffer "
           f"rows: bound {flops / PEAK_OPS_PER_S['bfloat16'] * 1e3:.5f} ms at 989 TFLOP/s)")
     print(json.dumps({"moe_layer": {"arch": MOE_ARCH, "card": card, "capacity": plan.capacity,
-                                    "dropped": dropped, "slots": slots, "device_ms": ms}}))
+                                    "dropped": dropped, "slots": slots, "device_ms": ms,
+                                    "route_kernels": route_kernels}}))
     del live, first, second, plan, buf, out_buf, p
     # float32, drop-free: the dispatch path against the dense oracle
     cfg32 = dataclasses.replace(cfg, dtype="float32", capacity_factor=float(E))
@@ -2441,7 +2573,7 @@ def moe_layer_phase(dev, card: str) -> dict:
           f"{float(want.abs().max()):.3g}")
     del p32, x32, got, want
     free_device_memory()
-    return {"device_ms": ms, "dropped": dropped}
+    return {"device_ms": ms, "dropped": dropped, "route_kernels": route_kernels}
 
 
 def mesh_phase(dev, card: str, auto: dict):
@@ -2718,8 +2850,9 @@ def reduced_reference_phase(dev):
     stack) and a prompt of three windows, qwen2.5 (its qkv bias made
     nonzero), olmoe (its mixture of experts on the card against the CPU),
     whisper (16 frames, 40 tokens: a cross call of 16 keys at hd 16, its
-    biases nonzero), gemma with the int8 cache and phi-3-vision (4 image
-    tokens before 40 text tokens). Returns the float32
+    biases nonzero), gemma with the int8 cache, phi-3-vision (4 image
+    tokens before 40 text tokens) and kimi-k2 (4 experts top-2 and its
+    shared expert). Returns the float32
     attention routes' launches of the card's runs."""
     import dataclasses
 
@@ -2741,7 +2874,7 @@ def reduced_reference_phase(dev):
     for arch, n_layers, prompt_len, changes in (
             ("gemma-2b", 2, 40, {}), ("rwkv6-1.6b", 2, 40, {}), ("recurrentgemma-9b", 5, 48, {}),
             ("qwen2.5-3b", 2, 40, {}), ("olmoe-1b-7b", 2, 40, {}), (WHISPER, 2, 40, {}),
-            ("gemma-2b", 2, 40, INT8), (VISION_ARCH, 2, 40, {})):
+            ("gemma-2b", 2, 40, INT8), (VISION_ARCH, 2, 40, {}), (KIMI, 2, 40, {})):
         cfg = dataclasses.replace(get_arch(arch).reduced(), n_layers=n_layers, **changes)
         model = build_model(cfg)
         g = torch.Generator(device=dev)
@@ -3229,20 +3362,35 @@ def train_batch(model, dev) -> dict:
 
 
 def train_config(arch: str, layers):
-    """``arch``'s registered config, its depth cut to ``layers`` unless None."""
+    """``arch``'s registered config, its depth cut to ``layers`` unless None
+    and its experts to TRAIN_EXPERTS where that names it."""
     import dataclasses
 
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(arch)
-    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+    changes = {} if layers is None else {"n_layers": layers}
+    if arch in TRAIN_EXPERTS:
+        changes["n_experts"] = TRAIN_EXPERTS[arch]
+    return dataclasses.replace(get_arch(arch), **changes)
+
+
+def cuts(cfg) -> list:
+    """How ``cfg`` is cut from its registered config: its layers and its
+    experts, where fewer."""
+    from repro_torch.configs import get_arch
+
+    reg = get_arch(cfg.name)
+    out = []
+    if cfg.n_layers != reg.n_layers:
+        out.append(f"{cfg.n_layers} layer{'s' if cfg.n_layers != 1 else ''}")
+    if cfg.n_experts != reg.n_experts:
+        out.append(f"{cfg.n_experts} of {reg.n_experts} experts")
+    return out
 
 
 def train_label(cfg) -> str:
-    from repro_torch.configs import get_arch
-
-    cut = cfg.n_layers != get_arch(cfg.name).n_layers
-    return f"{cfg.name} ({cfg.n_layers} layers)" if cut else cfg.name
+    cut = cuts(cfg)
+    return f"{cfg.name} ({', '.join(cut)})" if cut else cfg.name
 
 
 def full_width_train(card: str, cfg) -> dict:
@@ -3288,8 +3436,9 @@ def full_width_train(card: str, cfg) -> dict:
         fail(f"train {arch}: losses {losses}")
     if not losses[-1] < losses[0]:
         fail(f"train {arch}: the loss on a repeated batch did not fall: {losses}")
-    print(f"train {arch} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 activations, "
-          f"float32 masters + AdamW, {TRAIN_STEPS} steps on {card}: step_s median "
+    print(f"train {arch} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.dtype} "
+          f"activations, {cfg.param_dtype} masters + {cfg.optimizer}, {TRAIN_STEPS} steps on "
+          f"{card}: step_s median "
           f"{res['step_s_median']:.4f}, tokens/s {res['tokens_per_s']:.1f}, peak "
           f"max_memory_allocated {res['peak_device_bytes'] / 2**30:.2f} GiB, max_memory_reserved "
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB, losses {losses}")
@@ -3378,6 +3527,30 @@ def zero_grad_leaves(model) -> dict:
     return {f"{m}/bk": f"{m}/wk" for m in mixers}
 
 
+@contextlib.contextmanager
+def pinned_routing(chosen: list, replay: bool):
+    """``models.moe.top_k`` recording each call's chosen experts into
+    ``chosen`` (``replay`` False), or handing them back in the same order
+    (``replay`` True): a second run of the same step (with remat, every
+    layer's router runs twice, in the forward and again in the backward)
+    then routes every token to the experts of the first."""
+    from repro_torch.models import moe as M
+
+    real, calls = M.top_k, iter(chosen)
+
+    def top_k(probs, k):
+        if replay:
+            return next(calls)
+        chosen.append(real(probs, k))
+        return chosen[-1]
+
+    M.top_k = top_k
+    try:
+        yield
+    finally:
+        M.top_k = real
+
+
 def train_grad_check(dev, cfg) -> None:
     """One step's gradients at full width on the kernel path against the same
     step under ``ops.plain_versions()``, leaf by leaf: in bf16 activations
@@ -3397,15 +3570,19 @@ def train_grad_check(dev, cfg) -> None:
     from repro_torch.train.optim import _paths
     from repro_torch.utils.tree import flatten, unflatten
 
+    chosen = []  # the kernel path's experts, where the routing is pinned
+
     def step_grads(cfg, plain: bool):
         model = build_model(cfg)
         g = torch.Generator(device=dev)
         g.manual_seed(0)
-        params = model.init(g, dev, param_dtype=torch.float32)
+        params = model.init(g, dev, param_dtype=getattr(torch, cfg.param_dtype))
         batch = train_batch(model, dev)
         leaves, treedef = flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        with ops.plain_versions() if plain else contextlib.nullcontext():
+        pin = pinned_routing(chosen, plain) if cfg.name in GRAD_PINNED_ROUTING \
+            else contextlib.nullcontext()
+        with ops.plain_versions() if plain else contextlib.nullcontext(), pin:
             loss = model.loss(unflatten(treedef, live), batch)
             grads = torch.autograd.grad(loss, live)
         names = ["/".join(p) for p, _ in _paths(params)]
@@ -3442,6 +3619,10 @@ def train_grad_check(dev, cfg) -> None:
 
     arch = train_label(cfg)
     check_free_memory(f"train grads {arch}")
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.name in GRAD_PINNED_ROUTING:
+        print(f"train grads {arch}: the plain path routes every token to the kernel path's "
+              f"experts (GRAD_PINNED_ROUTING)")
     f32 = cfg.name in GRAD_F32_ARCHS
     tol = GRAD_TOL_F32 if f32 else GRAD_TOL_BF16
 
@@ -3479,6 +3660,9 @@ def train_grad_check(dev, cfg) -> None:
         del plain32
         kernel_vs_plain("bf16", step_grads(cfg, False), plain16, held=False)
         del plain16
+    print(f"train grads {arch}: peak max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, max_memory_reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
     free_device_memory()
 
 
@@ -4442,6 +4626,12 @@ def main() -> int:
     int8_against_bf16_cache(int8_logits, bf16_cache_logits)
     del int8_logits, bf16_cache_logits
     print(f"serve {ARCH} int8 cache: {time.perf_counter() - t1_s:.1f} s")
+    t1_s = time.perf_counter()
+    counts, _ = serve_phase(KIMI, PROMPT, card, changes=KIMI_SERVE,
+                            moe_route_kernels=auto_moe["route_kernels"])
+    for name, n in counts.items():
+        launches[name] += n
+    print(f"serve {KIMI}: {time.perf_counter() - t1_s:.1f} s")
     lap("serve")
     for arch, prompt_len in SERVES:
         t1_s = time.perf_counter()

@@ -168,6 +168,7 @@ def _ensure_loaded():
         deepseek_7b,
         gemma_2b,
         granite_3_2b,
+        kimi_k2,
         olmoe_1b_7b,
         phi3_vision,
         qwen25_3b,

@@ -20,7 +20,9 @@ Leaves the reference uses in float32 arithmetic without
 same tuples the models' ``init`` reads). Every other weight is cast to the
 activation dtype, as the reference casts it at use, so the products are
 the same; training asks for ``param_dtype=torch.float32`` instead, the
-reference's own storage type (the layers cast at use).
+reference's own storage type (the layers cast at use). A narrower
+``param_dtype`` (kimi-k2's bfloat16 masters) holds every leaf in it, the
+norms too, as the reference's ``init`` does.
 
 ``train_state_from_jax`` carries the reference's train state (``params``,
 ``opt``, ``step``[, ``efb``], numpy leaves) into the port's: the optimizer
@@ -47,14 +49,17 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32), dtype=dtype, device=device)
 
 
-def _convert(tree: Dict[str, Any], dtype, device, layer=None, f32=()) -> Dict[str, Any]:
+def _convert(tree: Dict[str, Any], dtype, device, layer=None, f32=(),
+             wide=torch.float32) -> Dict[str, Any]:
+    """``tree``'s leaves in ``dtype``, the norms and the ``f32`` leaves in
+    ``wide``."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
-            dt = torch.float32 if key in _NORM_KEYS else dtype
-            out[key] = _convert(val, dt, device, layer, F32_LEAVES.get(key, ()))
+            dt = wide if key in _NORM_KEYS else dtype
+            out[key] = _convert(val, dt, device, layer, F32_LEAVES.get(key, ()), wide)
         else:
-            dt = torch.float32 if key in f32 else dtype
+            dt = wide if key in f32 else dtype
             out[key] = _tensor(val if layer is None else val[layer], dt, device)
     return out
 
@@ -62,14 +67,16 @@ def _convert(tree: Dict[str, Any], dtype, device, layer=None, f32=()) -> Dict[st
 def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu",
                     param_dtype=None) -> Dict[str, Any]:
     """The reference's values tree (numpy leaves) -> the port's parameters,
-    matrices in ``param_dtype`` (default: the activation dtype)."""
+    matrices in ``param_dtype`` (default: the activation dtype); a
+    ``param_dtype`` other than float32 holds the norms in it too."""
     build_model(cfg)  # raises for a configuration the port does not run
     dt = param_dtype or activation_dtype(cfg)
+    wide = torch.float32 if param_dtype in (None, torch.float32) else param_dtype
     params: Dict[str, Any] = {
         "embed": _tensor(values["embed"], dt, device),
-        "final_ln": _convert(values["final_ln"], torch.float32, device),
+        "final_ln": _convert(values["final_ln"], wide, device),
         "layers": [
-            _convert(values[f"stack{si}"][f"b{j}"], dt, device, layer=rep)
+            _convert(values[f"stack{si}"][f"b{j}"], dt, device, layer=rep, wide=wide)
             for si, (unit, reps) in enumerate(_stacks_for(cfg))
             for rep in range(reps)
             for j in range(len(unit))
@@ -81,9 +88,9 @@ def from_jax_values(values: Dict[str, Any], cfg: ArchConfig, device="cpu",
         params["pos_embed"] = _tensor(values["pos_embed"], dt, device)
     if cfg.encoder_layers:
         params["enc_pos"] = _tensor(values["enc_pos"], dt, device)
-        params["encoder"] = [_convert(values["encoder"]["b0"], dt, device, layer=rep)
+        params["encoder"] = [_convert(values["encoder"]["b0"], dt, device, layer=rep, wide=wide)
                              for rep in range(cfg.encoder_layers)]
-        params["enc_ln"] = _convert(values["enc_ln"], torch.float32, device)
+        params["enc_ln"] = _convert(values["enc_ln"], wide, device)
     return params
 
 
@@ -95,10 +102,12 @@ def _float32_tree(tree, device):
 
 def train_state_from_jax(state: Dict[str, Any], cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
     """The reference's ``make_train_step`` state with numpy leaves -> the
-    port's: float32 parameters, the float32 optimizer state and error
-    feedback in the reference's stacked layout, the step an int32 tensor."""
+    port's: the parameters in ``cfg.param_dtype``, the float32 optimizer
+    state and error feedback in the reference's stacked layout, the step an
+    int32 tensor."""
     out = {
-        "params": from_jax_values(state["params"], cfg, device, param_dtype=torch.float32),
+        "params": from_jax_values(state["params"], cfg, device,
+                                  param_dtype=getattr(torch, cfg.param_dtype)),
         "opt": _float32_tree(state["opt"], device),
         "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=device),
     }

@@ -539,6 +539,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const void*
     RT_DECODE(32)
     RT_DECODE(64)
     RT_DECODE(96)
+    RT_DECODE(112)
     RT_DECODE(128)
     RT_DECODE(256)
     default: return (int)cudaErrorInvalidValue;

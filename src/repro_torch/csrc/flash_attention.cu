@@ -31,9 +31,11 @@
 //   wait on a block-wide barrier. Each TMA box lands as a 64-column block
 //   of 128-byte rows in the 128-byte swizzle that the wgmma descriptors
 //   name. At hd 256 that is 64 + 2·(32 + 32) = 192 KB of dynamic shared
-//   memory. Rows past S and columns past hd arrive as zeros: hd < 64 and
-//   hd 96 (phi-3-vision, padded to two blocks: Q·Kᵀ over the zero columns
-//   is exact, P·V's columns past hd are never stored; 4/3 of the products).
+//   memory. Rows past S and columns past hd arrive as zeros: hd < 64, hd
+//   96 (phi-3-vision) and hd 112 (kimi-k2), each padded to two blocks: Q·Kᵀ
+//   over the zero columns is exact, P·V's columns past hd are never stored
+//   (4/3 and 8/7 of the products). The row stride of hd 112, 224 bytes, is
+//   a multiple of 16, as the tensor maps need.
 // - setmaxnreg moves registers from the producer (24 a thread) to the
 //   consumers (240): the O accumulator alone is 64 × hd float32 per
 //   warpgroup, 128 registers a thread at hd 256.
@@ -436,7 +438,8 @@ constexpr int TC_CONSUMER_REGS = 240;
 
 template <int HD>
 struct TcShape {
-  // row padded to whole 64-column blocks (hd 96: two, columns 96-127 zeros)
+  // row padded to whole 64-column blocks (hd 96 and 112: two, columns 96 or
+  // 112 to 127 zeros)
   static constexpr int HDP = (HD + 63) / 64 * 64;
   static constexpr int NDB = HDP / 64;  // 64-column blocks
   static constexpr int Q_BYTES = TC_BQ * HDP * 2;
@@ -704,6 +707,9 @@ LaunchFn pick(int dtype, int hd) {
     case 32: return bf ? launch_tc<32> : launch_f32<32>;
     case 64: return bf ? launch_tc<64> : launch_f32<64>;
     case 96: return bf ? launch_tc<96> : launch_f32<96>;
+    // bf16 only: the float32 route's column groups do not divide 112
+    // (F32Shape::NG); the wrapper raises first
+    case 112: return bf ? launch_tc<112> : LaunchFn{nullptr};
     case 128: return bf ? launch_tc<128> : launch_f32<128>;
     case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;

@@ -721,8 +721,8 @@ constexpr int BAR_X_EMPTY = 2;  // named barrier: warpgroup 1 has read it
 
 template <int HD>
 struct BwdShape {
-  // row padded to whole 64-column blocks (hd 96: two, columns 96-127 zeros,
-  // never stored)
+  // row padded to whole 64-column blocks (hd 96 and 112: two, columns 96 or
+  // 112 to 127 zeros, never stored)
   static constexpr int HDP = (HD + 63) / 64 * 64;
   static constexpr int NDB = HDP / 64;  // 64-column blocks
   static constexpr int TILE = TB_ROWS * HDP * 2;  // one 64-row bf16 tile
@@ -1075,6 +1075,9 @@ LaunchFn pick(int dtype, int hd) {
     case 32: return bf ? launch_tc<32> : launch_f32<32>;
     case 64: return bf ? launch_tc<64> : launch_f32<64>;
     case 96: return bf ? launch_tc<96> : launch_f32<96>;
+    // bf16 only: the float32 route's swizzled tiles need whole 128-byte
+    // lines, and 112 floats are 3.5 (BwdF32Shape); the wrapper raises first
+    case 112: return bf ? launch_tc<112> : LaunchFn{nullptr};
     case 128: return bf ? launch_tc<128> : launch_f32<128>;
     case 256: return bf ? launch_tc<256> : launch_f32<256>;
     default: return nullptr;

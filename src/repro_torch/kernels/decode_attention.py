@@ -33,7 +33,7 @@ NEG_INF = -1.0e30
 #: launches of the CUDA kernel since the last reset (see ``ops.launch_counts``)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 MAX_GROUP = 16  # query heads per KV head the kernel serves from one block
 MIN_CHUNK = 8  # cache slots per block: below this a block's fixed costs dominate
 MAX_CHUNK = 64  # the kernel's shared-memory tile (csrc/decode_attention.cu)

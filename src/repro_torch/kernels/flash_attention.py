@@ -47,7 +47,11 @@ bwd_launches = 0
 f32_launches = 0
 f32_bwd_launches = 0
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
+#: the float32 routes' head dims: not kimi-k2's 112, which the bfloat16
+#: routes pad to two 64-column blocks and the float32 routes' tiles do not
+#: divide (ROADMAP.md Queue 1, item 9.11)
+F32_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
 
 def _check(q, k, v, causal: bool = True, window: int = 0):
@@ -67,6 +71,16 @@ def _check(q, k, v, causal: bool = True, window: int = 0):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k and v must share a dtype")
     return B, H, K, S, Sk, hd
+
+
+def _check_route(q, what: str) -> None:
+    """The float32 kernels take F32_HEAD_DIMS only; a head dim they lack
+    raises (the plain version is never taken for a CUDA tensor)."""
+    hd = q.shape[-1]
+    if q.dtype == torch.float32 and hd not in F32_HEAD_DIMS:
+        raise ValueError(f"{what}: the float32 route has no head_dim {hd} (it runs "
+                         f"{F32_HEAD_DIMS}; the bfloat16 route runs {HEAD_DIMS}): not ported "
+                         f"yet (ROADMAP.md Queue 1, item 9.11)")
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -95,6 +109,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, return_lse
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: the CUDA kernel takes CUDA tensors on one device")
     B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
+    _check_route(q, "flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head_dim axis must have stride 1")
@@ -137,6 +152,7 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True, window: i
     if not all(t.is_cuda and t.device == q.device for t in (k, v, o, dout, lse)):
         raise ValueError("flash_attention_bwd: the CUDA kernel takes CUDA tensors on one device")
     B, H, K, S, Sk, hd = _check(q, k, v, causal, window)
+    _check_route(q, "flash_attention_bwd")
     if o.shape != q.shape or dout.shape != q.shape or not (o.dtype == dout.dtype == q.dtype):
         raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and dout "
                          f"{dout.dtype} {tuple(dout.shape)} must be q's {q.dtype} "

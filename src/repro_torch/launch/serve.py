@@ -20,7 +20,10 @@ follows. The int8 KV cache is a config field (``kv_cache_dtype``), as in
 the reference, which has no flag for it: ``setup(..., changes={
 "kv_cache_dtype": "int8"})``. It runs on ``cuda`` (the hand-written kernels)
 unless ``--device cpu`` is given (the plain torch versions); without a CUDA
-device and without that flag it raises.
+device and without that flag it raises. A model whose weights exceed the
+device's memory (``--full`` of kimi-k2-1t-a32b: 1 T parameters) exits 1
+with a message before anything is allocated; ``setup(..., full=True,
+changes={"n_layers": 1})`` serves its full width at one layer.
 """
 from __future__ import annotations
 
@@ -38,13 +41,16 @@ import torch
 from repro_torch.configs import all_archs, get_arch
 from repro_torch.models import build_model
 from repro_torch.orchestrator.contract import EXIT_OK
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import check_fits, resolve_device
+from repro_torch.utils.tree import tree_bytes, tree_count
 
 
 def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_len: int = 64,
           device: str = "cuda", seed: int = 0, changes: Optional[dict] = None):
     """Build the model (its config with ``changes`` applied), its random
-    weights and a random prompt (B, S)."""
+    weights and a random prompt (B, S). A model whose weights alone exceed
+    the device's memory (the full-size kimi-k2: 2 TB in bfloat16) raises
+    MemoryError before anything is allocated."""
     cfg = get_arch(arch)
     if not full:
         cfg = cfg.reduced()
@@ -52,6 +58,9 @@ def setup(arch: str = "gemma-2b", *, full: bool = False, batch: int = 4, prompt_
         cfg = dataclasses.replace(cfg, **changes)
     dev = resolve_device(device)
     model = build_model(cfg)
+    weights = model.init(None, "meta")
+    check_fits(f"serving {cfg.name} ({tree_count(weights) / 1e9:.2f} B parameters)",
+               tree_bytes(weights), dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = model.init(gen, dev)
@@ -177,8 +186,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.new_tokens < 3:
         ap.error("--new-tokens must be at least 3 (the first decode step is a warm-up)")
 
-    model, params, prompt = setup(args.arch, full=args.full, batch=args.batch,
-                                  prompt_len=args.prompt_len, device=args.device)
+    try:
+        model, params, prompt = setup(args.arch, full=args.full, batch=args.batch,
+                                      prompt_len=args.prompt_len, device=args.device)
+    except MemoryError as e:  # a config no device holds: said before any allocation
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
     frames = make_frames(model, args.batch, prompt.device)
     image_embeds = make_image_embeds(model, args.batch, prompt.device)
     warning = ring_warning(model, args.prompt_len)

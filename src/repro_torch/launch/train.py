@@ -11,8 +11,11 @@ trains without fault tolerance, where the reference's launcher maps it to
 without that flag it raises) and ``--repeat-batch`` (every step trains on
 step 0's batch: a run whose loss must fall). The default is the reduced
 config; ``--full`` is the exact assigned config (gemma-2b at full width
-needs the card: ~30 GB of float32 masters and AdamW moments). Activations
-run in the config's dtype, the parameters and optimizer state in float32.
+needs the card: ~30 GB of float32 masters and AdamW moments; the full-size
+kimi-k2-1t-a32b fits no card and raises MemoryError before it allocates).
+Activations run in the config's dtype, the parameters in its
+``param_dtype`` (float32, or kimi-k2's bfloat16) and the optimizer state in
+float32.
 
 Supervision contract: ``--json`` makes the final line a single JSON object
 with the run's counters, step times, tokens/s, peak device memory and
@@ -25,6 +28,7 @@ import argparse
 import json
 import shutil
 import statistics
+import sys
 import tempfile
 from typing import List, Optional
 
@@ -36,9 +40,9 @@ from repro_torch.core.trainer import FTReport, FTTrainer
 from repro_torch.data.synthetic import token_batches
 from repro_torch.models import build_model
 from repro_torch.orchestrator.contract import EXIT_OK
-from repro_torch.train.step import make_train_step
-from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_bytes
+from repro_torch.train.step import abstract_state, make_train_step
+from repro_torch.utils.device import check_fits, resolve_device
+from repro_torch.utils.tree import tree_bytes, tree_count
 
 POLICIES = ["none", "checkpoint", "agent", "core", "hybrid"]
 
@@ -61,9 +65,14 @@ def make_trainer(cfg, *, lr: float = 3e-4, batch: int = 4, seq: int = 128,
     """FTTrainer (seeded ``trainer_seed``) over ``cfg``'s train step with
     batches from ``data.synthetic`` (seed 0), parameters from a torch
     Generator seeded 0 on ``device``. Returns (trainer, losses): ``losses``
-    gathers each executed step's loss (a tensor) as the run goes."""
+    gathers each executed step's loss (a tensor) as the run goes. A config
+    whose state and one gradient set exceed the device's memory (the
+    full-size kimi-k2) raises MemoryError before anything is allocated."""
     dev = resolve_device(device)
     model = build_model(cfg)
+    state = abstract_state(model)
+    check_fits(f"training {cfg.name} ({tree_count(state['params']) / 1e9:.2f} B parameters)",
+               tree_bytes(state) + tree_bytes(state["params"]), dev)
     train_step, init_state = make_train_step(model, lr=lr)
     stream = token_batches(seed=0, batch=batch, seq=seq, vocab=cfg.vocab)
     make_batch = (lambda step: stream(0)) if repeat_batch else stream
@@ -113,7 +122,11 @@ def summary(arch: str, policy: str, rep: FTReport, losses, batch: int, seq: int,
 
 
 def main(argv=None) -> int:
-    res = run(argv)
+    try:
+        res = run(argv)
+    except MemoryError as e:  # a config no device holds: said before any allocation
+        print(f"train: {e}", file=sys.stderr)
+        return 1
     return res["exit_code"]
 
 
@@ -156,7 +169,7 @@ def run(argv=None) -> dict:
             hosts=args.hosts, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
             async_ckpt=args.async_ckpt, device=args.device, repeat_batch=args.repeat_batch)
         print(f"{args.arch}{'' if args.full else ' (reduced)'}: "
-              f"{tree_bytes(trainer.state['params']) / 4e6:.1f}M params, policy={args.policy}, "
+              f"{tree_count(trainer.state['params']) / 1e6:.1f}M params, policy={args.policy}, "
               f"device={dev}")
         if failures:
             print(f"injected failures at steps: {[round(e.t, 1) for e in failures]}")

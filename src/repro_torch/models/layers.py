@@ -10,8 +10,11 @@ names. Each matrix weight is cast to the activation dtype at use, as the
 reference casts it with ``.astype(x.dtype)``: serving stores the matrices
 in the activation dtype already (the cast is then a no-op), training keeps
 float32 masters; the qkv biases (qwen2.5, whisper) follow the matrices.
-Norm scales and biases stay float32 because the norm computes in float32.
-The RMS norm, prefill attention and decode attention go through
+Norm scales and biases are float32 (the norm computes in float32) unless
+the masters are held in another ``param_dtype`` (kimi-k2's bfloat16), as the
+reference's ``init`` casts every floating leaf; the norms cast them to
+float32 at use, as the reference's float32 arithmetic promotes them. The
+RMS norm, prefill attention and decode attention go through
 :mod:`repro_torch.kernels.ops` (CUDA kernels on the card); the layer norm
 (no Pallas kernel computes it in the reference), the projections, the
 int8 cache's quantization and the MLP are plain torch ops.
@@ -27,6 +30,7 @@ is column-split (``wg`` / ``wu`` / ``wi``) then row-split (``wo``).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -36,20 +40,35 @@ from repro_torch.kernels import ops
 from repro_torch.sharding import tp
 
 INIT_STD = 0.02
+#: a leaf of more elements than this, stored in a narrower dtype than
+#: float32, is drawn in blocks of its leading rows: no float32 copy of the
+#: whole leaf is ever held (kimi-k2's embedding, head and expert leaves;
+#: every other config's leaves are smaller and drawn whole)
+DRAW_BLOCK = 1 << 30
 
 Params = Dict[str, torch.Tensor]
 
 
 def _normal(gen, shape, std, device, dtype):
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return w.mul_(std).to(dtype)
+    n = math.prod(shape)
+    if n <= DRAW_BLOCK or dtype == torch.float32:
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return w.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_BLOCK // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        block = out[i:i + rows]
+        block.copy_(torch.randn(block.shape, generator=gen, device=device,
+                                dtype=torch.float32).mul_(std))
+    return out
 
 
-def norm_init(dim: int, device, kind: str = "rms") -> Params:
-    """{"scale"} (ones), and for ``kind="layer"`` {"bias"} (zeros), float32."""
-    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+def norm_init(dim: int, device, kind: str = "rms", dtype=torch.float32) -> Params:
+    """{"scale"} (ones), and for ``kind="layer"`` {"bias"} (zeros), in
+    ``dtype`` (float32 unless the masters are held narrower)."""
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
     if kind == "layer":
-        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
     return p
 
 
@@ -61,13 +80,15 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str = "rms", eps: float = 1e-6)
     """The reference's ``norm_apply``: RMS norm (the kernel), or with
     ``kind="layer"`` the layer norm in float32 with the reference's
     arithmetic: the mean, the mean of the squared deviations, then
-    (x - mean) * rsqrt(var + eps) * scale + bias, cast back."""
+    (x - mean) * rsqrt(var + eps) * scale + bias, cast back. The scale and
+    bias enter as float32 (a no-op unless the masters are narrower)."""
+    f32 = torch.float32
     if kind != "layer":
-        return ops.rmsnorm(x, p["scale"], eps)
-    xf = x.to(torch.float32)
+        return ops.rmsnorm(x, p["scale"].to(f32), eps)
+    xf = x.to(f32)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"].to(f32) + p["bias"].to(f32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

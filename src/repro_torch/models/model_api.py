@@ -85,6 +85,7 @@ from repro_torch.models import rwkv6 as R
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import tp
 from repro_torch.sharding.rules import MeshRules, constrain, entry_axes, map_specs
+from repro_torch.utils.tree import tree_map
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
 _PATTERN_KINDS = ("rec", "attn")
@@ -169,8 +170,12 @@ class ModelDef:
         decay LoRA 0.01), norm scales 1, and the reference's constant
         initialisers for the rwkv and RG-LRU parameters. The matrices are
         stored in ``param_dtype`` (default: the activation dtype, for
-        serving; training passes float32 masters, cast at use). An
-        encoder-decoder's learned positions are normal with std 0.01."""
+        serving; training passes its masters' ``cfg.param_dtype``, cast at
+        use). A ``param_dtype`` other than float32 holds every floating
+        leaf in it, the norms and the recurrent families' float32 leaves
+        too, as the reference's ``init`` casts them (kimi-k2's bfloat16
+        masters). An encoder-decoder's learned positions are normal with
+        std 0.01."""
         cfg = self.cfg
         dt = param_dtype or activation_dtype(cfg)
         params: Dict[str, Any] = {
@@ -187,7 +192,9 @@ class ModelDef:
             params["encoder"] = [self._block_init("enc", gen, device, dt)
                                  for _ in range(cfg.encoder_layers)]
             params["enc_ln"] = L.norm_init(cfg.d_model, device, cfg.norm)
-        return params
+        if param_dtype is None or param_dtype == torch.float32:
+            return params
+        return tree_map(lambda t: t.to(param_dtype) if t.is_floating_point() else t, params)
 
     # -- logical axes and abstract trees ---------------------------------------
     def _block_axes(self, kind: str) -> Dict[str, Any]:
@@ -223,15 +230,8 @@ class ModelDef:
 
     def abstract_init(self) -> Dict[str, Any]:
         """``init``'s tree on the meta device (shapes and dtypes, no
-        storage), the matrices in ``cfg.param_dtype`` as training holds them;
-        a ``param_dtype`` other than float32 holds every floating leaf in
-        it, the norms too, as the reference's ``init`` casts them."""
-        pd = getattr(torch, self.cfg.param_dtype)
-        params = self.init(None, "meta", param_dtype=pd)
-        if pd == torch.float32:
-            return params
-        return map_specs(lambda _, t: t.to(pd) if t.is_floating_point() else t,
-                         self.param_axes(), params)
+        storage) in ``cfg.param_dtype``, as training holds it."""
+        return self.init(None, "meta", param_dtype=getattr(torch, self.cfg.param_dtype))
 
     def run_specs(self, rules: MeshRules) -> Dict[str, Any]:
         """How each parameter leaf lies over the mesh when the port runs

@@ -21,7 +21,8 @@ under the reference's paths (``embed``, ``final_ln/scale``,
 state and error-feedback tensors they are given (the reference's are
 pure): a full-width AdamW state (~30 GB for gemma-2b) does not fit on the
 card twice. The arithmetic is the reference's, operation by operation, in
-float32.
+float32; Adafactor's statistics over a large leaf are summed in pieces
+(``PIECE``), in another order.
 """
 from __future__ import annotations
 
@@ -145,9 +146,38 @@ def _adamw(lr, stacks, b1=0.9, b2=0.95, eps=1e-8, wd=0.01):
     return init, update
 
 
+#: the most elements of a leaf that Adafactor's update holds in float32
+#: temporaries at once: a larger leaf is updated a block of rows at a time
+#: (kimi-k2's (E, 7168, 2048) expert leaves are 5.64 G elements a layer)
+PIECE = 1 << 27
+
+
+def _row_blocks(t: torch.Tensor, piece: int):
+    """Index tuples that cut ``t`` into blocks of whole rows (its
+    second-to-last axis) of at most ``piece`` elements, one row at least;
+    a 1-D ``t`` is one block."""
+    if t.dim() < 2:
+        return [(Ellipsis,)]
+    R = t.shape[-2]
+    step = max(1, piece // (t.numel() // R))
+    return [(Ellipsis, slice(i, min(i + step, R)), slice(None)) for i in range(0, R, step)]
+
+
 def _adafactor(lr, stacks, eps=1e-30, decay=0.8, clip=1.0):
     """Factored second moments for leaves of two or more axes (a stacked
-    leaf counts its repeat axis, as the reference's does)."""
+    leaf counts its repeat axis, as the reference's does).
+
+    Each statistic is the reference's over the whole leaf, taken in parts
+    so that no float32 copy of a large leaf is ever whole. A part holds
+    whole rows and columns of the leaf's last two axes: a stacked leaf's
+    layers one at a time (a stacked leaf of 1-D layers, its layers being
+    its rows, as one small stacked copy). Each part is read in blocks of
+    at most PIECE elements of whole rows: the row means and the new
+    ``vr`` per block, the column sums added over the blocks into the new
+    ``vc``; then the update's sum of squares over the whole leaf (its RMS
+    for the clipping), then the update itself, block by block. The
+    arithmetic is the reference's up to the order of the sums, and the
+    state is its tree."""
 
     def init(params):
         def st(ts, stacked):
@@ -159,29 +189,59 @@ def _adafactor(lr, stacks, eps=1e-30, decay=0.8, clip=1.0):
 
         return _state_tree(params, stacks, st)
 
+    def parts(ps, gs, s, stacked):
+        """(params, grads, state) of each part of the leaf."""
+        if not stacked:
+            return [(ps[0], gs[0], s)]
+        if ps[0].dim() >= 2:
+            return [(p, g, {k: v[r] for k, v in s.items()}) for r, (p, g) in
+                    enumerate(zip(ps, gs))]
+        return [(torch.stack(ps), torch.stack(gs), s)]
+
+    def sq(g):
+        gf = g.to(F32)
+        return gf * gf + eps
+
+    def update_of(g, st, idx, vr_mean):
+        """The unclipped update of the block ``idx`` of a part."""
+        gf = g[idx].to(F32)
+        if "v" in st:
+            return gf / (torch.sqrt(st["v"]) + eps)
+        rr = st["vr"][idx[:-1]] / torch.clamp(vr_mean, min=eps)
+        return gf / (torch.sqrt(rr)[..., None] * torch.sqrt(st["vc"])[..., None, :] + eps)
+
     def update(params, grads, state, step):
         beta = 1.0 - _stepf(step) ** (-decay)
         for path, ps, gs, stacked in _pairs(params, grads, stacks):
             s = _get(state, path)
-            gf = torch.stack([g.to(F32) for g in gs]) if stacked else gs[0].to(F32)
-            g2 = gf * gf + eps
-            if gf.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rr = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
-                u = gf / (torch.sqrt(rr)[..., None] * torch.sqrt(vc)[..., None, :] + eps)
-                new = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = gf / (torch.sqrt(v) + eps)
-                new = {"v": v}
-            # update clipping (RMS <= clip)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-12)
-            u = u / torch.clamp(rms / clip, min=1.0)
-            for r, p in enumerate(ps):
-                p.copy_((p.to(F32) - lr * (u[r] if stacked else u)).to(p.dtype))
-            for k, val in new.items():
-                s[k].copy_(val)
+            pts = parts(ps, gs, s, stacked)
+            for p, g, st in pts:  # the new statistics, written into the state
+                if "v" in st:
+                    st["v"].copy_(beta * st["v"] + (1 - beta) * sq(g))
+                    continue
+                colsum = torch.zeros_like(st["vc"])
+                for idx in _row_blocks(g, PIECE):
+                    g2 = sq(g[idx])
+                    vr = st["vr"][idx[:-1]]
+                    vr.copy_(beta * vr + (1 - beta) * torch.mean(g2, dim=-1))
+                    colsum += torch.sum(g2, dim=-2)
+                st["vc"].copy_(beta * st["vc"] + (1 - beta) * (colsum / g.shape[-2]))
+            means = [None if "v" in st else torch.mean(st["vr"], dim=-1, keepdim=True)
+                     for _, _, st in pts]
+            # update clipping (RMS <= clip) over the whole leaf
+            total = torch.zeros((), dtype=F32, device=ps[0].device)
+            for (p, g, st), m in zip(pts, means):
+                for idx in _row_blocks(g, PIECE):
+                    total += torch.sum(torch.square(update_of(g, st, idx, m)))
+            n = sum(t.numel() for t in ps)
+            div = torch.clamp(torch.sqrt(total / n + 1e-12) / clip, min=1.0)
+            for (p, g, st), m in zip(pts, means):
+                for idx in _row_blocks(g, PIECE):
+                    u = update_of(g, st, idx, m) / div
+                    p[idx].copy_((p[idx].to(F32) - lr * u).to(p.dtype))
+            if stacked and ps[0].dim() < 2:  # the stacked copy's rows back into the layers
+                for r, t in enumerate(ps):
+                    t.copy_(pts[0][0][r])
         return params, state
 
     return init, update

@@ -31,13 +31,15 @@ def make_train_step(model: ModelDef, rules: Optional[MeshRules] = None, lr: floa
                     grad_compression: bool = False):
     """Returns (train_step, init_state).
 
-    state = {"params": float32 masters, "opt": optimizer state, "step": int32
-    tensor[, "efb": error feedback]}; ``train_step(state, batch)`` returns
+    state = {"params": masters in ``cfg.param_dtype`` (float32, or kimi-k2's
+    bfloat16, every floating leaf in it), "opt": optimizer state, "step":
+    int32 tensor[, "efb": error feedback]}; ``train_step(state, batch)`` returns
     (new state, {"loss": loss}). The update is written into the state's
     tensors (see ``train.optim``): the returned state holds the same
     tensors, and a caller that must keep the old values copies them first.
     ``init_state(gen)`` draws the parameters from the torch Generator
-    ``gen`` on its device.
+    ``gen`` on its device, each leaf in its storage dtype at once (a large
+    bfloat16 leaf is drawn in blocks: ``models.layers.DRAW_BLOCK``).
 
     With ``rules`` the state is this rank's (``shard_state``) and the batch
     its data shard. Each rank's gradient is its shard's part of the global
@@ -52,14 +54,16 @@ def make_train_step(model: ModelDef, rules: Optional[MeshRules] = None, lr: floa
     gather's backward. The update is then each rank's on its own
     shards, so only optimizers whose update is elementwise (AdamW, momentum
     SGD) run under rules: Adafactor's factored statistics and the int8
-    compression's scale are taken over a whole leaf, and raise."""
+    compression's scale are taken over a whole leaf, and raise (ROADMAP.md
+    Queue 1, item 9.10)."""
     stacks = _stacks_for(model.cfg)
     opt_init, opt_update = make_optimizer(model.cfg.optimizer, stacks, lr=lr)
     if rules is not None and (grad_compression or model.cfg.optimizer == "adafactor"):
         raise NotImplementedError(
             f"{model.cfg.name}: a train step under rules updates each rank's shards, so it runs "
-            f"elementwise optimizers only (adamw, sgdm), not {model.cfg.optimizer}"
-            f"{' with int8 gradient compression' if grad_compression else ''}")
+            f"elementwise optimizers only (adamw, sgdm); {model.cfg.optimizer}"
+            f"{' with int8 gradient compression' if grad_compression else ''} under rules is "
+            f"not ported yet (ROADMAP.md Queue 1, item 9.10)")
     # per parameter leaf (in ``flatten`` order): whether its parts are summed
     # over the data axes
     data_sum = None if rules is None else [

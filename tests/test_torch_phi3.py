@@ -100,9 +100,12 @@ def test_flash_attention_bwd_plain_hd96_matches_jax_vjp(window):
     q = rng.standard_normal((2, 4, 100, HD)).astype(np.float32)
     k, v = (rng.standard_normal((2, 2, 100, HD)).astype(np.float32) for _ in range(2))
     dout = rng.standard_normal(q.shape).astype(np.float32)
-    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, causal=True, window=window),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    want = vjp(jnp.asarray(dout))
+    # the reference side in float32 whatever x64 state earlier tests in this
+    # worker left behind: jax_enable_x64 changes its bits
+    with jax.enable_x64(False):
+        _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, causal=True, window=window),
+                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = [np.asarray(w) for w in vjp(jnp.asarray(dout))]
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     o, lse = fa.flash_attention_ref(qt, kt, vt, window=window, return_lse=True)
     got = fa.flash_attention_bwd_ref(qt, kt, vt, o, torch.from_numpy(dout), lse, window=window)
