@@ -96,8 +96,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``moe_ref``), olmoe-1b-7b manual at full width and MESH_LAYERS layers
    through prefill and decode with rules (exact launches; logits and
    greedy tokens against the auto path), ``pipeline_apply`` over gemma-2b
-   blocks against the blocks in sequence, and a reduced train step with
-   rules before and after ``remesh_rules``; it destroys its process group;
+   blocks against the blocks in sequence, kimi-k2-1t-a32b at full width, 1
+   layer and MESH_KIMI_EXPERTS experts under its own rules (FSDP over
+   "data", Adafactor's whole-leaf statistics, bf16 masters: ``mesh_kimi``),
+   one train step against the same step without rules, and a reduced train
+   step with rules before and after ``remesh_rules``; it destroys its
+   process group;
    tp: the "model"-axis split (``tp_phase``): two processes share the card
    in a (1, 2) mesh over gloo (its collectives on the CUDA tensors),
    gemma-2b, rwkv6-1.6b and
@@ -109,11 +113,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention kernels on a kv-head view at an offset, bit for bit as on a
    contiguous copy; rwkv6's ``layers/0/tm/ln_bias`` gradient on one rank,
    kernel path and plain path, each against the same loss's gradient in
-   float64 (``leaf_f64_check``);
-   dryrun: ``python -m repro_torch.launch.dryrun`` on two cells
-   (DRYRUN_CELLS), each in a subprocess on fake tensors (no device memory):
-   peak GB a device and the three roofline terms, analytic from the
-   H100's data-sheet peaks;
+   float64 (``leaf_f64_check``); then FSDP of the dense leaves
+   (``fsdp_run``): the same two processes in a (2, 1) mesh with
+   fsdp=True, FSDP_ARCH at full width in float32, each rank on its rows
+   and shards against the same run without rules on that rank: logits,
+   tokens, loss, gradients, an AdamW step with int8 compression and an
+   Adafactor step, the bytes gathered and scattered;
+   dryrun: ``python -m repro_torch.launch.dryrun`` on the DRYRUN_CELLS
+   (deepseek-7b with FSDP, kimi-k2's train_4k on both meshes among them),
+   each in a subprocess on fake tensors (no device memory), started before
+   the mesh phase: argument and peak GB a device and the three roofline
+   terms, analytic from the H100's data-sheet peaks;
 4. serve: gemma-2b (prompt 512), rwkv6-1.6b (prompt 512),
    recurrentgemma-9b (prompt 2048, its window), deepseek-7b, granite-3-2b,
    qwen2.5-3b and olmoe-1b-7b (prompt 512), whisper-tiny (1500 seeded
@@ -373,6 +383,12 @@ KIMI_SERVE = {"n_layers": 1}
 # pipeline_apply over PIPE_LAYERS gemma-2b attention blocks in PIPE_MICRO
 # microbatches, held to tests/test_pipeline.py's tolerance
 MESH_LAYERS, MESH_STEPS = 4, 4
+# kimi-k2 under its own rules on the one-rank mesh (mesh_phase): full width,
+# 1 layer, its experts cut to MESH_KIMI_EXPERTS (fewer than TRAIN_EXPERTS:
+# the phase holds two train states), fsdp=True, Adafactor, bf16 masters; a
+# TRAIN_BATCH x TRAIN_SEQ step with the rules against the same step
+# without them
+MESH_KIMI_EXPERTS = 64
 PIPE_LAYERS, PIPE_MICRO, PIPE_TOL = 2, 4, 1e-5
 WKV6_TOL_F32 = 3e-5  # tests/test_kernels.py: y and the float32 state against the chunked form
 WKV6_TOL_STRONG_DECAY = 1e-4
@@ -469,10 +485,13 @@ WORKER_ABORT_S = 300.0
 # recurrentgemma-9b 9 -> 3 (one (rec, rec, attn) group), granite-3-2b 40
 # -> 10, qwen2.5-3b 36 -> 9, deepseek-7b 16 -> 4, olmoe-1b-7b 10 -> 2,
 # phi-3-vision-4.2b 32 -> 8; gemma-2b keeps its 18 through ``launch.train
-# --full``. kimi-k2 trains at 1 of its 61 layers (TRAIN_EXPERTS).
-TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", 8), ("recurrentgemma-9b", 3),
-               ("granite-3-2b", 10), ("qwen2.5-3b", 9), ("deepseek-7b", 4),
-               ("olmoe-1b-7b", 2), ("phi-3-vision-4.2b", 8), (KIMI, 1))
+# --full``. kimi-k2 trains at 1 of its 61 layers (TRAIN_EXPERTS). The FSDP
+# case of the tp phase and kimi-k2 under its rules in the mesh phase are
+# paid for by halving four of those depths again: rwkv6-1.6b 8 -> 4,
+# granite-3-2b 10 -> 5, qwen2.5-3b 9 -> 4, phi-3-vision-4.2b 8 -> 4.
+TRAIN_ARCHS = (("gemma-2b", None), ("rwkv6-1.6b", 4), ("recurrentgemma-9b", 3),
+               ("granite-3-2b", 5), ("qwen2.5-3b", 4), ("deepseek-7b", 4),
+               ("olmoe-1b-7b", 2), ("phi-3-vision-4.2b", 4), (KIMI, 1))
 # experts a layer where TRAIN_ARCHS cuts them too. kimi-k2: the most that
 # leave 8 GiB of the card's 79.18 GiB unreserved through its gradient
 # check, which holds bf16 masters and two bf16 gradient sets
@@ -571,6 +590,40 @@ F64_LEAF = ("rwkv6-1.6b", "layers/0/tm/ln_bias")
 F64_LEAF_KERNELS = ("rmsnorm", "rmsnorm_bwd", "wkv6", "wkv6_bwd")
 TP_BATCH, TP_PROMPT, TP_STEPS = 2, 256, 8
 TP_LOGITS_TOL, TP_LOSS_RTOL, TP_GRAD_RTOL = 1e-4, 1e-5, 1e-4
+# FSDP of the dense leaves on the card (tp_phase): the same TP_RANKS
+# processes in a (TP_RANKS, 1) mesh with fsdp=True, so that each rank holds
+# half of every leaf with an "embed" or "mlp" dim and gathers it at its
+# block's entry, FSDP_ARCH at full width in float32 and its depth cut
+# (arch, layers), each rank on its rows of the TP_BATCH x TP_PROMPT batch;
+# held on each rank against the same run without rules on that rank: the
+# logits, tokens, loss and gradients to the tp limits above, then one
+# AdamW step with int8 gradient compression and one Adafactor step from the
+# same state (lr FSDP_LR): their losses to TP_LOSS_RTOL, AdamW's first
+# moment and Adafactor's statistics to TP_GRAD_RTOL (twice that for a
+# statistic of squares) of their leaf's largest magnitude, the error
+# feedback to one int8 step where the rounding went the other way
+# (counted) and TP_GRAD_RTOL of the leaf's largest |g| elsewhere, AdamW's
+# masters within the largest move of a first step (2 lr), Adafactor's
+# within FSDP_ADAFACTOR_RTOL of the leaf's largest move: its update divides
+# each gradient element's error by the element's row and column
+# statistics, which are small where the gradient is, so an error of
+# TP_GRAD_RTOL of the largest gradient becomes a larger share of the
+# largest move there (the reading: 0.0022 on an NVIDIA H100 80GB HBM3 at
+# 700 W). Where the one-rank gradient lies within TP_GRAD_RTOL of the
+# leaf's largest of zero its sign is noise, and a leaf with a factor of
+# size 1 (gemma-2b's one kv head: wk / wv of (d, 1, hd), whose statistics
+# are each element's own square) steps by lr sign(g): there the master is
+# held within twice the leaf's largest move and the float32 rounding of the
+# two masters (FSDP_SIGN_FLIP; counted as sign flips: 4 elements of rank
+# 1's shard of layers/0/attn/wk read 1.99997 moves)
+FSDP_SIGN_FLIP = 2.001
+FSDP_ARCH = ("gemma-2b", 2)
+# greedy decode steps of the FSDP case: each gathers every leaf, the 1 GB
+# halves of the tied embedding twice, through gloo's host copies (4.9 s a
+# step on an NVIDIA H100 80GB HBM3 at 700 W)
+FSDP_STEPS = 2
+FSDP_LR = 1e-4
+FSDP_ADAFACTOR_RTOL = 1e-2
 # kernel -> the names of its CUDA kernels in a profiler trace (substrings)
 TP_KERNEL_NAMES = {
     "rmsnorm": ("rmsnorm_kernel", "rmsnorm_warp_kernel"),
@@ -581,9 +634,19 @@ TP_KERNEL_NAMES = {
     "wkv6": ("wkv6_kernel",), "wkv6_bwd": ("wkv6_bwd_",),
     "rglru": ("rglru_kernel",), "rglru_bwd": ("rglru_bwd_kernel",)}
 # the dry run's cells on the card's host (dryrun_phase): fake tensors, no
-# device memory; their roofline terms are analytic, from data-sheet peaks
-DRYRUN_CELLS = (("deepseek-7b", "train_4k", "multi"), ("olmoe-1b-7b", "decode_32k", "single"))
-DRYRUN_TIMEOUT_S = 120
+# device memory; their roofline terms are analytic, from data-sheet peaks.
+# (arch, shape, mesh, variant): deepseek-7b with FSDP of its dense leaves,
+# and kimi-k2's cells (its config's FSDP and Adafactor) that tests/
+# test_torch_dryrun.py leaves out: its train_4k cells trace in ~67 s on a
+# CPU, past the tests' 60 s a cell
+DRYRUN_CELLS = (("deepseek-7b", "train_4k", "multi", "baseline"),
+                ("olmoe-1b-7b", "decode_32k", "single", "baseline"),
+                ("deepseek-7b", "train_4k", "single", "fsdp"),
+                ("kimi-k2-1t-a32b", "train_4k", "single", "baseline"),
+                ("kimi-k2-1t-a32b", "train_4k", "multi", "baseline"),
+                ("kimi-k2-1t-a32b", "prefill_32k", "multi", "baseline"),
+                ("kimi-k2-1t-a32b", "decode_32k", "single", "baseline"))
+DRYRUN_TIMEOUT_S = 400
 
 
 def fail(msg: str) -> None:
@@ -2797,6 +2860,9 @@ def mesh_phase(dev, card: str, auto: dict):
     del pmodel, blocks, stacked, h0, y1, y2, seq_micro, seq_full
     free_device_memory()
 
+    # -- kimi-k2 under its own rules (FSDP, Adafactor, bf16 masters) ---------
+    mesh_kimi(dev, card, mesh, tally)
+
     # -- a train step with rules, a host lost, remesh_rules, the step again ---
     tcfg = dataclasses.replace(get_arch(MOE_ARCH).reduced(), moe_impl="manual")
     tmodel = build_model(tcfg)
@@ -2831,6 +2897,75 @@ def mesh_phase(dev, card: str, auto: dict):
     dist.destroy_process_group()
     free_device_memory()
     return totals, totals_f32
+
+
+def mesh_kimi(dev, card: str, mesh, tally) -> None:
+    """KIMI at full width (d 7168, 64 heads of 112), 1 layer and
+    MESH_KIMI_EXPERTS experts, under its config's rules on the one-rank
+    mesh (fsdp=True: every leaf with an "embed" or "mlp" dim lies on "data"
+    and is gathered at its block's entry; Adafactor's statistics taken over
+    the whole leaf; bf16 masters): one train step against the same step
+    without rules, from the same state and batch. Every collective is over
+    one rank, so the loss within LOSS_TOL_TRAIN relative and each leaf's
+    update within GRAD_TOL_BF16 of its largest magnitude (the kimi phase's
+    bf16 limits); the largest difference is printed. The hd-112
+    flash_attention, its backward and the rmsnorm kernels launch under the
+    rules (their counters)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train.optim import _paths
+    from repro_torch.train.step import make_train_step, shard_state
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(KIMI), n_layers=1, n_experts=MESH_KIMI_EXPERTS)
+    rules = MeshRules(mesh, fsdp=cfg.fsdp)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    ts_plain, init = make_train_step(model, lr=1e-4)
+    ts_rules, _ = make_train_step(model, rules=rules, lr=1e-4)
+    state = init(gen)
+    old = dict(_paths(tree_map(lambda t: t.clone(), state["params"])))
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in train_batch(model, dev).items()}
+    on_data = sum("data" in str(spec) for _, spec in _paths(model.run_specs(rules)))
+    t0 = time.perf_counter()
+    plain_state, m_plain = ts_plain(tree_map(lambda t: t.clone(), state), batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    rules_state, m_rules = ts_rules(shard_state(model, rules, state), batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tally(f"{KIMI} train step under its rules (fsdp, adafactor, bf16 masters)",
+          ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"))
+    loss_p, loss_r = float(m_plain["loss"]), float(m_rules["loss"])
+    worst, where = 0.0, ""
+    got = dict(_paths(rules_state["params"]))
+    for path, t in _paths(plain_state["params"]):
+        if got[path].dtype != torch.bfloat16 or got[path].shape != t.shape:
+            fail(f"mesh phase {KIMI} under rules: {'/'.join(path)} {got[path].dtype} "
+                 f"{tuple(got[path].shape)}, without rules {t.dtype} {tuple(t.shape)}")
+        move = float((t.float() - old[path].float()).abs().max())
+        rel = float((got[path].float() - t.float()).abs().max()) / max(move, 1e-30)
+        if rel > worst:
+            worst, where = rel, "/".join(path)
+    loss_rel = abs(loss_r - loss_p) / abs(loss_p)
+    if not (math.isfinite(loss_r) and loss_rel <= LOSS_TOL_TRAIN and worst <= GRAD_TOL_BF16):
+        fail(f"mesh phase {KIMI} under its rules vs without: loss {loss_r} vs {loss_p}, worst "
+             f"update {worst:.3g} of its largest magnitude at {where} (tol {GRAD_TOL_BF16})")
+    print(f"mesh phase {KIMI} full width, 1 layer, {MESH_KIMI_EXPERTS} experts, under its rules "
+          f"(fsdp, {on_data} leaves on 'data', adafactor, bf16 masters) on {card}: train step "
+          f"loss {loss_r:.6f} vs {loss_p:.6f} without rules (rel {loss_rel:.3g}), the largest "
+          f"difference of an update {worst:.3g} of its largest magnitude ({where}); step "
+          f"{t2 - t1:.3f} s under the rules, {t1 - t0:.3f} s without")
+    del state, old, plain_state, rules_state, got, batch
+    free_device_memory()
 
 
 def _stack_trees(trees):
@@ -4300,6 +4435,185 @@ def leaf_f64_check(cfg, dev, g_kernel, g_plain) -> None:
     free_device_memory()
 
 
+def fsdp_run(cfg, rules, dev, seed: int) -> dict:
+    """FSDP of the dense leaves on this rank (``rules``: fsdp=True over
+    "data"): ``cfg``'s parameters from ``seed`` (float32 masters, the same
+    draw on every rank), this rank's rows of a TP_BATCH x TP_PROMPT prompt
+    through the prefill and FSDP_STEPS greedy decode steps, the loss and its
+    gradients on the whole batch (each rank its rows), then one AdamW step
+    with int8 compression and one Adafactor step; and the same without
+    rules on this rank, against which each is held here (see FSDP_ARCH).
+    Returns the readings: the largest differences, the bytes that the
+    collectives gathered and scattered (``roofline.counter``), the
+    seconds, the kernels' launches under the rules."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.model_api import _stacks_for
+    from repro_torch.roofline.counter import StepCounter
+    from repro_torch.sharding.rules import map_specs
+    from repro_torch.train.optim import _paths, init_error_fb, make_optimizer
+    from repro_torch.train.step import make_train_step, shard_state, state_specs
+    from repro_torch.utils.tree import flatten, tree_map, unflatten
+
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params = model.init(g, dev, param_dtype=torch.float32)
+    prompt = torch.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT), generator=g, device=dev)
+    n = TP_BATCH // rules.axes["data"]
+    d = rules.coordinate()["data"]
+    rows = prompt[d * n:(d + 1) * n]
+    specs = model.run_specs(rules)
+    local = map_specs(lambda spec, t: rules.local_shard(t, spec).clone(), specs, params)
+    out = {"seconds": {}, "launches": {}}
+
+    def serve(p, r):
+        with torch.no_grad():
+            logits, cache = model.prefill(p, rows, r, cache_len=TP_PROMPT + FSDP_STEPS)
+            first, tokens = logits.float().cpu(), []
+            for i in range(FSDP_STEPS):
+                tok = logits.argmax(dim=-1)[:, None]
+                tokens.append(tok[:, 0].cpu())
+                logits, cache = model.decode(p, tok, TP_PROMPT + i, cache, r)
+        return first, torch.stack(tokens, 1)
+
+    def grads(p, r, batch):
+        leaves, treedef = flatten(p)
+        live = [t.detach().requires_grad_() for t in leaves]
+        loss = model.loss(unflatten(treedef, live), {"tokens": batch}, r)
+        gs = torch.autograd.grad(loss, live)
+        return float(loss.detach()), dict(_paths(unflatten(treedef, list(gs))))
+
+    def step(kind: str, compress: bool, r):
+        scfg = dataclasses.replace(cfg, optimizer=kind)
+        smodel = build_model(scfg)
+        ts, _ = make_train_step(smodel, rules=r, lr=FSDP_LR, grad_compression=compress)
+        stacks = _stacks_for(scfg)
+        opt_init, _ = make_optimizer(kind, stacks)
+        st = {"params": tree_map(lambda t: t.clone(), params), "opt": opt_init(params),
+              "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        if compress:
+            st["efb"] = init_error_fb(params, stacks)
+        if r is not None:
+            st = shard_state(smodel, r, st)
+            st = {k: v if k == "step" else tree_map(lambda t: t.clone(), v)
+                  for k, v in st.items()}
+        new, m = ts(st, {"tokens": prompt if r is None else rows})
+        return float(m["loss"]), new
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_logits, want_tokens = serve(params, None)
+    want_loss, want_grads = grads(params, None, prompt)
+    torch.cuda.synchronize()
+    out["seconds"]["one rank serve and grads"] = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with StepCounter() as c_serve:
+        logits, tokens = serve(local, rules)
+    torch.cuda.synchronize()
+    out["seconds"]["fsdp serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with StepCounter() as c_train:
+        loss, got_grads = grads(local, rules, rows)
+    torch.cuda.synchronize()
+    out["seconds"]["fsdp loss and grads"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["bytes"] = {what: {k: v["operand_bytes"] for k, v in c.stats()["collectives"].items()
+                           if v["count"]} for what, c in (("serve", c_serve),
+                                                          ("loss and grads", c_train))}
+    out["logits"] = float((logits - want_logits).abs().max())  # both this rank's rows
+    out["tokens_equal"] = bool(torch.equal(tokens, want_tokens))
+    out["loss"] = abs(loss - want_loss) / abs(want_loss)
+    flat_specs = dict(_paths(specs))
+    worst, where = 0.0, ""
+    for path, gr in got_grads.items():
+        w = rules.local_shard(want_grads[path], flat_specs[path])
+        rel = float((gr - w).abs().max()) / max(float(want_grads[path].abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, "/".join(path)
+    out["grads"] = (worst, where)
+    # the elements of this rank's shards whose one-rank gradient lies within
+    # its error of zero (their sign is noise)
+    near0 = {path: rules.local_shard(g1, flat_specs[path]).abs()
+             <= TP_GRAD_RTOL * float(g1.abs().max()) for path, g1 in want_grads.items()}
+    del got_grads, want_grads
+    free_device_memory()
+
+    # the steps: AdamW with int8 compression, then Adafactor, each from the
+    # same state with and without rules
+    for kind, compress in (("adamw", True), ("adafactor", False)):
+        label = f"{kind}{' int8' if compress else ''}"
+        t0 = time.perf_counter()
+        ref_loss, ref = step(kind, compress, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with StepCounter() as c_step:
+            got_loss, new = step(kind, compress, rules)
+        torch.cuda.synchronize()
+        out["seconds"][f"fsdp {label} step"] = time.perf_counter() - t1
+        out["seconds"][f"one rank {label} step"] = t1 - t0
+        out["bytes"][f"{label} step"] = {k: v["operand_bytes"] for k, v in
+                                         c_step.stats()["collectives"].items() if v["count"]}
+        sspec = state_specs(build_model(dataclasses.replace(cfg, optimizer=kind)), rules,
+                            compress)
+        res = {"loss": abs(got_loss - ref_loss) / abs(ref_loss)}
+        flipped = {}  # leaf -> the elements whose int8 rounding went the other way
+        for key in ("efb", "opt"):
+            key_specs, key_ref = dict(_paths(sspec.get(key, {}))), dict(_paths(ref.get(key, {})))
+            for path, t in _paths(new.get(key, {})):
+                w = rules.local_shard(key_ref[path], key_specs[path])
+                scale = max(float(key_ref[path].abs().max()), 1e-30)
+                if key == "efb":
+                    # one int8 step of the leaf: the largest |g + e| / 127, which the
+                    # error feedback bounds by half a step from below
+                    step_ = 2 * scale
+                    err = (t - w).abs()
+                    flipped[path] = err > 0.5 * step_
+                    flips = int(flipped[path].sum())
+                    res["efb flips"] = res.get("efb flips", 0) + flips
+                    rest = float(torch.where(err > 0.5 * step_, 0.0, err).max()) / (127 * step_)
+                    res["efb"] = max(res.get("efb", 0.0), rest)
+                    res["efb over a step"] = max(res.get("efb over a step", 0.0),
+                                                 float(err.max()) / step_)
+                    continue
+                if path[-1] == "v" and kind == "adamw":
+                    continue  # the second moment, a square of the first's gradient
+                err = (t - w).abs()
+                if path[:-1] in flipped:  # a flipped element's moment moves by 0.1 step
+                    err = torch.where(flipped[path[:-1]], 0.0, err)
+                rel = float(err.max()) / scale
+                limit = 2 * TP_GRAD_RTOL if path[-1] in ("vr", "vc", "v") else TP_GRAD_RTOL
+                res[f"{path[-1]}"] = max(res.get(path[-1], 0.0), rel / limit)
+        worst_move, ref_params, first = 0.0, dict(_paths(ref["params"])), dict(_paths(params))
+        for path, t in _paths(new["params"]):
+            w = rules.local_shard(ref_params[path], flat_specs[path])
+            err = float((t - w).abs().max())
+            if kind == "adamw":
+                ratio = err / (2 * FSDP_LR)
+            else:
+                # where the gradient is within its error of zero the update
+                # may change sign (a factor of size 1 makes it sign(g))
+                moved = max(float((ref_params[path] - first[path]).abs().max()), 1e-30)
+                diff, zero = (t - w).abs(), near0[path]
+                ratio = max(float(torch.where(zero, 0.0, diff).max()) / (FSDP_ADAFACTOR_RTOL
+                                                                         * moved),
+                            float(torch.where(zero, diff, 0.0).max()) / (FSDP_SIGN_FLIP * moved))
+                flips = int((zero & (diff > FSDP_ADAFACTOR_RTOL * moved)).sum())
+                res["sign flips"] = res.get("sign flips", 0) + flips
+            if ratio >= worst_move:
+                worst_move, res["params at"] = ratio, "/".join(path)
+        res["params"] = worst_move
+        out[label] = res
+        del ref, new, ref_params, first
+        free_device_memory()
+    return out
+
+
 def _tp_rank(rank: int, tmp: str) -> None:
     """One of TP_RANKS processes on the card: a gloo group through a file
     store, a check that gloo runs every collective of the split on CUDA
@@ -4332,6 +4646,12 @@ def _tp_rank(rank: int, tmp: str) -> None:
         names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
         out["profiled"] = {k: sum(any(p in n for p in pats) for n in names)
                            for k, pats in TP_KERNEL_NAMES.items()}
+        del prof
+        frules = MeshRules(make_host_mesh(TP_RANKS, 1, "cuda"), fsdp=True)
+        t0 = time.perf_counter()
+        out["fsdp"] = fsdp_run(tp_config(*FSDP_ARCH), frules, dev, seed=5)
+        out["fsdp"]["seconds"]["all"] = time.perf_counter() - t0
+        out["fsdp"]["coord"] = frules.coordinate()
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4491,10 +4811,44 @@ def tp_phase(card: str) -> dict:
               f"name {r['profiled']}")
         for k, n in r["launches"].items():
             launches[k] = launches.get(k, 0) + n
+        fsdp_check(card, r["fsdp"])
+        for k, n in r["fsdp"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
     del want, ranks
     free_device_memory()
     ops.reset_launch_counts()
     return launches
+
+
+def fsdp_check(card: str, r: dict) -> None:
+    """One rank's ``fsdp_run`` readings, printed, then held to FSDP_ARCH's
+    limits."""
+    tag = f"tp fsdp {FSDP_ARCH[0]} ({FSDP_ARCH[1]} layers) rank {r['coord']['data']}"
+    worst, where = r["grads"]
+    print(f"{tag} of {TP_RANKS} on {card}: prefill logits {r['logits']:.3g}, tokens equal "
+          f"{r['tokens_equal']} over {FSDP_STEPS} steps, loss rel {r['loss']:.3g}, worst gradient "
+          f"{worst:.3g} of its largest magnitude ({where}); adamw int8 step {r['adamw int8']}; "
+          f"adafactor step {r['adafactor']} (shares of their limits; efb flips = elements "
+          f"whose int8 rounding went the other way); bytes gathered / scattered "
+          f"{json.dumps(r['bytes'])}; seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}; launches "
+          f"{r['launches']}")
+    if not (r["logits"] <= TP_LOGITS_TOL and r["tokens_equal"] and r["loss"] <= TP_LOSS_RTOL
+            and worst <= TP_GRAD_RTOL):
+        fail(f"{tag}: prefill logits, tokens, loss or gradients beyond the tp limits "
+             f"({TP_LOGITS_TOL}, equal, {TP_LOSS_RTOL}, {TP_GRAD_RTOL}) against one rank")
+    for label in ("adamw int8", "adafactor"):
+        res = r[label]
+        over = {k: v for k, v in res.items() if k not in ("loss", "efb flips", "efb",
+                                                          "efb over a step", "params at",
+                                                          "sign flips") and v > 1.0}
+        if res["loss"] > TP_LOSS_RTOL or over or res.get("efb", 0.0) > TP_GRAD_RTOL \
+                or res.get("efb over a step", 0.0) > 1.5:
+            fail(f"{tag} {label} step against one rank: beyond its limits {over or res}")
+    missing = [k for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd",
+                           "flash_decode") if not r["launches"].get(k)]
+    if missing:
+        fail(f"{tag}: no launch of {missing} under the FSDP rules")
 
 
 def _tp_paths(specs):
@@ -4512,15 +4866,15 @@ def dryrun_start() -> list:
     import atexit
     import os
 
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
         p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
     procs = []
-    for arch, shape, mesh in DRYRUN_CELLS:
-        out = ROOT / "build" / "dryrun" / f"{arch}.{shape}.{mesh}.baseline.json"
-        procs.append((arch, shape, mesh, out, subprocess.Popen(
+    for arch, shape, mesh, variant in DRYRUN_CELLS:
+        out = ROOT / "build" / "dryrun" / f"{arch}.{shape}.{mesh}.{variant}.json"
+        procs.append((f"{arch} {shape} {mesh} {variant}", out, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-             "--mesh", mesh, "--out", str(out)], stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True, env=env)))
+             "--mesh", mesh, "--variant", variant, "--out", str(out)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env)))
     atexit.register(lambda: [p.kill() for *_, p in procs if p.poll() is None])
     return procs
 
@@ -4530,21 +4884,22 @@ def dryrun_phase(card: str, procs: list) -> None:
     record; the peak GB a device and the three roofline terms are printed,
     analytic from the H100's data-sheet peaks (989 TFLOP/s bf16, 3.35 TB/s,
     450 GB/s a link direction), not measured."""
-    for arch, shape, mesh, out, proc in procs:
+    for cell, out, proc in procs:
         try:
             _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             for *_, p in procs:
                 p.kill()
-            fail(f"dryrun {arch} {shape} {mesh}: over {DRYRUN_TIMEOUT_S} s")
+            fail(f"dryrun {cell}: over {DRYRUN_TIMEOUT_S} s")
         if proc.returncode != 0:
-            fail(f"dryrun {arch} {shape} {mesh}: exit {proc.returncode}: {err[-2000:]}")
+            fail(f"dryrun {cell}: exit {proc.returncode}: {err[-2000:]}")
         r = json.loads(out.read_text())
         if "roofline" not in r:
-            fail(f"dryrun {arch} {shape} {mesh}: no roofline in {r}")
+            fail(f"dryrun {cell}: no roofline in {r}")
         rf, mem = r["roofline"], r["memory"]
-        print(f"dryrun {arch} {shape} {mesh} (host of {card}; analytic, H100 data-sheet peaks, "
-              f"not measured): peak {mem['peak_per_device'] / 1e9:.3f} GB a device (fits 80 GB: "
+        print(f"dryrun {cell} (host of {card}; analytic, H100 data-sheet peaks, not measured): "
+              f"arguments {mem['argument_bytes'] / 1e9:.4f} GB, peak "
+              f"{mem['peak_per_device'] / 1e9:.3f} GB a device (fits 80 GB: "
               f"{mem['fits_hbm']}), compute {rf['compute_s']:.5f} s, memory "
               f"{rf['memory_s']:.5f} s, collective {rf['collective_s']:.5f} s, bottleneck "
               f"{rf['bottleneck']}, useful FLOP ratio {r['useful_compute_ratio']:.4f}, traced in "
@@ -4599,10 +4954,11 @@ def main() -> int:
         for name, n in counts.items():
             f32[name] += n
 
+    # the dry-run cells run on the host's cores from here, beside the card's phases
+    dry = dryrun_start()
     mesh_counts, mesh_f32 = mesh_phase(dev, card, auto_moe)
     add_f32(mesh_f32)
     lap("mesh")
-    dry = dryrun_start()
     tp_phase(card)
     lap("tp")
     dryrun_phase(card, dry)

@@ -54,7 +54,7 @@ class ArchConfig:
     dtype: str = "bfloat16"  # activation dtype
     param_dtype: str = "float32"  # the training masters' dtype (serving keeps ``dtype``)
     optimizer: str = "adamw"  # adamw | adafactor | sgdm
-    fsdp: bool = False  # ZeRO-style sharding over the data axes (models/moe.py's manual path)
+    fsdp: bool = False  # ZeRO-style sharding of the leaves over the data axes (sharding/fsdp.py)
     remat: bool = True  # recompute each block in the backward (torch.utils.checkpoint)
     source: str = ""  # provenance note
 

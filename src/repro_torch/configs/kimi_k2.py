@@ -1,8 +1,7 @@
 """kimi-k2-1t-a32b: 61L d_model=7168 64H (GQA kv=8) head_dim=112 expert
 d_ff=2048 vocab=163840, MoE 384 experts top-8 + 1 shared expert. 1T total /
-32B active parameters, bf16 masters and Adafactor (the reference's values;
-its FSDP and expert parallelism over a mesh are ROADMAP.md Queue 1, items
-9.9 and 9.10). [arXiv:2501.kimi2]"""
+32B active parameters, bf16 masters, Adafactor and FSDP of every leaf over
+the data axes (the reference's values). [arXiv:2501.kimi2]"""
 from repro_torch.configs.base import ArchConfig, register
 
 CONFIG = register(

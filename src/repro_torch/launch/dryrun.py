@@ -105,8 +105,12 @@ FLASH_NOTE = ("the port's attention, wkv6 and rglru are fused kernels whose own 
 def fake_mesh(shape):
     """A ``DeviceMesh("cuda", ...)`` of ``shape`` (a ``MeshShape``) over a
     ``fake`` process group of its size with this process as rank 0. The
-    data axes' flattened group is made here, before any fake tensor mode:
-    DeviceMesh builds it from real tensors."""
+    flattened group of every two or more of its axes (the data axes; all
+    the axes a leaf lies on, for the optimizers' whole-leaf statistics) is
+    made here, before any fake tensor mode: DeviceMesh builds it from real
+    tensors."""
+    from itertools import combinations
+
     from torch.distributed.device_mesh import DeviceMesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
@@ -115,9 +119,9 @@ def fake_mesh(shape):
         dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
     mesh = DeviceMesh("cuda", torch.arange(n).view(*shape.sizes),
                       mesh_dim_names=shape.axis_names)
-    data = tuple(a for a in shape.axis_names if a in ("pod", "data"))
-    if len(data) > 1:
-        mesh[data]._flatten()
+    for k in range(2, len(shape.axis_names) + 1):
+        for axes in combinations(shape.axis_names, k):
+            mesh[axes]._flatten()
     return mesh
 
 

@@ -20,9 +20,7 @@ import time
 from pathlib import Path
 
 #: every arch of the reference's registry (``repro/configs``), all of them
-#: the port's: kimi-k2-1t-a32b's cells give ``error`` entries naming the
-#: items that stop them (FSDP of the dense leaves, item 9.9; Adafactor under
-#: rules, item 9.10)
+#: the port's
 ARCHS = ("deepseek-7b", "gemma-2b", "granite-3-2b", "kimi-k2-1t-a32b", "olmoe-1b-7b",
          "phi-3-vision-4.2b", "qwen2.5-3b", "recurrentgemma-9b", "rwkv6-1.6b", "whisper-tiny")
 SRC = str(Path(__file__).resolve().parents[2])

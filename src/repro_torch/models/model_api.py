@@ -56,8 +56,12 @@ Over a mesh (``rules``, :mod:`repro_torch.sharding.rules`) each rank runs
 holds every leaf as ``run_specs`` says: the rules' spec, the reference's
 layout. The reference gets its "model"-axis split of attention, MLP,
 RG-LRU, RWKV heads, experts and vocabulary from XLA's partitioner; the
-port's blocks split their own work (:mod:`repro_torch.sharding.tp`). The
-vocabulary: the embedding looks up the rows of this rank's block, masked,
+port's blocks split their own work (:mod:`repro_torch.sharding.tp`). With
+FSDP rules (``MeshRules(fsdp=True)``) most leaves also lie over the data
+axes: each block gathers its leaves at its entry, and the embedding, head,
+norms and learned positions are gathered where they are read
+(:mod:`repro_torch.sharding.fsdp`), which gives the layout without FSDP.
+The vocabulary: the embedding looks up the rows of this rank's block, masked,
 and sums over "model"; the head gives this rank's columns of the logits,
 which ``prefill`` and ``decode`` gather, and the cross-entropy reduces its
 max, its sum of exponentials and the label's logit over "model". Every FFN
@@ -83,8 +87,8 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding import tp
-from repro_torch.sharding.rules import MeshRules, constrain, entry_axes, map_specs
+from repro_torch.sharding import fsdp, tp
+from repro_torch.sharding.rules import MeshRules, constrain, map_specs
 from repro_torch.utils.tree import tree_map
 
 _LATER = "is not ported yet (ROADMAP.md Queue 1: the remaining model families are later slices)"
@@ -139,6 +143,8 @@ def _window(cfg: ArchConfig, kind: str) -> int:
 class ModelDef:
     cfg: ArchConfig
     kinds: List[str] = field(init=False)
+    _fsdp_memo: Dict[Any, Any] = field(init=False, default_factory=dict, repr=False,
+                                       compare=False)
 
     def __post_init__(self):
         # each layer's block kind in model order: the stacks' units, repeated
@@ -236,30 +242,51 @@ class ModelDef:
     def run_specs(self, rules: MeshRules) -> Dict[str, Any]:
         """How each parameter leaf lies over the mesh when the port runs
         under ``rules``: the rules' spec of every leaf (the reference's
-        ``shard_tree``), the MoE leaves of the manual path as
-        ``moe.manual_specs`` lays them out (the same spec, FSDP of the
-        experts aside). The same structure as ``param_axes``. Rules that
-        lay a dense leaf over the data axes (FSDP of the dense leaves)
-        raise: the port splits dense leaves over "model" only."""
-        specs = map_specs(lambda ax, t: rules.spec_for(tuple(ax), tuple(t.shape)),
-                          self.param_axes(), self.abstract_init())
-        manual = self.cfg.moe and M.uses_manual(self.cfg, rules)
-        dense = dict(specs, layers=[{k: v for k, v in layer.items()
-                                     if not (manual and k == "ffn")}
-                                    for layer in specs["layers"]])
-        on_data = []
-        map_specs(lambda spec: on_data.append(spec) if any(
-            a in rules.data_axes for e in spec for a in entry_axes(e)) else None, dense)
-        if on_data:
-            raise NotImplementedError(
-                f"{self.cfg.name}: rules that lay dense leaves over the data axes (FSDP of the "
-                f"dense leaves, e.g. {on_data[0]}) are not ported yet (ROADMAP.md Queue 1, "
-                f"item 9.9)")
-        if manual:
-            for layer in specs["layers"]:
-                if "ffn" in layer:
-                    layer["ffn"] = M.manual_specs(self.cfg, rules)
-        return specs
+        ``shard_tree``), FSDP pass included. The same structure as
+        ``param_axes``. A leaf that lies over the data axes is gathered at
+        the entry of the block that reads it (:meth:`fsdp_specs`); the
+        manual MoE path's experts then reach ``moe_apply_manual`` whole over
+        the data axes."""
+        return map_specs(lambda ax, t: rules.spec_for(tuple(ax), tuple(t.shape)),
+                         self.param_axes(), self.abstract_init())
+
+    def fsdp_specs(self, rules: Optional[MeshRules]):
+        """(the specs of the leaves outside the blocks, {block kind: a
+        block's specs}) when ``rules`` lay some leaf over the data axes
+        (FSDP), else None: what :meth:`_top` and the blocks gather
+        (:mod:`repro_torch.sharding.fsdp`). Every layer of a kind has the
+        same shapes, so one block's specs serve them all. Memoized by the
+        rules' axes, FSDP flag and overrides: the first call builds the
+        model's abstract init on the meta device, which the step factories
+        of ``train.step`` do when they are built, so that no step (the dry
+        run's, under its memory tracker) holds it."""
+        if rules is None:
+            return None
+        key = (rules.fsdp, tuple(rules.axes.items()), repr(rules.overrides))
+        if key not in self._fsdp_memo:
+            specs = self.run_specs(rules)
+            flags: List[bool] = []
+            map_specs(lambda spec: flags.append(fsdp.on_data(spec, rules)), specs)
+            blocks = dict(zip(self.kinds, specs["layers"]))
+            if "encoder" in specs:
+                blocks["enc"] = specs["encoder"][0]
+            top = {k: v for k, v in specs.items() if k not in ("layers", "encoder")}
+            self._fsdp_memo[key] = (top, blocks) if any(flags) else None
+        return self._fsdp_memo[key]
+
+    def _top(self, params, name: str, rules=None, rows: Optional[slice] = None):
+        """``params[name]`` (a leaf outside the blocks; its ``rows`` only),
+        gathered over the data axes where the rules lay it there."""
+        t = params[name] if rows is None else params[name][rows]
+        fs = self.fsdp_specs(rules)
+        return t if fs is None else fsdp.gather(t, fs[0][name], rules)
+
+    def _gathered(self, kind: str, lp, rules=None):
+        """A block's leaves ``lp``, gathered over the data axes where the
+        rules lay them there: the block's first step, inside its remat
+        region."""
+        fs = self.fsdp_specs(rules)
+        return lp if fs is None else fsdp.gather(lp, fs[1][kind], rules)
 
     def input_specs(self, shape: ShapeCfg) -> Tuple[Dict[str, torch.Tensor], Dict[str, Tuple]]:
         """(the inputs of a step of ``shape`` as meta tensors, their logical
@@ -297,8 +324,9 @@ class ModelDef:
         return self.init_cache(B, seq_len, "meta"), self.cache_axes()
 
     # -- forward ------------------------------------------------------------
-    def _head(self, params, dtype) -> torch.Tensor:
-        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+    def _head(self, params, dtype, rules=None) -> torch.Tensor:
+        head = (self._top(params, "embed", rules).T if self.cfg.tie_embeddings
+                else self._top(params, "lm_head", rules))
         return head.to(dtype)
 
     def _vocab_split(self, params, rules) -> Optional[tp.Split]:
@@ -307,7 +335,7 @@ class ModelDef:
         return tp.split(rules, head.shape[1], self.cfg.vocab)
 
     def _embed(self, params, tokens, rules=None) -> torch.Tensor:
-        table = params["embed"]
+        table = self._top(params, "embed", rules)
         s = tp.split(rules, table.shape[0], self.cfg.vocab)
         if s is None:
             return F.embedding(tokens, table).to(activation_dtype(self.cfg))
@@ -322,7 +350,7 @@ class ModelDef:
         """x (B, d) -> the whole vocabulary's logits (B, vocab): this rank's
         columns, gathered over "model" where the vocabulary splits."""
         s = self._vocab_split(params, rules)
-        logits = tp.vary(s, x) @ self._head(params, x.dtype)
+        logits = tp.vary(s, x) @ self._head(params, x.dtype, rules)
         return logits if s is None else C.all_gather(logits, s.mesh, "model", dim=-1)
 
     def _ffn_half(self, lp, x, rules=None):
@@ -367,6 +395,7 @@ class ModelDef:
         """(the block's output, its cache; None for an ``enc`` block)."""
         cfg = self.cfg
         x = constrain(x, rules, ("batch", "seq", None))
+        lp = self._gathered(kind, lp, rules)
         h = self._ln(lp["ln1"], x)
         if kind == "rwkv":
             t, shift_t, wkv = R.timemix_apply(lp["tm"], h, cfg, rules=rules)
@@ -388,6 +417,7 @@ class ModelDef:
 
     def _block_decode(self, kind: str, lp, x, cache, pos: int, rules=None, memory=None):
         cfg = self.cfg
+        lp = self._gathered(kind, lp, rules)
         h = self._ln(lp["ln1"], x)
         if kind == "rwkv":
             t, cache["shift_t"], cache["wkv"] = R.timemix_apply(
@@ -418,11 +448,11 @@ class ModelDef:
         dt = activation_dtype(cfg)
         frames = torch.as_tensor(frames).to(device=params["enc_pos"].device, dtype=dt)
         B, S, _ = frames.shape
-        x = frames + params["enc_pos"][None, :S].to(dt)
+        x = frames + self._top(params, "enc_pos", rules, slice(0, S))[None].to(dt)
         positions = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
         for lp in params["encoder"]:
             x, _ = self._block_prefill("enc", lp, x, positions, S, rules)
-        return self._ln(params["enc_ln"], x)
+        return self._ln(self._top(params, "enc_ln", rules), x)
 
     def _inputs(self, params, tokens, pos0: int, rules=None, image_embeds=None) -> torch.Tensor:
         """The token embeddings, plus (whisper) the learned positions of
@@ -430,7 +460,8 @@ class ModelDef:
         config) the image embeddings cast to the activation dtype."""
         x = self._embed(params, tokens, rules)
         if self.learned_pos:
-            x = x + params["pos_embed"][pos0:pos0 + tokens.shape[1]].to(x.dtype)
+            x = x + self._top(params, "pos_embed", rules,
+                              slice(pos0, pos0 + tokens.shape[1])).to(x.dtype)
         if self.image_tokens(image_embeds):
             img = torch.as_tensor(image_embeds).to(device=x.device, dtype=x.dtype)
             x = torch.cat([img, x], dim=1)
@@ -468,7 +499,7 @@ class ModelDef:
             caches.append({"memory": memory})
         # the final norm is per row, so normalising only the last position
         # gives the reference's x[:, -1] after its full-sequence norm
-        x = self._ln(params["final_ln"], x[:, -1:])
+        x = self._ln(self._top(params, "final_ln", rules), x[:, -1:])
         return self._logits(params, x[:, 0], rules), caches
 
     def decode(self, params, tokens: torch.Tensor, pos: int, caches: List[Dict],
@@ -481,7 +512,7 @@ class ModelDef:
         x = self._inputs(params, tokens, pos, rules)
         for kind, lp, cache in zip(self.kinds, params["layers"], caches):
             x = self._block_decode(kind, lp, x, cache, pos, rules, memory)
-        x = self._ln(params["final_ln"], x)
+        x = self._ln(self._top(params, "final_ln", rules), x)
         return self._logits(params, x[:, 0], rules), caches
 
     # -- training -------------------------------------------------------------
@@ -489,6 +520,7 @@ class ModelDef:
         """(the block's output, its MoE aux term or None); an ``xattn``
         block also attends to the encoder's ``memory``."""
         x = constrain(x, rules, ("batch", "seq", None))
+        lp = self._gathered(kind, lp, rules)
         h = self._ln(lp["ln1"], x)
         # the recurrent kinds: the prefill's block from a zero state, no cache
         cfg = self.cfg
@@ -550,11 +582,13 @@ class ModelDef:
                 x, a = self._block_train(kind, lp, x, positions, rules, memory)
             if a is not None:
                 aux = a if aux is None else aux + a
-        x = self._ln(params["final_ln"], x[:, P_img:])
+        x = self._ln(self._top(params, "final_ln", rules), x[:, P_img:])
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones((B, S), dtype=torch.float32, device=embed.device)
         mask[:, -1] = 0.0
-        ce = _chunked_ce(x, self._head(params, x.dtype), labels, mask, rules,
+        # the head gathered once: it lives from the last block's forward to
+        # the cross-entropy's backward, the first step of the backward
+        ce = _chunked_ce(x, self._head(params, x.dtype, rules), labels, mask, rules,
                          self._vocab_split(params, rules))
         return ce if aux is None else ce + 0.01 * aux
 

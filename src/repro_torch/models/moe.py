@@ -64,7 +64,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import INIT_STD, _normal
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding import tp
+from repro_torch.sharding import fsdp, tp
 from repro_torch.sharding.rules import MeshRules, constrain
 
 Params = Dict[str, torch.Tensor]
@@ -388,13 +388,15 @@ def moe_apply_manual(p: Params, x: torch.Tensor, cfg, rules: MeshRules
     run on this rank's local shards. ``x`` is this rank's data shard (B_loc,
     S, d), the same on every "model" rank (or its sequence block under the
     sequence-parallel override ``seq -> model``, gathered at entry); ``p``
-    holds the leaves as ``manual_specs`` lays them out. The rank's T = B_loc
+    holds the leaves as ``manual_specs`` lays them out, or its experts whole
+    over the data axes (the model's blocks gather every leaf that the
+    rules lay there: ``sharding/fsdp.py``). The rank's T = B_loc
     S tokens form one group of capacity C = ceil(k T capacity_factor / E);
     each rank computes its E / n_model experts' slots and the shared
     expert's columns, and the partial outputs are summed over "model" once
-    (or sum-scattered back onto the sequence blocks). With ``cfg.fsdp`` the
-    experts' weights arrive split over the data axes and are gathered just
-    in time; their gradients reduce-scatter in the gather's backward. The aux
+    (or sum-scattered back onto the sequence blocks). Experts that arrive
+    split over the data axes are gathered just in time; their gradients
+    reduce-scatter in the gather's backward. The aux
     term is the mean over the data shards of each shard's term. Returns (y
     (B_loc, S, d) or its sequence block, aux)."""
     mesh, data = rules.mesh, rules.data_axes
@@ -415,10 +417,13 @@ def moe_apply_manual(p: Params, x: torch.Tensor, cfg, rules: MeshRules
     aux = C.pmean(C.pmean(_switch_aux(probs), mesh, data), mesh, "model")
     cap = int(math.ceil(k * T * cfg.capacity_factor / E))
     plan = manual_plan(probs, dt, cfg, C.axis_index(mesh, "model") * E_loc, E_loc, cap)
-    w = {name: p[name] for name in ("wg", "wu", "wo")}
-    if cfg.fsdp:
-        w = {name: C.all_gather(t, mesh, data, dim=2 if name == "wo" else 1)
-             for name, t in w.items()}
+    d, f = cfg.d_model, cfg.d_ff
+    specs = manual_specs(cfg, rules)
+    # an expert leaf split over the data axes (``manual_specs`` with
+    # ``cfg.fsdp``) is gathered here; the model's blocks pass them whole
+    w = {name: p[name] if tuple(p[name].shape[1:]) == whole else
+         fsdp.gather_leaf(p[name], specs[name], rules)
+         for name, whole in (("wg", (d, f)), ("wu", (d, f)), ("wo", (f, d)))}
     y = combine(expert_ffn(w, dispatch(xs, plan)), plan)
     if cfg.n_shared_experts:  # column-parallel: a part of the sum over "model"
         y = y + _shared(p, xs)

@@ -89,7 +89,15 @@ def _gather(x: torch.Tensor, grp, n: int, dim: int) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + src.shape[1:])
     _run("all-gather", lambda o, s: dist.all_gather_into_tensor(o, s, group=grp), out, src)
-    return out.movedim(0, dim)
+    return _natural(out, dim)
+
+
+def _natural(out: torch.Tensor, dim: int) -> torch.Tensor:
+    """``out`` (the collective's result along its first dim) with that dim
+    moved back to ``dim``, contiguous: a strided view would take other
+    kernels downstream (a matrix product, a reduction) that round
+    otherwise than on the tensor without the collective."""
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
 
 
 def _scatter(x: torch.Tensor, grp, n: int, dim: int) -> torch.Tensor:
@@ -100,7 +108,7 @@ def _scatter(x: torch.Tensor, grp, n: int, dim: int) -> torch.Tensor:
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
     _run("reduce-scatter", lambda o, s: dist.reduce_scatter_tensor(o, s, group=grp), out, src)
-    return out.movedim(0, dim)
+    return _natural(out, dim)
 
 
 class _PSum(torch.autograd.Function):

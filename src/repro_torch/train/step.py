@@ -5,9 +5,9 @@ and the layouts of the train state, the batch and the cache over a mesh.
 With ``rules`` the train step is the SPMD counterpart of the reference's
 ``jit`` with shardings: each rank runs ``ModelDef.loss`` on its data shard
 of the batch (the global loss on every rank) and holds each parameter, and
-its optimizer state, as ``ModelDef.run_specs`` says (``shard_state`` cuts a
-global state so): the rules' layout, "model"-axis splits included. The
-steps run eagerly. ``abstract_state``, ``state_shardings``,
+its optimizer state, as ``state_specs`` says (``shard_state`` cuts a
+global state so): the rules' layout, "model"-axis splits and FSDP's data
+axes included. The steps run eagerly. ``abstract_state``, ``state_shardings``,
 ``batch_shardings`` and ``cache_shardings`` give the reference's layouts as
 DTensor placements (:mod:`repro_torch.sharding.rules`), which the dry run
 (``launch/dryrun.py``) reads.
@@ -21,9 +21,10 @@ import torch
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.models.model_api import ModelDef, _stacks_for
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import MeshRules, entry_axes, map_specs, shard_tree
-from repro_torch.train.optim import (_get, _paths, compress_grads_int8, init_error_fb,
-                                     leaf_groups, make_optimizer)
+from repro_torch.sharding import fsdp
+from repro_torch.sharding.rules import MeshRules, map_specs, shard_tree
+from repro_torch.train.optim import (LeafLayout, _get, _paths, compress_grads_int8,
+                                     init_error_fb, leaf_groups, make_optimizer)
 from repro_torch.utils.tree import flatten, unflatten
 
 
@@ -49,26 +50,19 @@ def make_train_step(model: ModelDef, rules: Optional[MeshRules] = None, lr: floa
     uses only in part (rwkv6's ``wo``, ``wB`` and group-norm leaves, the kv
     projections that a rank's heads read, an MoE's gates) gets its sum over
     "model" where it is used: it passes ``sharding.tp.vary``, whose
-    backward sums the ranks' parts. A leaf split over the data axes (FSDP
-    of the manual MoE's experts) got its sum from the reduce-scatter in its
-    gather's backward. The update is then each rank's on its own
-    shards, so only optimizers whose update is elementwise (AdamW, momentum
-    SGD) run under rules: Adafactor's factored statistics and the int8
-    compression's scale are taken over a whole leaf, and raise (ROADMAP.md
-    Queue 1, item 9.10)."""
+    backward sums the ranks' parts. A leaf split over the data axes (FSDP)
+    got its sum from the reduce-scatter in its gather's backward
+    (``sharding/fsdp.py``). The update is then each rank's on its own
+    shards; Adafactor's statistics and the int8 compression's scale are
+    taken over the whole leaf (``train.optim.LeafLayout``)."""
     stacks = _stacks_for(model.cfg)
-    opt_init, opt_update = make_optimizer(model.cfg.optimizer, stacks, lr=lr)
-    if rules is not None and (grad_compression or model.cfg.optimizer == "adafactor"):
-        raise NotImplementedError(
-            f"{model.cfg.name}: a train step under rules updates each rank's shards, so it runs "
-            f"elementwise optimizers only (adamw, sgdm); {model.cfg.optimizer}"
-            f"{' with int8 gradient compression' if grad_compression else ''} under rules is "
-            f"not ported yet (ROADMAP.md Queue 1, item 9.10)")
+    layouts = None if rules is None else leaf_layouts(model, rules, grad_compression)
+    opt_init, opt_update = make_optimizer(model.cfg.optimizer, stacks, lr=lr, layouts=layouts)
     # per parameter leaf (in ``flatten`` order): whether its parts are summed
     # over the data axes
     data_sum = None if rules is None else [
-        not any(a in rules.data_axes for e in spec for a in entry_axes(e))
-        for _, spec in _paths(model.run_specs(rules))]
+        not fsdp.on_data(spec, rules) for _, spec in _paths(model.run_specs(rules))]
+    model.fsdp_specs(rules)  # computed here, outside any step (see its docstring)
 
     def train_step(state, batch):
         leaves, treedef = flatten(state["params"])
@@ -82,7 +76,7 @@ def make_train_step(model: ModelDef, rules: Optional[MeshRules] = None, lr: floa
         grads = unflatten(treedef, grads)
         new_state = {}
         if grad_compression:
-            grads, new_state["efb"] = compress_grads_int8(grads, state["efb"], stacks)
+            grads, new_state["efb"] = compress_grads_int8(grads, state["efb"], stacks, layouts)
         new_state["params"], new_state["opt"] = opt_update(state["params"], grads, state["opt"],
                                                            state["step"])
         new_state["step"] = state["step"] + 1
@@ -112,25 +106,54 @@ def _set_path(tree, path, value) -> None:
     tree[path[-1]] = value
 
 
+def state_specs(model: ModelDef, rules: MeshRules, grad_compression: bool = False):
+    """The reference's layout of the train state as specs: the parameters
+    as ``run_specs`` lays them out; each optimizer and error-feedback leaf
+    as its parameter's reference leaf (a stacked leaf with its "layers"
+    axis) where the shapes match, Adafactor's ``vr`` / ``vc`` by the axes
+    left after their reduction over the last / second-to-last dim, anything
+    else whole (the reference's ``state_shardings``)."""
+    abstract = abstract_state(model, grad_compression)
+    shapes = _ref_groups(model, abstract["params"])
+    st = {"params": model.run_specs(rules), "opt": {}, "step": ()}
+    if grad_compression:
+        st["efb"] = {}
+    for path, (group, stacked) in _ref_groups(model, model.param_axes()).items():
+        ts = shapes[path][0]
+        ax = (("layers",) + group[0]) if stacked else group[0]
+        full = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
+
+        def like(leaf):
+            shape = tuple(leaf.shape)
+            if shape == full:
+                return rules.spec_for(ax, shape)
+            if shape == full[:-1]:  # vr
+                return rules.spec_for(ax[:-1], shape)
+            if shape == full[:-2] + full[-1:]:  # vc
+                return rules.spec_for(ax[:-2] + ax[-1:], shape)
+            return (None,) * len(shape)
+
+        _set_path(st["opt"], path, {k: like(t) for k, t in _get(abstract["opt"], path).items()})
+        if grad_compression:
+            _set_path(st["efb"], path, rules.spec_for(ax, full))
+    return st
+
+
+def leaf_layouts(model: ModelDef, rules: MeshRules, grad_compression: bool = False):
+    """{reference path: ``optim.LeafLayout``}: how each leaf of the
+    optimizer's reference layout and its state lie over the mesh."""
+    specs = state_specs(model, rules, grad_compression)
+    return {path: LeafLayout(rules, ((None,) + group[0]) if stacked else group[0],
+                             _get(specs["opt"], path))
+            for path, (group, stacked) in _ref_groups(model, specs["params"]).items()}
+
+
 def shard_state(model: ModelDef, rules: MeshRules, state):
     """This rank's part of a global train state (every rank passes the same
-    one): each parameter as ``model.run_specs(rules)`` lays it out, each
-    optimizer and error-feedback leaf as its parameter, a stacked leaf's
-    "layers" dim whole (views, not copies)."""
-    specs = model.run_specs(rules)
-    out = {"params": map_specs(lambda spec, t: rules.local_shard(t, spec), specs,
-                               state["params"]),
-           "step": state["step"]}
-    for key in ("opt", "efb"):
-        if key not in state:
-            continue
-        out[key] = {}
-        for path, (group, stacked) in _ref_groups(model, specs).items():
-            spec = ((None,) + group[0]) if stacked else group[0]
-            sub = _get(state[key], path)
-            _set_path(out[key], path, rules.local_shard(sub, spec) if torch.is_tensor(sub)
-                      else {k: rules.local_shard(t, spec) for k, t in sub.items()})
-    return out
+    one), as ``state_specs`` lays it out (views, not copies)."""
+    specs = state_specs(model, rules, "efb" in state)
+    return {key: map_specs(lambda spec, t: rules.local_shard(t, spec), specs[key], state[key])
+            if key != "step" else state["step"] for key in state}
 
 
 def abstract_state(model: ModelDef, grad_compression: bool = False):
@@ -146,37 +169,8 @@ def abstract_state(model: ModelDef, grad_compression: bool = False):
 
 
 def state_shardings(model: ModelDef, rules: MeshRules, grad_compression: bool = False):
-    """The reference's layout of the train state as DTensor placements: the
-    parameters by their logical axes; each optimizer and error-feedback leaf
-    as its parameter's reference leaf (a stacked leaf with its "layers"
-    axis) where the shapes match, Adafactor's ``vr`` / ``vc`` by the axes
-    left after their reduction over the last / second-to-last dim, anything
-    else whole."""
-    abstract = abstract_state(model, grad_compression)
-    shapes = _ref_groups(model, abstract["params"])
-    st = {"params": shard_tree(rules, model.param_axes(), abstract["params"]),
-          "step": rules.placements_for((), ())}
-    for key in ("opt", "efb") if grad_compression else ("opt",):
-        st[key] = {}
-    for path, (group, stacked) in _ref_groups(model, model.param_axes()).items():
-        ts = shapes[path][0]
-        ax = (("layers",) + group[0]) if stacked else group[0]
-        full = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
-
-        def like(leaf):
-            shape = tuple(leaf.shape)
-            if shape == full:
-                return rules.placements_for(ax, shape)
-            if shape == full[:-1]:  # vr
-                return rules.placements_for(ax[:-1], shape)
-            if shape == full[:-2] + full[-1:]:  # vc
-                return rules.placements_for(ax[:-2] + ax[-1:], shape)
-            return rules.placements_for((None,) * len(shape), shape)
-
-        _set_path(st["opt"], path, {k: like(t) for k, t in _get(abstract["opt"], path).items()})
-        if grad_compression:
-            _set_path(st["efb"], path, rules.placements_for(ax, full))
-    return st
+    """``state_specs`` as DTensor placements."""
+    return map_specs(rules.placements, state_specs(model, rules, grad_compression))
 
 
 def batch_shardings(model: ModelDef, rules: MeshRules, shape: ShapeCfg):
@@ -192,6 +186,8 @@ def cache_shardings(model: ModelDef, rules: MeshRules, B: int, seq_len: int):
 
 
 def make_prefill_step(model: ModelDef, rules: Optional[MeshRules] = None):
+    model.fsdp_specs(rules)
+
     def prefill_step(params, batch, cache_len=None):
         tokens = torch.as_tensor(batch["tokens"]).to(device=params["embed"].device,
                                                      dtype=torch.int64)
@@ -202,6 +198,8 @@ def make_prefill_step(model: ModelDef, rules: Optional[MeshRules] = None):
 
 
 def make_decode_step(model: ModelDef, rules: Optional[MeshRules] = None):
+    model.fsdp_specs(rules)
+
     def decode_step(params, tokens, pos, caches):
         return model.decode(params, tokens, pos, caches, rules)
 

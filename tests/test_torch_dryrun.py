@@ -53,20 +53,33 @@ CELLS = {
     "kv_int8": ("gemma-2b", "decode_32k", "single", "kv_int8"),
     "serve_bf16_kv8": ("gemma-2b", "decode_32k", "single", "serve_bf16_kv8"),
     "skipped": ("gemma-2b", "long_500k", "single", "baseline"),
-    "kimi": ("kimi-k2-1t-a32b", "train_4k", "single", "baseline"),
+    "kimi": ("kimi-k2-1t-a32b", "prefill_32k", "single", "baseline"),
+    "kimi_decode": ("kimi-k2-1t-a32b", "decode_32k", "multi", "baseline"),
     "whisper_train": ("whisper-tiny", "train_4k", "single", "baseline"),
     "phi": ("phi-3-vision-4.2b", "prefill_32k", "multi", "baseline"),
     "phi_train": ("phi-3-vision-4.2b", "train_4k", "single", "baseline"),
     "phi_decode": ("phi-3-vision-4.2b", "decode_32k", "single", "baseline"),
     "sp_model": ("gemma-2b", "train_4k", "single", "sp_model"),
+    "sp_flash": ("gemma-2b", "train_4k", "single", "sp_flash"),
     "fsdp": ("deepseek-7b", "train_4k", "single", "fsdp"),
+    "no_fsdp": ("deepseek-7b", "train_4k", "multi", "no_fsdp"),
+    "compress": ("gemma-2b", "train_4k", "single", "compress"),
+    "moe_manual_compress": ("olmoe-1b-7b", "train_4k", "single", "moe_manual_compress"),
     "seq_shard": ("gemma-2b", "prefill_32k", "multi", "seq_shard"),
+    "cache_seq_shard": ("gemma-2b", "decode_32k", "single", "cache_seq_shard"),
     "flash": ("gemma-2b", "train_4k", "single", "flash"),
 }
 MAIN = ("train", "decode", "prefill")
 SERVE_CELLS = ("whisper_prefill", "whisper_decode", "kv_int8", "serve_bf16_kv8")
 PHI_CELLS = ("phi_train", "phi", "phi_decode")
 WHISPER_TRAIN = ("whisper_train",)
+# FSDP of the dense leaves, the whole-leaf statistics (int8 compression;
+# kimi-k2's Adafactor, whose train_4k cells trace past CELL_TIMEOUT_S and
+# run in chip_smoke.py's dryrun phase) and kimi-k2's serving cells
+FSDP_CELLS = ("fsdp", "no_fsdp", "compress", "moe_manual_compress", "kimi", "kimi_decode")
+# the sequence-parallel variants: error cells naming ROADMAP item 9.8
+SP_CELLS = ("sp_model", "sp_flash", "seq_shard", "cache_seq_shard")
+RECORDS = MAIN + SERVE_CELLS + PHI_CELLS + WHISPER_TRAIN + FSDP_CELLS
 # each cell's batch: an encoder-decoder's prefill and train steps take its
 # frames, a vision config's train and prefill steps its image embeddings
 BATCH_NAMES = {"whisper_prefill": {"tokens", "frames"}, "whisper_train": {"tokens", "frames"},
@@ -74,7 +87,11 @@ BATCH_NAMES = {"whisper_prefill": {"tokens", "frames"}, "whisper_train": {"token
 # the config changes of the variants above (the reference's ``launch/dryrun.py``
 # VARIANTS entries)
 VARIANT_CONFIG = {"baseline": {}, "kv_int8": {"kv_cache_dtype": "int8"},
-                  "serve_bf16_kv8": {"kv_cache_dtype": "int8", "param_dtype": "bfloat16"}}
+                  "serve_bf16_kv8": {"kv_cache_dtype": "int8", "param_dtype": "bfloat16"},
+                  "fsdp": {"fsdp": True}, "no_fsdp": {"fsdp": False}, "compress": {},
+                  "moe_manual_compress": {"moe_impl": "manual"}}
+# the variants that add the int8 compression's error feedback to the state
+COMPRESSED = ("compress", "moe_manual_compress")
 CELL_TIMEOUT_S = 60
 
 
@@ -117,22 +134,43 @@ class FakeMesh:
         self.axis_names = shape.axis_names
 
 
+def _cell_config(name: str):
+    arch, _, _, variant = CELLS[name]
+    return dataclasses.replace(jax_get_arch(arch), **VARIANT_CONFIG[variant])
+
+
 def _reference_trees(name: str):
     """[(values, axes or None)] of the reference's step inputs for the cell:
-    its abstract train state, or parameters (and cache), and the batch."""
+    its abstract train state, or parameters (and cache), and the batch. The
+    optimizer state lies by the rule of the reference's
+    ``state_shardings``: a leaf of its parameter's shape as the parameter,
+    Adafactor's ``vr`` / ``vc`` by the axes left after their reduction,
+    anything else whole; the error feedback as the parameters."""
     arch, shape_name, _, variant = CELLS[name]
-    cfg, shape = jax_get_arch(arch), JAX_SHAPES[shape_name]
-    model = jax_build_model(dataclasses.replace(cfg, **VARIANT_CONFIG[variant]))
+    cfg, shape = _cell_config(name), JAX_SHAPES[shape_name]
+    model = jax_build_model(cfg)
     values, axes = split_params(model.abstract_init())
     if shape.kind == "train":
-        _, _, abstract_state, _, _ = jax_make_train_step(model)
+        compress = variant in COMPRESSED
+        _, _, abstract_state, _, _ = jax_make_train_step(model, grad_compression=compress)
         state = abstract_state()
-        # AdamW's m and v lie as their parameter (the reference's state_shardings)
-        moments = [jax.tree.map(lambda d, key=key: d[key], state["opt"],
-                                is_leaf=lambda x: isinstance(x, dict) and "m" in x)
-                   for key in ("m", "v")]
-        trees = [(state["params"], axes), (moments[0], axes), (moments[1], axes),
-                 (state["step"], None)]
+        opt_values, opt_axes = [], []
+        flat_axes = jax.tree.leaves(axes, is_leaf=lambda x: isinstance(x, tuple) and all(
+            isinstance(e, (str, type(None))) for e in x))
+        flat_opt = jax.tree.leaves(state["opt"], is_leaf=lambda x: isinstance(x, dict) and (
+            "m" in x or "v" in x or "vr" in x))
+        for ax, val, sub in zip(flat_axes, jax.tree.leaves(state["params"]), flat_opt,
+                                strict=True):
+            full = tuple(val.shape)
+            for leaf in sub.values():
+                shp = tuple(leaf.shape)
+                opt_values.append(leaf)
+                opt_axes.append(tuple(ax) if shp == full else tuple(ax[:-1]) if
+                                shp == full[:-1] else tuple(ax[:-2] + ax[-1:]) if
+                                shp == full[:-2] + full[-1:] else (None,) * len(shp))
+        trees = [(state["params"], axes), (opt_values, opt_axes), (state["step"], None)]
+        if compress:
+            trees.append((state["efb"], axes))
     else:
         trees = [(values, axes)]
     if shape.kind == "decode":
@@ -159,7 +197,7 @@ def _local_bytes(values, axes, rules) -> int:
     return total
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS + WHISPER_TRAIN)
+@pytest.mark.parametrize("name", RECORDS)
 def test_state_bytes_global_equal_the_references(cells, name):
     """``state_bytes_global`` is the reference's ``tree_bytes`` of the same
     abstract state (its ``jax.eval_shape``s, no compile)."""
@@ -167,16 +205,19 @@ def test_state_bytes_global_equal_the_references(cells, name):
     assert cells[name]["state_bytes_global"] == sum(tree_bytes(v) for v, _ in trees)
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS + WHISPER_TRAIN)
+@pytest.mark.parametrize("name", RECORDS)
 def test_rank0_arguments_are_the_reference_spec_slices(cells, name):
     """Rank 0's argument bytes are the sum of the reference's spec slices of
-    its state (or parameters and cache) and batch under the same mesh (an
-    encoder-decoder's prefill batch holds its frames, a vision config's
-    train and prefill batches its image embeddings). The port's decode
-    tokens are int64 (the reference's int32), its train and prefill tokens
-    int32."""
+    its state (or parameters and cache) and batch under the same mesh and
+    rules (FSDP where the config or the variant sets it: kimi-k2's, the
+    ``fsdp`` variant's), the optimizer state and error feedback as the
+    reference's ``state_shardings`` lays them (an encoder-decoder's
+    prefill batch holds its frames, a vision config's train and prefill
+    batches its image embeddings). The port's decode tokens are int64 (the
+    reference's int32), its train and prefill tokens int32."""
     arch, shape_name, mesh, _ = CELLS[name]
-    rules = JaxMeshRules(FakeMesh(make_production_mesh(multi_pod=mesh == "multi")))
+    rules = JaxMeshRules(FakeMesh(make_production_mesh(multi_pod=mesh == "multi")),
+                         fsdp=_cell_config(name).fsdp)
     trees = _reference_trees(name)
     want = sum(_local_bytes(v, a, rules) for v, a in trees)
     if SHAPES[shape_name].kind == "decode":
@@ -198,19 +239,20 @@ def test_skipped_cells_equal_the_references_applicable(cells):
     assert "memory" not in cells["skipped"]
 
 
-@pytest.mark.parametrize("name", ("kimi", "sp_model", "fsdp", "seq_shard"))
+@pytest.mark.parametrize("name", SP_CELLS)
 def test_unported_archs_and_variants_give_an_error(cells, name):
-    """An arch or variant the port cannot run writes its
-    NotImplementedError text under "error", with the cell's keys, and
-    exits 0."""
+    """A variant the port cannot run (sequence parallelism of the residual
+    stream) writes its NotImplementedError text, naming ROADMAP item 9.8,
+    under "error", with the cell's keys, and exits 0."""
     arch, shape, mesh, variant = CELLS[name]
     r = cells[name]
     assert (r["arch"], r["shape"], r["mesh"], r["variant"]) == (arch, shape, mesh, variant)
     assert "not ported yet" in r["error"] and "ROADMAP.md" in r["error"]
+    assert "item 9.8" in r["error"]
     assert "memory" not in r and "roofline" not in r
 
 
-@pytest.mark.parametrize("name", MAIN + SERVE_CELLS + PHI_CELLS + WHISPER_TRAIN)
+@pytest.mark.parametrize("name", RECORDS)
 def test_record_keys_and_roofline(cells, name):
     """The reference's keys (``trace_s`` for ``lower_s`` / ``compile_s``),
     the roofline on the H100's peaks, the memory identity."""
@@ -543,4 +585,6 @@ def test_report_tables_equal_the_references(cells, tmp_path):
     for arch in ("gemma-2b", "olmoe-1b-7b", "phi-3-vision-4.2b", "kimi-k2-1t-a32b"):
         assert report.perf_rows(mine, arch) == jax_report.perf_rows(ref, arch)
     n_ok, n_skip, n_err, _ = report.dryrun_summary(mine)
-    assert (n_ok, n_skip, n_err) == (12, 1, 4)  # whisper's train cell runs
+    # FSDP, the compression and kimi-k2's serving cells run; the four
+    # sequence-parallel variants are the errors
+    assert (n_ok, n_skip, n_err) == (18, 1, 4)

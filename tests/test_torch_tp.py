@@ -302,22 +302,24 @@ def _port_meshes():
 def test_run_specs_equal_the_reference_rules(arch, mesh):
     """``run_specs`` is the reference rules' spec of every parameter leaf of
     every ported config at full width, on the production meshes and the
-    test meshes: no leaf stays whole where the reference splits it. A
-    config whose rules lay its dense leaves over the data axes (kimi-k2's
-    ``fsdp``) is refused, naming ROADMAP item 9.9, and held without FSDP."""
+    test meshes, without FSDP and with it (the FSDP pass laying the dims
+    the first pass leaves whole over the data axes: kimi-k2's rules, the
+    dry run's ``fsdp`` variant): no leaf stays whole where the reference
+    splits it, the manual MoE path's leaves included."""
     shape = _port_meshes()[mesh]
     cfg = get_arch(arch)
-    if cfg.fsdp:
-        with pytest.raises(NotImplementedError, match="item 9.9"):
-            build_model(cfg).run_specs(MeshRules(shape, fsdp=True))
-    jrules = JaxMeshRules(FakeMesh(shape), fsdp=False)
     values, axes = split_params(jax_build_model(jax_get_arch(arch)).abstract_init())
     shapes = dict(_paths(values))
-    want = {p: tuple(jrules.spec_for(tuple(ax), tuple(shapes[p].shape)))
-            for p, ax in _paths(axes)}
-    got = leaf_groups(build_model(cfg).run_specs(MeshRules(shape, fsdp=False)),
-                      _stacks_for(cfg))
-    assert {p for p, _, _ in got} == set(want)
-    for path, group, stacked in got:
-        for spec in group:
-            assert ((None,) + spec if stacked else spec) == want[path], path
+    for fsdp in (False, True):
+        jrules = JaxMeshRules(FakeMesh(shape), fsdp=fsdp)
+        want = {p: tuple(jrules.spec_for(tuple(ax), tuple(shapes[p].shape)))
+                for p, ax in _paths(axes)}
+        for impl in ("auto", "manual") if cfg.moe else ("auto",):
+            model = build_model(dataclasses.replace(cfg, moe_impl=impl))
+            got = leaf_groups(model.run_specs(MeshRules(shape, fsdp=fsdp)), _stacks_for(cfg))
+            assert {p for p, _, _ in got} == set(want)
+            for path, group, stacked in got:
+                for spec in group:
+                    assert ((None,) + spec if stacked else spec) == want[path], (path, fsdp)
+        if fsdp:
+            assert any("data" in str(s) for s in want.values())

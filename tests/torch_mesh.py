@@ -212,33 +212,43 @@ def train_cases(rank: int, state, tokens, lr: float):
 # ---------------------------------------------------------------------------
 
 
-def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
+def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float, fsdp: bool = False):
     """Each case {name, arch, change, state (the reference's initial train
     state, numpy), feed (the reference's greedy tokens of the decode steps,
     (steps, B)), frames (an encoder-decoder's (B, F, d), else None), images
     (a vision config's image embeddings (B, P, d), else None), train
-    (False: serving only, ``state`` holds its params)} on each (n_data,
-    n_model) mesh of ``meshes``: this rank's shards as ``run_specs`` lays
-    them out (``shard_state``), its data shard of ``tokens`` (B, S) (and of
-    the frames and images) through ``prefill`` (cache S + P + steps),
-    ``steps`` decode steps fed ``feed`` at positions S + P + i, then, when
-    training, ``loss`` and one AdamW step (the frames and images in their
-    batch).
+    (False: serving only, ``state`` holds its params), optionally steps
+    ({label: (optimizer, grad_compression, the reference's initial state for
+    them)}; default {"adamw": ("adamw", False, state)}) and lr (default
+    ``lr``)} on each (n_data,
+    n_model) mesh of ``meshes``, with the rules' ``fsdp``: this rank's
+    shards as ``run_specs`` lays them out (``shard_state``), its data shard
+    of ``tokens`` (B, S) (and of the frames and images) through ``prefill``
+    (cache S + P + steps), ``steps`` decode steps fed ``feed`` at positions
+    S + P + i, then, when training, ``loss`` and one train step from each
+    of the case's states (the frames and images in their batch).
     Returns {(mesh, name): {"logits" [(rows, vocab)] (prefill, then each
-    step), "loss", "step_loss", "params" (this rank's, by reference path,
-    after the step; before it when serving only), "coord"}}."""
+    step), "loss", "params" (this rank's, by reference path, before any
+    step when serving only), "coord", and for training "steps" {label:
+    {"loss", "params", "opt" (the optimizer state's leaves by path), "efb"}}
+    with the "adamw" step's loss and parameters also as "step_loss" and
+    "params"}}."""
     from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.models.model_api import _stacks_for
     from repro_torch.sharding.rules import MeshRules
-    from repro_torch.train.optim import leaf_groups
+    from repro_torch.train.optim import _paths, leaf_groups
     from repro_torch.train.step import make_train_step, shard_state
+
+    def by_path(params, cfg):
+        return {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
+                for path, ts_, stacked in leaf_groups(params, _stacks_for(cfg))}
 
     out = {}
     for shape in meshes:
-        rules = MeshRules(make_host_mesh(*shape, "cpu"))
+        rules = MeshRules(make_host_mesh(*shape, "cpu"), fsdp=fsdp)
         d = rules.coordinate()["data"]
         n = len(tokens) // rules.axes["data"]
         rows = slice(d * n, (d + 1) * n)
@@ -246,11 +256,11 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
             cfg = dataclasses.replace(get_arch(c["arch"]).reduced(), **c["change"])
             model = build_model(cfg)
             train = c.get("train", True)
-            state = (convert.train_state_from_jax(c["state"], cfg) if train else
-                     {"params": convert.from_jax_values(c["state"]["params"], cfg,
-                                                        param_dtype=torch.float32),
-                      "step": torch.zeros((), dtype=torch.int32)})
-            st = shard_state(model, rules, state)
+            params = convert.from_jax_values(c["state"]["params"], cfg,
+                                             param_dtype=getattr(torch, cfg.param_dtype)
+                                             if train else torch.float32)
+            st = shard_state(model, rules, {"params": params,
+                                            "step": torch.zeros((), dtype=torch.int32)})
             toks = torch.from_numpy(np.asarray(tokens[rows])).long()
             frames, images = (None if c.get(key) is None else
                               torch.from_numpy(np.asarray(c[key][rows]))
@@ -264,23 +274,71 @@ def tp_cases(rank: int, meshes, cases, tokens, steps: int, lr: float):
                     feed = torch.from_numpy(np.asarray(c["feed"][i][rows])).long()[:, None]
                     lg, cache = model.decode(st["params"], feed, P + i, cache, rules)
                     logits.append(lg)
+            res = {"logits": logits, "coord": rules.coordinate()}
+            out[(shape, c["name"])] = res
             if not train:
-                params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
-                          for path, ts_, stacked in leaf_groups(st["params"], _stacks_for(cfg))}
-                out[(shape, c["name"])] = {"logits": logits, "params": params,
-                                           "coord": rules.coordinate()}
+                res["params"] = by_path(st["params"], cfg)
                 continue
             batch = {"tokens": toks}
             for key, t in (("frames", frames), ("image_embeds", images)):
                 if t is not None:
                     batch[key] = t
             with torch.no_grad():
-                loss = float(model.loss(st["params"], batch, rules))
-            ts, _ = make_train_step(model, rules=rules, lr=lr)
-            new, m = ts(st, batch)
-            params = {"/".join(path): torch.stack(ts_) if stacked else ts_[0].clone()
-                      for path, ts_, stacked in leaf_groups(new["params"], _stacks_for(cfg))}
-            out[(shape, c["name"])] = {"logits": logits, "loss": loss,
-                                       "step_loss": float(m["loss"]), "params": params,
-                                       "coord": rules.coordinate()}
+                res["loss"] = float(model.loss(st["params"], batch, rules))
+            res["steps"] = {}
+            for label, (opt, gc, state) in (c.get("steps") or
+                                            {"adamw": ("adamw", False, c["state"])}).items():
+                scfg = dataclasses.replace(cfg, optimizer=opt)
+                smodel = build_model(scfg)
+                sst = shard_state(smodel, rules, convert.train_state_from_jax(state, scfg))
+                ts, _ = make_train_step(smodel, rules=rules, lr=c.get("lr", lr),
+                                        grad_compression=gc)
+                new, m = ts(sst, batch)
+                res["steps"][label] = {
+                    "loss": float(m["loss"]), "params": by_path(new["params"], scfg),
+                    "opt": {"/".join(path): t.clone() for path, t in _paths(new["opt"])},
+                    "efb": {"/".join(path): t.clone() for path, t in _paths(new.get("efb", {}))}}
+            if "adamw" in res["steps"]:
+                res["step_loss"] = res["steps"]["adamw"]["loss"]
+                res["params"] = res["steps"]["adamw"]["params"]
+    return out
+
+
+def adafactor_piece_cases(rank: int, arch: str, shape, pieces, lr: float):
+    """Two Adafactor updates of ``arch``'s reduced parameters (float32
+    masters; seeded draws, the same on every rank) under FSDP rules on a
+    ``shape`` mesh, each rank on its shards (``shard_state``), the
+    statistics over the whole leaf (``train.step.leaf_layouts``), with
+    ``optim.PIECE`` set to each of ``pieces``: {piece: (this rank's
+    parameters, optimizer state) by path}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.model_api import _stacks_for
+    from repro_torch.sharding.rules import MeshRules
+    from repro_torch.train import optim
+    from repro_torch.train.step import leaf_layouts, shard_state
+    from repro_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), param_dtype="float32",
+                              optimizer="adafactor", fsdp=True)
+    model = build_model(cfg)
+    rules = MeshRules(make_host_mesh(*shape, "cpu"), fsdp=True)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, "cpu", param_dtype=torch.float32)
+    grads = [tree_map(lambda t: torch.randn(t.shape, generator=gen), params) for _ in range(2)]
+    out = {}
+    for piece in pieces:
+        optim.PIECE = piece
+        init, update = optim.make_optimizer("adafactor", _stacks_for(cfg), lr=lr,
+                                            layouts=leaf_layouts(model, rules))
+        st = shard_state(model, rules, {"params": params, "opt": init(params),
+                                        "step": torch.zeros((), dtype=torch.int32)})
+        p, s = tree_map(lambda t: t.clone(), st["params"]), tree_map(lambda t: t.clone(),
+                                                                       st["opt"])
+        for step in range(2):  # the second step reads the statistics the first wrote
+            g = shard_state(model, rules, {"params": grads[step]})["params"]
+            p, s = update(p, g, s, torch.tensor(step, dtype=torch.int32))
+        out[piece] = ({"/".join(k): v for k, v in optim._paths(p)},
+                      {"/".join(k): v for k, v in optim._paths(s)})
     return out
