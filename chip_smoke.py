@@ -223,8 +223,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    closed form's expectation; with more than one card, ``fleet_stress`` x
    256 split over every card against one card, bit for bit, and the
    default split (one card) bit for bit and no slower than
-   ``n_devices=1``. Prints the folds' seconds, seeds/s, launches per slot,
-   busy share and the engine's seconds per trial;
+   ``n_devices=1``; every registered detector, workload and autoscaler
+   through the fold on the card (against the CPU fold and the engine) and
+   every registered injector's schedule (``registries_check``). Prints the
+   folds' seconds, seeds/s, launches per slot, busy share and the engine's
+   seconds per trial;
 8. workloads: the measured step surfaces of ``serve_decode`` and
    ``train_llm`` (``Workload.measured_step_surface``) on the card at the
    reference's default shape and at gemma-2b's width (SURFACE_SHAPES,
@@ -256,11 +259,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Prints the live and predicted makespans, the relative error, the
    oracle's choice, each worker's seconds from spawn to first heartbeat
    and to warm, and the calibrated against the paced step wall seconds;
-10. prints each phase's seconds, the ``kernels`` JSON line (a float32 attention row's launches are
+10. examples: the port's linter (``python -m repro_torch.analysis
+   src/repro_torch``, exit 0), then the four examples
+   (``examples/*_torch.py``) through their ``main`` in this process on the
+   card (EXAMPLE_RUNS): quickstart at its defaults, train_ft --full at
+   EXAMPLE_FT_STEPS steps, genome_search with the paper's 5000 patterns
+   over EXAMPLE_GENOME_MB MB, serve_decode for gemma-2b, rwkv6-1.6b,
+   recurrentgemma-9b, whisper-tiny and phi-3-vision-4.2b; each must print
+   OK last and launch the kernels its row
+   names (rmsnorm and flash_attention forward and backward for the two
+   trainers, none for the genome job, flash_decode, wkv6 and rglru as the
+   served family has them). Prints each run's output, seconds and launches;
+11. prints each phase's seconds, the ``kernels`` JSON line (a float32 attention row's launches are
    its route's, summed over the float32 serve checks, the reduced FT runs,
-   fig15, the train_llm surfaces and the orchestrator's train_llm
-   calibration; every other row's over the serve and train runs), then the
-   final ``{"ok": true, ...}`` line.
+   fig15, the train_llm surfaces, the orchestrator's train_llm calibration
+   and the examples; every other row's over the serve, train and examples
+   runs), then the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -431,6 +445,55 @@ LLM_FULL = (("decode_fleet_churn", 256), ("llm_pretrain_storm", 256))
 # engine-vs-fold traces: seeds per family (1 for fleet_stress, ~1.4 s a trial)
 TRACE_SEEDS = 2
 TRACE_STRATEGIES = ("central_single", "core", "hybrid")
+# the examples (``examples_phase``): each example's arguments on the card and
+# the kernels its run must launch (a count above 0; genome_search launches
+# none). train_ft runs its --full configuration (the reference's 8-layer,
+# d-768 float32 model, batch 8 x 256) under each of its three policies at
+# EXAMPLE_FT_STEPS steps, not its 300. On an NVIDIA H100 80GB HBM3 at 700 W
+# the example took 128.2 s at 300 steps and 94.3 s at 60 (the script then
+# took 974.9 s): a policy checkpoints its 0.9 GB state 8 times at any step
+# count (every steps // 8), 18-20 s a sync policy, so steps are what a cut
+# can save;
+# genome_search the paper's 5000 patterns over EXAMPLE_GENOME_MB MB, four
+# times the paper's 512 MB; the job grows with the size, ``make_genome``
+# most of it. Of the sizes measured there (512, 2048 and 4096 MB: 2.9, 9.77
+# and 24.76 s), 2048 MB is the largest whose phase was measured under 90 s
+# (70.6 s; 104.4 s at 4096 MB, on a host slower in every phase: the script
+# 1054.6 s of phases, 837.5 at 2048 MB); serve_decode the five families of
+# the kernels' table, reduced, at its defaults
+EXAMPLE_FT_STEPS = 24
+EXAMPLE_GENOME_MB = 2048
+TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd")
+EXAMPLE_RUNS = (
+    ("quickstart", (), TRAIN_KERNELS),
+    ("train_ft", ("--full", "--steps", str(EXAMPLE_FT_STEPS)), TRAIN_KERNELS),
+    ("genome_search", ("--patterns", "5000", "--genome-mb", str(EXAMPLE_GENOME_MB)), ()),
+    ("serve_decode", ("--arch", "gemma-2b"), ("rmsnorm", "flash_attention", "flash_decode")),
+    ("serve_decode", ("--arch", "rwkv6-1.6b"), ("rmsnorm", "wkv6")),
+    ("serve_decode", ("--arch", "recurrentgemma-9b"),
+     ("rmsnorm", "flash_attention", "flash_decode", "rglru")),
+    ("serve_decode", ("--arch", "whisper-tiny"), ("flash_attention", "flash_decode")),
+    ("serve_decode", ("--arch", "phi-3-vision-4.2b"),
+     ("rmsnorm", "flash_attention", "flash_decode")),
+)
+# the float32 shapes the train examples give the kernels, each held against
+# its plain version in ``kernel_phase`` and ``backward_rows``: attention
+# (B, S, H, K, hd), causal (train_ft --full a group of 3, quickstart a group
+# of 4 at head dim 16) and the norm's rows (B * S, d)
+EXAMPLE_F32_ATTN = (("train_ft --full", (8, 256, 12, 4, 64)), ("quickstart", (4, 64, 4, 1, 16)))
+EXAMPLE_F32_ROWS = (("train_ft --full", (2048, 768)), ("quickstart", (256, 64)))
+# train_ft --full's first step on the kernel path against the plain path
+# (``example_grad_check``): the loss within EXAMPLE_LOSS_TOL of the plain
+# loss, each leaf's gradient within EXAMPLE_GRAD_TOL of its largest plain
+# magnitude. The plain float32 path against float64 reads 1.1e-7 (loss) and
+# 1.9e-6 (gradients) at two of its layers on the CPU; a wrong head mapping
+# moves a gradient by its own size.
+EXAMPLE_LOSS_TOL = 1e-5
+EXAMPLE_GRAD_TOL = 1e-3
+# every registered detector and workload on REGISTRY_FAMILY, every autoscaler
+# on the traffic family, under REGISTRY_STRATEGY at CAMPAIGN_SEEDS seeds
+# (``registries_check``); every injector's schedule over LIVE_SCENARIO's tape
+REGISTRY_FAMILY, TRAFFIC_FAMILY, REGISTRY_STRATEGY = "flaky_node", "decode_fleet_churn", "hybrid"
 # the default seed split against n_devices=1: host-clock noise allowed
 # between two calls of the same one-card program
 SPLIT_NOISE = 0.10
@@ -1015,6 +1078,10 @@ def kernel_phase(dev):
     xf, sf = randn(37, 100, dtype=torch.float32), randn(100, dtype=torch.float32)
     compare("rmsnorm f32 (37, 100) unvectorised", rn.rmsnorm(xf, sf), rn.rmsnorm_ref(xf, sf),
             TOL["float32"])
+    for example, shape in EXAMPLE_F32_ROWS:
+        xe, se = randn(*shape, dtype=torch.float32), randn(shape[-1], dtype=torch.float32)
+        compare(f"rmsnorm f32 {shape} ({example})", rn.rmsnorm(xe, se), rn.rmsnorm_ref(xe, se),
+                TOL["float32"])
     xd = randn(B, 1, d)
     compare("rmsnorm bf16 decode (4, 1, 2048)", rn.rmsnorm(xd, scale), rn.rmsnorm_ref(xd, scale),
             TOL["bfloat16"])
@@ -1077,6 +1144,9 @@ def kernel_phase(dev):
     # a base one element off 16 bytes: the wrapper copies q, the same kernel runs
     qo = randn(1 * 200 * 4 * 64 + 1, dtype=torch.float32)[1:].view(1, 200, 4, 64).transpose(1, 2)
     f32_case("q base one element off (1,4,200,64)", qo, kf, vf)
+    for example, (B_, S_, H_, K_, hd_) in EXAMPLE_F32_ATTN:
+        f32_case(f"causal GQA g {H_ // K_} ({B_},{H_},{S_},{hd_})/({B_},{K_},{S_},{hd_}) "
+                 f"({example})", *qkv(B_, S_, H_, K_, hd_, dtype=torch.float32))
     for hd_ in fa.HEAD_DIMS[:-1]:  # the other instantiations of both routes, ragged S = 200
         qh, kh, vh = qkv(1, 200, 4, 2, hd_)
         compare(f"flash_attention bf16 GQA hd {hd_} (1,4,200)/(1,2,200) window 80",
@@ -1299,12 +1369,13 @@ def backward_rows(dev, randn, qkv):
     # warps (phi-3-vision's width 3072; 384 in float32), widths the warp
     # kernel does not take (100; 8192: sixteen warps) and a base one element
     # off 16 bytes (the block kernel), ragged float32 widths, one block, many
-    # blocks
+    # blocks, and the train examples' float32 rows (EXAMPLE_F32_ROWS)
     cases = [("(2048, 4096)", (2048, 4096), torch.float32)]
     cases += [("(2049, 2048)", (2049, 2048), dt) for dt in (torch.bfloat16, torch.float32)]
     cases += [("(300, 3072)", (300, 3072), torch.bfloat16), ("(37, 384)", (37, 384), torch.float32)]
     cases += [("(64, 100)", (64, 100), torch.bfloat16), ("(16, 8192)", (16, 8192), torch.bfloat16)]
     cases += [(str(shape), shape, torch.float32) for shape in ((37, 100), (3, 5, 4096), (1, 64))]
+    cases += [(f"{shape} ({example})", shape, torch.float32) for example, shape in EXAMPLE_F32_ROWS]
     for label, shape, dt in cases:
         norm_case(label, randn(*shape, dtype=dt), randn(*shape, dtype=dt),
                   randn(shape[-1], dtype=torch.float32))
@@ -1407,6 +1478,9 @@ def backward_rows(dev, randn, qkv):
          causal=False, window=40)
     case("f32 dout base one element off (1,4,200,64)/(1,2,200,64)", 1, 200, 4, 2, 64,
          dtype=torch.float32, dout_offset=1)
+    for example, (B_, S_, H_, K_, hd_) in EXAMPLE_F32_ATTN:
+        case(f"f32 causal GQA g {H_ // K_} ({B_},{H_},{S_},{hd_})/({B_},{K_},{S_},{hd_}) "
+             f"({example})", B_, S_, H_, K_, hd_, dtype=torch.float32)
     case("bf16 not causal (1,2,100,64)", 1, 100, 2, 2, 64, causal=False)
     case("bf16 not causal, window 40, GQA g 2 (2,4,300,256)", 2, 300, 4, 2, 256, causal=False,
          window=40)
@@ -3402,6 +3476,7 @@ def campaign_phase(card: str) -> None:
         fail("campaign: mc_totals' mean is off the closed form's expectation")
 
     split = split_check(micros["fleet_stress"])
+    registries = registries_check(card)
 
     counts = ops.launch_counts()
     if any(counts.values()):
@@ -3413,7 +3488,7 @@ def campaign_phase(card: str) -> None:
         "trace_s": trace_s, "mc": runs, "llm": llm,
         "mc_totals": {"n_seeds": MC_TOTALS_SEEDS, "mean_s": tot["mean_s"], "std_s": tot["std_s"],
                       "expect_s": expect, "seconds": totals_s},
-        "split": split, "launches": counts}}))
+        "split": split, "registries": registries, "launches": counts}}))
     for r in runs:
         tag = f"{r['scenario']} {r['strategy']} x {r['n_seeds']}"
         print(f"campaign: {tag}: mc_trajectories {r['mc_s']:.4f} s, {r['seeds_per_s']:.1f} seeds/s; "
@@ -3423,6 +3498,76 @@ def campaign_phase(card: str) -> None:
         print(f"campaign: {tag}: device busy {r['busy_ms']:.3f} ms, share {r['busy_share']}")
         print(f"campaign: {tag}: engine {r['engine_s_per_trial']:.4f} s per trial")
     torch.cuda.empty_cache()
+
+
+def registries_check(card: str) -> dict:
+    """Every registered detector, workload and autoscaler of the port through
+    the replay fold on the card and the engine: REGISTRY_FAMILY under each
+    detector and each workload, TRAFFIC_FAMILY under each autoscaler (its SLO
+    bill), REGISTRY_STRATEGY at CAMPAIGN_SEEDS seeds, the fold on the card
+    against the fold on the CPU bit for bit and against the engine trial for
+    trial; one detector instance serves all three, so that the ml detector's
+    verdicts come from one predictor. Then every registered injector's
+    schedule over LIVE_SCENARIO's tape: one injection per real slot at its
+    time (none for ``none``). Returns the seconds and the names covered."""
+    import numpy as np
+
+    from repro_torch.launch.campaign import trial_mismatches
+    from repro_torch.orchestrator import registry as injectors
+    from repro_torch.orchestrator.injector import ACTIONS
+    from repro_torch.scenarios import registry as scenarios
+    from repro_torch.scenarios.engine import CampaignEngine
+    from repro_torch.scenarios.trajectory import compile_batch, compile_tape, replay_batch
+    from repro_torch.telemetry import registry as detectors
+    from repro_torch.telemetry import resolve as resolve_detector
+    from repro_torch.traffic import registry as autoscalers
+    from repro_torch.workloads import registry as workloads
+    from repro_torch.workloads import resolve as resolve_workload
+
+    dev = "cuda"
+    t0_s = time.perf_counter()
+    cases = ([(REGISTRY_FAMILY, "detector", n) for n in detectors.names()]
+             + [(REGISTRY_FAMILY, "workload", n) for n in workloads.names()]
+             + [(TRAFFIC_FAMILY, "autoscaler", n) for n in autoscalers.names()])
+    for family, axis, name in cases:
+        spec = scenarios.get(family)
+        wl = resolve_workload(name if axis == "workload" else None, spec, device=dev)
+        micro = wl.micro("placentia", n_nodes=spec.n_nodes)
+        det = resolve_detector(name if axis == "detector" else "oracle", dev)
+        kw = dict(micro=micro, workload=wl, detector=det,
+                  autoscaler=name if axis == "autoscaler" else None)
+        batch = compile_batch(spec, CAMPAIGN_SEEDS)
+        out = replay_batch(spec, batch, REGISTRY_STRATEGY, device=dev, **kw)
+        cpu_out = replay_batch(spec, batch, REGISTRY_STRATEGY, device="cpu", **kw)
+        diff = [k for k in out if not np.array_equal(out[k], cpu_out[k],
+                                                     equal_nan=out[k].dtype.kind == "f")]
+        if diff:
+            fail(f"registries {family} {axis} {name}: the fold on {dev} differs from the CPU's "
+                 f"in {diff}")
+        for k in range(CAMPAIGN_SEEDS):
+            res = CampaignEngine(spec, REGISTRY_STRATEGY, seed=k, device=dev, **kw).run()
+            bad = trial_mismatches(out, k, res)
+            if bad:
+                fail(f"registries {family} {axis} {name} seed {k}: the fold differs from the "
+                     f"engine in {bad}")
+    tape = compile_tape(scenarios.get(LIVE_SCENARIO), 0)
+    real = [j for j in range(tape.n_slots) if np.isfinite(tape.times[j])]
+    for name in injectors.names():
+        sched = injectors.get(name).schedule(tape)
+        want = [] if name == "none" else real
+        if ([i.slot for i in sched] != want
+                or any(i.t_s != float(tape.times[i.slot]) or i.action not in ACTIONS
+                       for i in sched)):
+            fail(f"registries: injector {name}'s schedule {sched} over {LIVE_SCENARIO}'s tape "
+                 f"(real slots {want})")
+    seconds = time.perf_counter() - t0_s
+    covered = {axis: [n for _, a, n in cases if a == axis]
+               for axis in ("detector", "workload", "autoscaler")}
+    covered["injector"] = injectors.names()
+    print(f"registries on {card}: {covered}, fold on {dev} = CPU fold bit for bit = engine in "
+          f"{len(cases) * CAMPAIGN_SEEDS} trials; injector schedules over {LIVE_SCENARIO}'s "
+          f"tape ({len(real)} real slots); {seconds:.3f} s")
+    return {"seconds": seconds, "covered": covered}
 
 
 def figures_phase(card: str) -> None:
@@ -4145,6 +4290,122 @@ def live_checks(what: str, rep, daemon, hbs, finals, n_shards: int) -> None:
     if len(holders) < n_shards or any(hb.get("device") != "cuda" for hb in holders.values()):
         fail(f"orchestrator {what}: shard holders' devices "
              f"{ {w: hb.get('device') for w, hb in holders.items()} }, want cuda")
+
+
+def example_grad_check(dev, example) -> None:
+    """One step of the train_ft example's --full model (``example`` is the
+    loaded module) on its first batch, parameters seeded 0: the loss and
+    each leaf's gradient on the kernel path against the same step under
+    ``ops.plain_versions()``, within EXAMPLE_LOSS_TOL (relative) and
+    EXAMPLE_GRAD_TOL (of the leaf's largest plain magnitude)."""
+    import torch
+
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import flatten, unflatten
+
+    cfg, _, batch, seq = example.config(True)
+    model = build_model(cfg)
+    tokens = token_batches(0, batch, seq, cfg.vocab)(0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    leaves, treedef = flatten(model.init(g, dev, param_dtype=torch.float32))
+
+    def step(plain: bool):
+        live = [p.detach().requires_grad_() for p in leaves]
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            loss = model.loss(unflatten(treedef, live), tokens)
+            return float(loss.detach()), torch.autograd.grad(loss, live)
+
+    (loss_k, g_k), (loss_p, g_p) = step(False), step(True)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_grad = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(g_k, g_p))
+    finite = all(bool(torch.isfinite(a).all()) for a in g_k)
+    print(f"example train_ft --full one step, kernel vs plain path ({len(g_k)} leaves): loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (relative {rel_loss:.3g}, tol {EXAMPLE_LOSS_TOL}); "
+          f"largest max|dg| / max|g_plain| {rel_grad:.3g} (tol {EXAMPLE_GRAD_TOL})")
+    if not finite or rel_loss > EXAMPLE_LOSS_TOL or rel_grad > EXAMPLE_GRAD_TOL:
+        fail(f"example train_ft --full: the kernel path's step differs from the plain path's "
+             f"(finite {finite}, loss {rel_loss:.3g}, gradients {rel_grad:.3g})")
+    del leaves, g_k, g_p
+    free_device_memory()
+
+
+def examples_phase(card: str) -> tuple:
+    """The port's linter, then the four examples on the card. First
+    ``python -m repro_torch.analysis src/repro_torch`` in a subprocess must
+    exit 0. Then each run of EXAMPLE_RUNS: the example loaded by path, its
+    ``main(argv)`` called in this process with the launch counts set to 0
+    just before and read just after; it must return, print ``OK`` last and
+    launch each kernel its row names (genome_search none). Prints each run's
+    output, seconds and launches; after the train_ft run, its first step on
+    the kernel path against the plain path (``example_grad_check``, launches
+    not counted). Returns (the launches summed over the runs, the float32
+    attention routes' share)."""
+    import importlib.util
+    import io
+    import os
+    import traceback
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    t0_s = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p)}
+    lint = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "src/repro_torch"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    lines = lint.stdout.strip().splitlines() or [""]
+    print(f"examples: python -m repro_torch.analysis src/repro_torch: exit {lint.returncode}, "
+          f"{lines[-1]} ({time.perf_counter() - t0_s:.1f} s)")
+    if lint.returncode != 0:
+        fail(f"the port's linter found:\n{lint.stdout}{lint.stderr}")
+
+    launches = {name: 0 for name in ops.launch_counts()}
+    f32 = {name: 0 for name in ops.f32_launch_counts()}
+    for name, argv, kernels in EXAMPLE_RUNS:
+        spec = importlib.util.spec_from_file_location(f"{name}_torch_example",
+                                                      ROOT / "examples" / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        label = " ".join((name, *argv))
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t1_s = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                mod.main([*argv, "--device", "cuda"])
+        except Exception as e:  # an example's own check, or any fault of the run
+            print(out.getvalue())
+            traceback.print_exc()
+            fail(f"example {label}: {type(e).__name__}: {e}")
+        seconds = time.perf_counter() - t1_s
+        counts, f32_counts = ops.launch_counts(), ops.f32_launch_counts()
+        text = out.getvalue().rstrip()
+        print("\n".join(f"  | {line}" for line in text.splitlines()))
+        used = {k: n for k, n in counts.items() if n}
+        print(f"example {label} on {card}: {seconds:.2f} s, last line "
+              f"{text.splitlines()[-1] if text else ''!r}, launches {used}")
+        if not text.endswith("\nOK") and text != "OK":
+            fail(f"example {label}: its last line is not OK")
+        missing = [k for k in kernels if not counts[k]]
+        if missing or (not kernels and used):
+            fail(f"example {label}: kernels {missing} not launched (want {kernels}), "
+                 f"launched {used}")
+        for k, n in counts.items():
+            launches[k] += n
+        for k, n in f32_counts.items():
+            f32[k] += n
+        if name == "train_ft":
+            example_grad_check(torch.device("cuda"), mod)
+        del mod
+        free_device_memory()
+    print(f"examples: {len(EXAMPLE_RUNS)} runs, {time.perf_counter() - t0_s:.1f} s in all; "
+          f"launches {launches} (float32 attention routes {f32})")
+    return launches, f32
 
 
 def orchestrator_phase(card: str) -> dict:
@@ -5011,8 +5272,13 @@ def main() -> int:
     check_free_memory("the orchestrator phase")
     add_f32(orchestrator_phase(card))
     lap("orchestrator")
+    example_counts, example_f32 = examples_phase(card)
+    for name, n in example_counts.items():  # a float32 route's launches go to its rows
+        launches[name] += n - example_f32.get(name, 0)
+    add_f32(example_f32)
+    lap("examples")
     print(f"float32 route launches: {f32} (float32 serve checks, reduced FT, fig15, "
-          f"train_llm surfaces, the orchestrator's train_llm calibration)")
+          f"train_llm surfaces, the orchestrator's train_llm calibration, the examples)")
 
     for r in rows:
         # a float32 attention row counts its route's launches on the float32 paths

@@ -506,7 +506,7 @@ def _compiled_replayer(static: _ReplayStatic, tstatic: _TableStatic) -> Callable
             idx_row >= static.n_workers, (idx_row - static.n_workers).to(f64), inf
         ).expand(S, H).clone()
         next_seq = torch.full((S,), float(static.n_spares), dtype=f64, device=dev)
-        deg = torch.as_tensor(deg0).to(dev)[None, :].expand(S, H).clone()
+        deg = torch.as_tensor(deg0, dtype=i32).to(dev)[None, :].expand(S, H).clone()
         attempt = torch.zeros((S, H), dtype=f64, device=dev)
         rcount = torch.zeros((S,), dtype=i64, device=dev)
         n_events = torch.zeros((S,), dtype=i32, device=dev)

@@ -309,6 +309,46 @@ def test_tapes_match_reference_bitwise(family):
             assert a.dtype == b.dtype and np.array_equal(a, b), (family, seed, f)
 
 
+# every DSL process kind of ``scenarios/spec.py``, by name: a new kind must
+# be added here, and so gets a test of its own
+DSL_KINDS = ("periodic", "random", "burst", "rack", "cascade", "flaky", "ckpt_window",
+                 "partition", "degrade")
+
+
+def test_process_kinds_are_the_reference_s():
+    from repro.scenarios import spec as r_spec
+    from repro_torch.scenarios import spec as t_spec
+
+    assert t_spec.PROCESS_KINDS == r_spec.PROCESS_KINDS == DSL_KINDS
+
+
+@pytest.mark.parametrize("kind", DSL_KINDS)
+def test_each_process_kind_alone_matches_reference(kind):
+    """The first registered family with a process of ``kind`` (not an LLM
+    family, whose SLO bill prices on the port's H100 record), cut to its
+    processes of that kind: tapes bit for bit, and the engine's records
+    under one pinned MicroCosts."""
+    family = next(f for f in r_scenarios.names() if f not in LLM_FAMILIES
+                  and any(p.kind == kind for p in r_scenarios.get(f).processes))
+    specs = []
+    for reg in (r_scenarios, t_scenarios):
+        spec = reg.get(family)
+        specs.append(dataclasses.replace(
+            spec, processes=[p for p in spec.processes if p.kind == kind]))
+    spec_r, spec_t = specs
+    for seed in range(2):
+        want, got = r_compile_tape(spec_r, seed), t_compile_tape(spec_t, seed)
+        assert got.causes == want.causes and got.partition_changes == want.partition_changes
+        for f in ("times", "victim", "parent", "predictable", "during_ckpt", "part_active"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (kind, seed, f)
+    ref_micro, t_micro = micro_pair(family)
+    want = REngine(spec_r, "core", micro=ref_micro, seed=0).run()
+    got = TEngine(spec_t, "core", micro=t_micro, seed=0, device="cpu").run()
+    assert got.to_dict() == want.to_dict(), kind
+    assert got.events == want.events and got.slowdown_s == want.slowdown_s
+
+
 # ---------------------------------------------------------------- engine ---
 @pytest.mark.parametrize("family,strategy", FAMILY_STRATEGY)
 def test_engine_records_match_reference(family, strategy):

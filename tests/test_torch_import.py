@@ -124,6 +124,18 @@ CONFIG_MODULES = (
 )
 
 
+# the port's linter (stdlib ast only; its rules register on import)
+ANALYSIS_MODULES = (
+    "repro_torch.analysis", "repro_torch.analysis.__main__", "repro_torch.analysis.base",
+    "repro_torch.analysis.cli", "repro_torch.analysis.findings", "repro_torch.analysis.project",
+    "repro_torch.analysis.registry", "repro_torch.analysis.runner",
+    "repro_torch.analysis.rules", "repro_torch.analysis.rules.dtypes",
+    "repro_torch.analysis.rules.parity", "repro_torch.analysis.rules.purity",
+    "repro_torch.analysis.rules.registries", "repro_torch.analysis.rules.units",
+    "repro_torch.analysis.rules.wallclock",
+)
+
+
 @pytest.fixture(scope="module")
 def import_all():
     """One interpreter that imports every module of the port: (count, names)."""
@@ -191,6 +203,13 @@ def test_orchestrator_module_imported_without_jax(module, import_all):
 def test_dryrun_module_imported_without_jax(module, import_all):
     """Each module of the "model"-axis split and the dry run is among those
     the no-jax import loads."""
+    assert module in import_all[1]
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_module_imported_without_jax(module, import_all):
+    """Each module of the port's linter is among those the no-jax import
+    loads."""
     assert module in import_all[1]
 
 
